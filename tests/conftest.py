@@ -15,3 +15,9 @@ _ROOT = os.path.dirname(_HERE)
 for _p in (_ROOT, _HERE):
     if _p not in sys.path:
         sys.path.insert(0, _p)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips (with its reason) where "
+        "there is none")
