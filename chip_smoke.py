@@ -6,18 +6,27 @@ Run from the repository root on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs, in
-order: (1) the card's name, power limit and count; (2) the build; (3) every
-kernel against its plain PyTorch version, bit-exact, on the card; (4) the
-port's main path through ``Engine(backend="cuda")``: PolyBench gemm and
-gesummv at MEDIUM size, 256 requests per class of six one-shot kernels at
-length 4096, a multi-shot plan and ``fabric_stream``, each checked against
-numpy or the port's executor, with the kernels' launch counts read around
-it; (5) each kernel's time at the main path's shapes beside its plain
-version's time and its bound, and the device time per launch from
-``torch.profiler``; (6) one profiled gemm run: wall time against the time
-the device was busy. It exits non-zero, printing no result line,
-when there is no CUDA device, when the port is missing, or when any phase
-fails. The last line is ``{"ok": true, "device": {...}}``.
+order: (1) the card's name, power limit and count, and the TF32 switches
+(both off); (2) the build; (3) every fabric kernel against its plain
+PyTorch version, bit-exact, on the card; (4) the engine's path through
+``Engine(backend="cuda")``: PolyBench gemm and gesummv at MEDIUM size, 256
+requests per class of six one-shot kernels at length 4096, a multi-shot
+plan and ``fabric_stream``, each checked against numpy or the port's
+executor, with the kernels' launch counts read around it; (5) each fabric
+kernel's time at that path's shapes beside its plain version's time and
+its bound, and the device time per launch from ``torch.profiler``; (6) one
+profiled gemm run: wall time against the time the device was busy; (7) the
+dense kernels (``stream_matmul``, ``stream_conv2d``, ``flash_attention``)
+against their plain versions at the reference tests' shapes and ragged
+ones; (8) the dense path through ``repro_torch.kernels.ops`` at realistic
+widths (minicpm-2b's gate/up projection over 4,096 tokens in float32 and
+bfloat16, its causal attention at 4k context, a 16-megapixel frame), with
+the launch counts read around it and each result then held against its
+plain version; (9) the dense kernels' times beside their plain versions',
+their bounds and one PyTorch library call each. It exits non-zero,
+printing no result line, when there is no CUDA device, when the port is
+missing, or when any phase fails. The last line is
+``{"ok": true, "device": {...}}``.
 
 It imports neither ``jax`` nor the JAX package.
 """
@@ -36,6 +45,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 # H100 SXM int32 rate outside the tensor cores: 64 INT32 units per SM beside
 # 128 FP32 ones, so half the data sheet's 67 TFLOP/s float32 rate.
 INT_OPS_PER_S = 33.5e12
+FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM dense bfloat16 tensor cores
 SEED = 0
 
 
@@ -505,6 +516,262 @@ def phase_profile(device, gemm=(200, 220, 240)):
           f"{ {n: round(us / 1e3, 4) for n, us in top} }")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the dense kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def normal(rng, shape, device, dtype=None):
+    import torch
+    x = torch.from_numpy(rng.standard_normal(shape, dtype="float32"))
+    x = x.to(device)
+    return x if dtype is None else x.to(dtype)
+
+
+def close(got, want, atol, rtol, label):
+    """max |got - want|, failing unless |got - want| <= atol + rtol |want|
+    everywhere (the reference tests' allclose)."""
+    import torch
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    ok = bool(torch.isfinite(g).all()) and bool(
+        ((g - w).abs() <= atol + rtol * w.abs()).all())
+    check(ok and got.shape == want.shape,
+          f"{label}: kernel != plain (max abs err {err}, atol {atol}, "
+          f"rtol {rtol})")
+    return err
+
+
+def phase_dense_parity(device):
+    """Each dense kernel against its plain version at the reference tests'
+    shapes and ragged ones, with the tests' tolerances (atol = rtol)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import stream_conv2d as sc
+    from repro_torch.kernels import stream_matmul as sm
+    rng = np.random.default_rng(SEED + 5)
+    f32, bf16 = torch.float32, torch.bfloat16
+    by_limit = {}                  # (kernel, limit) -> max abs err
+
+    def note(kernel, limit, err):
+        key = (kernel, limit)
+        by_limit[key] = max(by_limit.get(key, 0.0), err)
+
+    for (m, k, n), dt, out in (
+            ((70, 90, 50), f32, f32), ((1, 1, 1), f32, f32),
+            ((300, 300, 300), f32, f32), ((70, 90, 50), bf16, f32),
+            ((1, 1, 1), bf16, f32), ((300, 300, 300), bf16, f32),
+            ((129, 67, 131), f32, bf16), ((136, 64, 200), bf16, bf16)):
+        tol, limit = ((2 ** -7, "bf16 out: 2^-7, one ulp") if out == bf16
+                      else (1e-4, "f32 in: 1e-4") if dt == f32
+                      else (5e-2, "bf16 in: 5e-2"))
+        a, b = normal(rng, (m, k), device, dt), normal(rng, (k, n), device, dt)
+        note("stream_matmul", limit, close(
+            sm.matmul_kernel(a, b, out), sm.matmul_plain(a, b, out), tol, tol,
+            f"stream_matmul {m}x{k}x{n} {dt}->{out}"))
+    exact = True
+    for h, w in ((3, 200), (64, 200), (300, 517)):
+        img, kern = normal(rng, (h, w), device), normal(rng, (3, 3), device)
+        got, want = sc.conv_kernel(img, kern), sc.conv_plain(img, kern)
+        note("stream_conv2d", "atol 1e-4, rtol 1e-3",
+             close(got, want, 1e-4, 1e-3, f"stream_conv2d {h}x{w}"))
+        exact = exact and bool(torch.equal(got, want))
+    for h, sq, sk, d, causal, dt in (
+            (2, 200, 200, 80, True, f32), (2, 128, 1000, 64, False, f32),
+            (2, 1, 4096, 64, True, f32), (2, 200, 200, 16, True, f32),
+            (2, 256, 256, 128, True, f32), (3, 150, 70, 16, False, f32),
+            (2, 100, 300, 128, True, bf16)):
+        q = normal(rng, (h, sq, d), device, dt)
+        k, v = (normal(rng, (h, sk, d), device, dt) for _ in range(2))
+        tol, limit = ((3e-5, "f32: 3e-5") if dt == f32
+                      else (2 ** -7, "bf16: 2^-7, one ulp"))
+        note("flash_attention", limit, close(
+            fa.attention_kernel(q, k, v, causal),
+            fa.attention_plain(q, k, v, causal), tol, tol,
+            f"flash_attention h={h} sq={sq} sk={sk} d={d} causal={causal} "
+            f"{dt}"))
+    torch.cuda.synchronize()
+    errs = {"stream_matmul": 0.0, "stream_conv2d": 0.0,
+            "flash_attention": 0.0}
+    for (kernel, limit), err in by_limit.items():
+        errs[kernel] = max(errs[kernel], err)
+        print(f"[dense-parity] {kernel} ({limit}): max abs err {err}")
+    print(f"[dense-parity] {len(by_limit)} groups of kernel-vs-plain "
+          f"comparisons, each within its limit (atol = rtol); conv "
+          f"bit-exact: {exact}")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the dense path through repro_torch.kernels.ops
+# ---------------------------------------------------------------------------
+
+MM = (4096, 2304, 5760)        # minicpm-2b gate/up projection, 4,096 tokens
+ATTN_CAUSAL = (36, 4096, 4096, 64)   # minicpm-2b attention at 4k context
+ATTN_FULL = (8, 1024, 1024, 64)      # benchmarks/bench_kernels.py:90
+CONV_BIG, CONV_SMALL = (4096, 4096), (256, 256)
+# path tolerances: float32 matmul at K=2304 against cuBLAS in another order,
+# relative to max|C| (TF32 would show about 1e-3); bfloat16 inputs on the
+# tensor cores, whose accumulation order and rounding differ again
+MM_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
+
+
+def phase_dense_path(device):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stream_conv2d as sc
+    from repro_torch.kernels import stream_matmul as sm
+    rng = np.random.default_rng(SEED + 6)
+    M, K, N = MM
+    a = rng.standard_normal((M, K), dtype="float32")
+    b = rng.standard_normal((K, N), dtype="float32")
+    h, sq, sk, d = ATTN_CAUSAL
+    q, k, v = (rng.standard_normal((h, s, d), dtype="float32")
+               for s in (sq, sk, sk))
+    hn, sqn, skn, dn = ATTN_FULL
+    qn, kn, vn = (rng.standard_normal((hn, s, dn), dtype="float32")
+                  for s in (sqn, skn, skn))
+    img = rng.standard_normal(CONV_BIG, dtype="float32")
+    img_s = rng.standard_normal(CONV_SMALL, dtype="float32")
+    kern = rng.standard_normal((3, 3), dtype="float32")
+    # bfloat16 has no numpy type: the same values, rounded on the card
+    a16 = torch.from_numpy(a).to(device).to(torch.bfloat16)
+    b16 = torch.from_numpy(b).to(device).to(torch.bfloat16)
+    torch.cuda.synchronize()
+
+    mods = {"stream_matmul": sm, "stream_conv2d": sc, "flash_attention": fa}
+    for mod in mods.values():
+        mod.launches = mod.plain_calls = 0
+    t0 = time.perf_counter()
+    out = {"mm": ops.matmul(a, b), "mm16": ops.matmul(a16, b16),
+           "attn": ops.attention(q, k, v, causal=True),
+           "attn_full": ops.attention(qn, kn, vn, causal=False),
+           "conv": ops.conv2d_3x3(img, kern),
+           "conv_s": ops.conv2d_3x3(img_s, kern)}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: m.launches for n, m in mods.items()}
+    plain = {n: m.plain_calls for n, m in mods.items()}
+    check(all(t.device.type == device.type for t in out.values()),
+          f"ops returned a result off {device}")
+    check(all(v > 0 for v in launches.values()),
+          f"a dense kernel was never launched on its path: {launches}")
+    check(all(v == 0 for v in plain.values()),
+          f"a plain version ran on the dense path: {plain}")
+    print(f"[dense-path] ops.matmul f32 and bf16 {M}x{K}x{N}, ops.attention "
+          f"causal h={h} s={sq} d={d} and full h={hn} s={sqn}, "
+          f"ops.conv2d_3x3 {CONV_BIG} and {CONV_SMALL}: {wall:.3f} s wall "
+          f"(host-to-device copies included); launches {launches}, plain "
+          f"calls {plain}")
+
+    # now, outside the counted run, each result against its plain version
+    ins = {"a": out["mm"].new_tensor(a), "b": out["mm"].new_tensor(b),
+           "a16": a16, "b16": b16, "q": out["attn"].new_tensor(q),
+           "k": out["attn"].new_tensor(k), "v": out["attn"].new_tensor(v),
+           "img": out["conv"].new_tensor(img),
+           "kern": out["conv"].new_tensor(kern)}
+    errs = {}
+    for key, want, rel in (
+            ("mm", sm.matmul_plain(ins["a"], ins["b"]), MM_REL_TOL["float32"]),
+            ("mm16", sm.matmul_plain(a16, b16), MM_REL_TOL["bfloat16"])):
+        scale = float(want.abs().max())
+        e = close(out[key], want, rel * scale, 0.0,
+                  f"ops.matmul {key} at {M}x{K}x{N} (limit {rel} max|C| = "
+                  f"{rel * scale})")
+        errs[key] = e
+        print(f"[dense-path] {key}: max abs err {e} = {e / scale:.3e} "
+              f"max|C| (limit {rel})")
+    errs["attn"] = close(out["attn"], fa.attention_plain(
+        ins["q"], ins["k"], ins["v"], True), 3e-5, 3e-5, "ops.attention causal")
+    errs["attn_full"] = close(out["attn_full"], fa.attention_plain(
+        *(out["attn"].new_tensor(x) for x in (qn, kn, vn)), False),
+        3e-5, 3e-5, "ops.attention full")
+    errs["conv"] = close(out["conv"], sc.conv_plain(ins["img"], ins["kern"]),
+                         1e-4, 1e-3, "ops.conv2d_3x3 4096x4096")
+    errs["conv_s"] = close(out["conv_s"], sc.conv_plain(
+        out["conv"].new_tensor(img_s), ins["kern"]), 1e-4, 1e-3,
+        "ops.conv2d_3x3 256x256")
+    torch.cuda.synchronize()
+    print(f"[dense-path] every result within its tolerance of the plain "
+          f"version on the card: max abs err {errs}")
+    kernel_errs = {"stream_matmul": max(errs["mm"], errs["mm16"]),
+                   "flash_attention": max(errs["attn"], errs["attn_full"]),
+                   "stream_conv2d": max(errs["conv"], errs["conv_s"])}
+    return launches, kernel_errs, ins
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the dense kernels' times
+# ---------------------------------------------------------------------------
+
+def dense_bound(n_bytes, n_flop, flop_per_s):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flop / flop_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_dense_times(ins):
+    """Kernel, plain and library times at the first realistic shape of each
+    dense kernel, with the bound from this run's shapes: bytes read once
+    and written once over 3.35 TB/s, or the multiply-adds (2 flop each) over
+    the peak rate of their type."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import stream_conv2d as sc
+    from repro_torch.kernels import stream_matmul as sm
+    M, K, N = MM
+    h, sq, sk, d = ATTN_CAUSAL
+    H, W = CONV_BIG
+    a, b, a16, b16 = ins["a"], ins["b"], ins["a16"], ins["b16"]
+    q, k, v, img, kern = ins["q"], ins["k"], ins["v"], ins["img"], ins["kern"]
+    q_off = sk - sq
+    pairs = h * sum(min(sk, q_off + i + 1) for i in range(sq))
+    cases = {
+        "stream_matmul f32": (
+            lambda: sm.matmul_kernel(a, b), lambda: sm.matmul_plain(a, b),
+            lambda: torch.matmul(a, b),
+            dense_bound(4 * (M * K + K * N + M * N), 2 * M * N * K,
+                        FP32_FLOP_PER_S)),
+        "stream_matmul bf16": (
+            lambda: sm.matmul_kernel(a16, b16),
+            lambda: sm.matmul_plain(a16, b16),
+            lambda: torch.matmul(a16, b16),      # its result is bfloat16
+            dense_bound(2 * (M * K + K * N) + 4 * M * N, 2 * M * N * K,
+                        BF16_FLOP_PER_S)),
+        "flash_attention causal": (
+            lambda: fa.attention_kernel(q, k, v, True),
+            lambda: fa.attention_plain(q, k, v, True),
+            lambda: F.scaled_dot_product_attention(q[None], k[None],
+                                                   v[None], is_causal=True),
+            dense_bound(4 * h * d * (2 * sq + 2 * sk), 4 * d * pairs,
+                        FP32_FLOP_PER_S)),
+        "stream_conv2d 4096x4096": (
+            lambda: sc.conv_kernel(img, kern), lambda: sc.conv_plain(img, kern),
+            lambda: F.conv2d(img[None, None], kern[None, None]),
+            dense_bound(4 * (H * W + (H - 2) * (W - 2) + 9),
+                        18 * (H - 2) * (W - 2), FP32_FLOP_PER_S)),
+    }
+    rows = {}
+    for label, (kernel, plain, library, (b_ms, b_by)) in cases.items():
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, reps=5, warm=1)
+        library_ms = time_ms(library)
+        kernel()
+        prof = profile_run(lambda: [kernel() for _ in range(5)])
+        dev = {n: round(us / 5 / 1e3, 5) for n, us in prof["by_name"].items()}
+        rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=library_ms)
+        print(f"[dense-times] {label}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), share of bound {b_ms / ms:.3f}, "
+              f"kernel / library {ms / library_ms:.3f}; profiler device ms "
+              f"per launch {dev or 'not measured'}")
+    return rows
+
+
 def nvidia_smi() -> str:
     try:
         out = subprocess.run(
@@ -528,19 +795,29 @@ def main() -> int:
     print(f"[device] {nvidia_smi()}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}, "
           f"{count} device(s), device 0: {name}")
+    # the plain versions and the library yardsticks in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[device] torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, "
+          f"torch.backends.cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
     _build.build(verbose=True)
     _build.load()
-    print(f"[build] {_build.library_path().name} in "
+    print(f"[build] {len(_build.sources())} sources into "
+          f"{_build.library_path().name} in "
           f"{time.perf_counter() - t0:.2f} s")
 
     errs = phase_parity(device)
     launches = phase_main(device)
     rows = phase_times(device)
     phase_profile(device)
+    dense_errs = phase_dense_parity(device)
+    dense_launches, path_errs, ins = phase_dense_path(device)
+    dense_rows = phase_dense_times(ins)
 
-    src = "src/repro_torch/csrc/fabric.cu"
     main_rows = {"fabric_reduce_lanes": (
                      "fabric_reduce_lanes gemm mac3 grid",
                      "src/repro/kernels/fabric_reduce.py:183"),
@@ -551,12 +828,29 @@ def main() -> int:
     for kname, (label, replaces) in main_rows.items():
         r = rows[label]
         kernels.append({
-            "name": kname, "route": "cuda", "source": src,
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/csrc/fabric.cu",
             "replaces": replaces, "launches": launches[kname],
             "max_abs_err": max(errs[kname], r["max_abs_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
+    dense = {"stream_matmul": ("stream_matmul f32",
+                               "src/repro/kernels/stream_matmul.py:68"),
+             "stream_conv2d": ("stream_conv2d 4096x4096",
+                               "src/repro/kernels/stream_conv2d.py:51"),
+             "flash_attention": ("flash_attention causal",
+                                 "src/repro/kernels/flash_attention.py:68")}
+    for kname, (label, replaces) in dense.items():
+        r = dense_rows[label]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{kname}.cu",
+            "replaces": replaces, "launches": dense_launches[kname],
+            "max_abs_err": max(dense_errs[kname], path_errs[kname]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     print(nvidia_smi())                  # name, power limit: a line alone
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

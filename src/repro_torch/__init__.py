@@ -10,8 +10,10 @@ port module names the reference module it is held against:
   repro_torch.engine    — compile -> artifact -> ``Engine``; backends
                           ``"sim"`` and ``"cuda"``
   repro_torch.kernels   — hand-written CUDA kernels for Hopper
-                          (``csrc/fabric.cu``) and their plain PyTorch
-                          versions
+                          (``csrc/*.cu``: the fabric interpreter,
+                          stream_matmul, stream_conv2d, flash_attention),
+                          their plain PyTorch versions, and the ``ops``
+                          entry point
   repro_torch.convert   — reference DFGs and inputs into the port's types
 
 The port imports ``torch``, never ``jax`` and nothing of ``repro``.

@@ -1,12 +1,13 @@
-"""Build ``csrc/fabric.cu`` into a shared library at first use and load it.
+"""Build every ``csrc/*.cu`` into one shared library at first use and load it.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` compiles the one
-source into ``csrc/build/libstrela_fabric_<digest>.so`` (git-ignored), with a
-plain C interface that ``ctypes`` binds: every pointer and the stream travel
-as ``c_void_p``. The digest covers the source and the flags, so an edited
-source rebuilds and concurrent processes race benignly (tmp file + rename).
-Nothing here runs at import: the CPU tests import every module, and this
-machine may have no ``nvcc``.
+Each source compiles on its own (``nvcc -gencode arch=compute_90a,code=sm_90a
+-O3 -c``, all started together) and one ``nvcc -shared`` links the objects
+into ``csrc/build/libstrela_<digest>.so`` (git-ignored), with a plain C
+interface that ``ctypes`` binds: every pointer and the stream travel as
+``c_void_p``. The digest covers every source and the flags, so an edit to
+any source rebuilds, and concurrent processes race benignly (tmp file +
+rename). Nothing here runs at import: the CPU tests import every module,
+and this machine may have no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -17,13 +18,12 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCE = CSRC / "fabric.cu"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -35,33 +35,64 @@ def nvcc() -> str:
         return found
     if os.path.exists("/usr/local/cuda/bin/nvcc"):
         return "/usr/local/cuda/bin/nvcc"
-    raise RuntimeError("building the fabric kernels needs nvcc (the CUDA "
+    raise RuntimeError("building the CUDA kernels needs nvcc (the CUDA "
                        "toolkit); none was found on PATH or in "
                        "/usr/local/cuda/bin")
 
 
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    h = hashlib.sha1(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libstrela_fabric_{h.hexdigest()[:12]}.so"
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libstrela_{h.hexdigest()[:12]}.so"
+
+
+def _run(procs: List[Tuple[str, subprocess.Popen]], verbose: bool) -> None:
+    failed = []
+    for what, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building "
+                          f"{what}:\n{out}\n{err}")
+        elif verbose:
+            print(out + err, end="")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the library unless this source's build exists already."""
+    """Compile the library unless this set of sources' build exists
+    already: one ``nvcc`` per source, all at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    objs, procs = [], []
+    for src in sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append((src.name, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{SOURCE.name}:\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, end="")
-    os.replace(tmp, out)
+    try:
+        _run(procs, verbose)
+        _run([(out.name, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+             *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))],
+            verbose)
+        os.replace(tmp, out)
+    finally:
+        for obj in (*objs, tmp):
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -78,6 +109,13 @@ def load() -> ctypes.CDLL:
         lib.strela_fabric_reduce_lanes.restype = i
         lib.strela_fabric_stream.argtypes = [vp, i, i, vp, i, vp, i, ll, vp]
         lib.strela_fabric_stream.restype = i
+        lib.strela_stream_matmul.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+        lib.strela_stream_matmul.restype = i
+        lib.strela_stream_conv2d.argtypes = [vp, vp, vp, i, i, vp]
+        lib.strela_stream_conv2d.restype = i
+        lib.strela_flash_attention.argtypes = [
+            vp, vp, vp, vp, i, i, i, i, i, i, ctypes.c_float, vp]
+        lib.strela_flash_attention.restype = i
         lib.strela_error_string.argtypes = [i]
         lib.strela_error_string.restype = ctypes.c_char_p
         lib.strela_chunk_elements.argtypes = []

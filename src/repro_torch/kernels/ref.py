@@ -1,9 +1,9 @@
-"""Plain PyTorch versions of the fabric kernels (counterpart of
+"""Plain PyTorch versions of the port's kernels (counterpart of
 ``repro.kernels.ref``).
 
-These define *what* ``csrc/fabric.cu`` computes. The CPU tests run them,
-the kernel wrappers take them for tensors that lie on the CPU, and
-``chip_smoke.py`` holds each CUDA kernel against them on the card.
+These define *what* the CUDA sources in ``csrc/`` compute. The CPU tests
+run them, the kernel wrappers take them for tensors that lie on the CPU,
+and ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 
 int32 semantics follow the reference exactly: arithmetic wraps mod 2^32
 (computed in int64 and wrapped back, since signed overflow is not
@@ -12,7 +12,7 @@ arithmetic, and CMP tests the *wrapped* difference ``a - b``.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -219,3 +219,51 @@ def fold_lanes(op: AluOp, acc_init: int, x: torch.Tensor) -> torch.Tensor:
     if x.shape[1] == 1:
         acc = dfg_node_eval(op, acc, x[:, 0])
     return acc
+
+
+# ---------------------------------------------------------------------------
+# stream_matmul / stream_conv2d / flash_attention (float kernels)
+# ---------------------------------------------------------------------------
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``A @ B`` in float32: bfloat16 inputs are upcast first, as
+    ``preferred_element_type=float32`` accumulates them. On the card this
+    is a full float32 product only while TF32 is off for matmuls (PyTorch's
+    default)."""
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+
+def conv2d_3x3(img: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
+    """'valid' 3x3 correlation in float32, (H, W) -> (H-2, W-2): the nine
+    shifted-slice products summed in row-major tap order. Not
+    ``F.conv2d``, which cuDNN runs in TF32 by default."""
+    H, W = img.shape
+    x = img.to(torch.float32)
+    k = kern.to(torch.float32)
+    out = torch.zeros((H - 2, W - 2), dtype=torch.float32, device=img.device)
+    for r in range(3):
+        for c in range(3):
+            out = out + k[r, c] * x[r:H - 2 + r, c:W - 2 + c]
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over ``(heads, seq, head_dim)`` with the kv heads already
+    broadcast, in float32, returned in q's dtype. The causal mask is
+    aligned to the end of the keys, ``tril(diagonal=sk - sq)``; SDPA's
+    ``is_causal`` aligns it to the start instead, which differs whenever
+    ``sq != sk``."""
+    h, sq, d = q.shape
+    sk = k.shape[1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    logits = torch.einsum("hqd,hkd->hqk", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    if causal:
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(diagonal=sk - sq)
+        logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("hqk,hkd->hqd", probs,
+                        v.to(torch.float32)).to(q.dtype)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions on the same device inputs, bit-exact; and the ``"cuda"`` engine
-end to end. Marked ``gpu``: each test asks its fixture for the card and
+versions on the same device inputs (the fabric kernels bit-exact, the
+float kernels within ``tests/test_kernels_pallas.py``'s tolerances, with
+TF32 off); and the ``"cuda"`` engine end to end. Marked ``gpu``: each test asks its fixture for the card and
 skips, with the reason, where there is none. This file imports neither
 ``jax`` nor the JAX package, so it also runs where only the port is
 installed:
@@ -16,6 +17,9 @@ from repro_torch.core.dfg import DFG
 from repro_torch.core.isa import AluOp, CmpOp
 from repro_torch.kernels import fabric_reduce as fr
 from repro_torch.kernels import fabric_stream as fs
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import stream_conv2d as sc
+from repro_torch.kernels import stream_matmul as sm
 
 pytestmark = pytest.mark.gpu
 
@@ -35,6 +39,8 @@ PARITY = {
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; none is available here")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in fp32
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -112,3 +118,61 @@ def test_cuda_engine_serves_clients_through_the_kernel(cuda):
     np.testing.assert_array_equal(C, want)
     assert fr.launches > launches and fr.plain_calls == plain
     assert eng.stats.lane_batches > 0 and eng.stats.lane_batch_failures == 0
+
+
+def _normal(rng, shape, device, dtype=torch.float32):
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    return x.to(device).to(dtype)
+
+
+@pytest.mark.parametrize("m,k,n,dtype,out_dtype,tol", [
+    (70, 90, 50, torch.float32, torch.float32, 1e-4),
+    (1, 1, 1, torch.float32, torch.float32, 1e-4),
+    (300, 300, 300, torch.float32, torch.float32, 1e-4),
+    (129, 67, 131, torch.float32, torch.bfloat16, 2 ** -7),
+    (70, 90, 50, torch.bfloat16, torch.float32, 5e-2),
+    (300, 300, 300, torch.bfloat16, torch.float32, 5e-2),
+    (136, 64, 200, torch.bfloat16, torch.bfloat16, 2 ** -7),
+])
+def test_stream_matmul_kernel_matches_plain(cuda, m, k, n, dtype, out_dtype,
+                                            tol):
+    rng = np.random.default_rng(m + k + n)
+    a, b = _normal(rng, (m, k), cuda, dtype), _normal(rng, (k, n), cuda, dtype)
+    launches = sm.launches
+    got = sm.matmul_kernel(a, b, out_dtype)
+    want = sm.matmul_plain(a, b, out_dtype)
+    torch.cuda.synchronize()
+    assert sm.launches == launches + 1 and got.dtype == out_dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("h,w", [(3, 200), (64, 200), (300, 517)])
+def test_stream_conv2d_kernel_matches_plain_bit_exact(cuda, h, w):
+    rng = np.random.default_rng(h * w)
+    img, kern = _normal(rng, (h, w), cuda), _normal(rng, (3, 3), cuda)
+    got = sc.conv_kernel(img, kern)
+    want = sc.conv_plain(img, kern)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("h,sq,sk,d,causal,dtype", [
+    (2, 200, 200, 80, True, torch.float32),
+    (2, 128, 1000, 64, False, torch.float32),
+    (2, 1, 4096, 64, True, torch.float32),
+    (2, 200, 200, 16, True, torch.float32),
+    (2, 100, 300, 128, True, torch.float32),
+    (3, 150, 70, 16, False, torch.float32),
+    (2, 100, 300, 128, True, torch.bfloat16),
+])
+def test_flash_attention_kernel_matches_plain(cuda, h, sq, sk, d, causal,
+                                              dtype):
+    rng = np.random.default_rng(sq + sk + d)
+    q = _normal(rng, (h, sq, d), cuda, dtype)
+    k, v = (_normal(rng, (h, sk, d), cuda, dtype) for _ in range(2))
+    got = fa.attention_kernel(q, k, v, causal)
+    want = fa.attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    tol = 3e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
