@@ -18,12 +18,20 @@ its bound, and the device time per launch from ``torch.profiler``; (6) one
 profiled gemm run: wall time against the time the device was busy; (7) the
 dense kernels (``stream_matmul``, ``stream_conv2d``, ``flash_attention``)
 against their plain versions at the reference tests' shapes and ragged
-ones; (8) the dense path through ``repro_torch.kernels.ops`` at realistic
-widths (minicpm-2b's gate/up projection over 4,096 tokens in float32 and
-bfloat16, its causal attention at 4k context, a 16-megapixel frame), with
-the launch counts read around it and each result then held against its
-plain version; (9) the dense kernels' times beside their plain versions',
-their bounds and one PyTorch library call each. It exits non-zero,
+ones, the bfloat16 product at the edges of its ``wgmma`` route (K = 8,
+K = 72, ragged M and N, N = 8) and on a misaligned A, which must take the
+``mma_sync`` route, with the route counters read around each call, and
+attention at the edges of its 128-query tile; (8) the dense path through
+``repro_torch.kernels.ops`` at realistic widths (minicpm-2b's gate/up
+projection over 4,096 tokens in float32 and bfloat16, its causal
+attention at 4k context, a 16-megapixel frame), with the launch counts
+and the matmul's route counters read around it (the bfloat16 product goes
+through ``wgmma`` once, ``mma_sync`` never) and each result then held
+against its plain version; (9) the dense kernels' times beside their plain
+versions', their bounds and one PyTorch library call each, the bfloat16
+product's ``wgmma`` and ``mma_sync`` routes timed in turns on the same
+inputs, and its bf16-out time beside ``torch.matmul``'s, each of those two
+results then held against the plain version. It exits non-zero,
 printing no result line, when there is no CUDA device, when the port is
 missing, or when any phase fails. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -557,18 +565,50 @@ def phase_dense_parity(device):
         key = (kernel, limit)
         by_limit[key] = max(by_limit.get(key, 0.0), err)
 
+    routes = ("sgemm", "mma_sync", "wgmma")
+
+    def route_counts():
+        return {r: getattr(sm, f"{r}_launches") for r in routes}
+
+    def matmul_case(a, b, out, dt, label):
+        tol, limit = ((2 ** -7, "bf16 out: 2^-7, one ulp") if out == bf16
+                      else (1e-4, "f32 in: 1e-4") if dt == f32
+                      else (5e-2, "bf16 in: 5e-2"))
+        r, before = sm.route(a, b), route_counts()
+        got = sm.matmul_kernel(a, b, out)
+        moved = {k: v - before[k] for k, v in route_counts().items()}
+        check(moved == {x: int(x == r) for x in routes},
+              f"{label}: route {r} expected, counters moved {moved}")
+        kname = "stream_matmul" if dt == f32 else "stream_matmul bf16"
+        note(kname, limit, close(got, sm.matmul_plain(a, b, out), tol, tol,
+                                 f"{label} ({r})"))
+        return r
+
+    taken = {}
     for (m, k, n), dt, out in (
             ((70, 90, 50), f32, f32), ((1, 1, 1), f32, f32),
             ((300, 300, 300), f32, f32), ((70, 90, 50), bf16, f32),
             ((1, 1, 1), bf16, f32), ((300, 300, 300), bf16, f32),
-            ((129, 67, 131), f32, bf16), ((136, 64, 200), bf16, bf16)):
-        tol, limit = ((2 ** -7, "bf16 out: 2^-7, one ulp") if out == bf16
-                      else (1e-4, "f32 in: 1e-4") if dt == f32
-                      else (5e-2, "bf16 in: 5e-2"))
+            ((129, 67, 131), f32, bf16), ((136, 64, 200), bf16, bf16),
+            # the wgmma route's edges: K = 8, K not a multiple of 64, M
+            # and N not multiples of the 128 x 256 tile, N = 8
+            ((130, 8, 40), bf16, f32), ((100, 72, 96), bf16, f32),
+            ((200, 136, 264), bf16, f32), ((200, 136, 264), bf16, bf16),
+            ((300, 72, 8), bf16, f32), ((64, 64, 8), bf16, bf16)):
         a, b = normal(rng, (m, k), device, dt), normal(rng, (k, n), device, dt)
-        note("stream_matmul", limit, close(
-            sm.matmul_kernel(a, b, out), sm.matmul_plain(a, b, out), tol, tol,
-            f"stream_matmul {m}x{k}x{n} {dt}->{out}"))
+        label = f"stream_matmul {m}x{k}x{n} {dt}->{out}"
+        taken[label] = matmul_case(a, b, out, dt, label)
+    # a contiguous A one element past a 16-byte boundary: TMA cannot
+    # address it, so the rule picks mma_sync
+    m, k, n = 100, 64, 128
+    a = normal(rng, (m * k + 1,), device, bf16)[1:].view(m, k)
+    b = normal(rng, (k, n), device, bf16)
+    label = f"stream_matmul {m}x{k}x{n} bf16, A misaligned by 2 bytes"
+    taken[label] = matmul_case(a, b, f32, bf16, label)
+    check(taken[label] == "mma_sync", f"{label}: took {taken[label]}")
+    n_routes = {r: sum(v == r for v in taken.values()) for r in routes}
+    print(f"[dense-parity] stream_matmul routes over {len(taken)} shapes: "
+          f"{n_routes}")
     exact = True
     for h, w in ((3, 200), (64, 200), (300, 517)):
         img, kern = normal(rng, (h, w), device), normal(rng, (3, 3), device)
@@ -580,7 +620,11 @@ def phase_dense_parity(device):
             (2, 200, 200, 80, True, f32), (2, 128, 1000, 64, False, f32),
             (2, 1, 4096, 64, True, f32), (2, 200, 200, 16, True, f32),
             (2, 256, 256, 128, True, f32), (3, 150, 70, 16, False, f32),
-            (2, 100, 300, 128, True, bf16)):
+            (2, 100, 300, 128, True, bf16),
+            # the edges of the 128-query tile
+            (2, 127, 127, 64, True, f32), (2, 129, 300, 80, False, f32),
+            (2, 257, 257, 128, True, f32), (2, 129, 129, 16, True, f32),
+            (2, 130, 200, 64, True, bf16)):
         q = normal(rng, (h, sq, d), device, dt)
         k, v = (normal(rng, (h, sk, d), device, dt) for _ in range(2))
         tol, limit = ((3e-5, "f32: 3e-5") if dt == f32
@@ -591,8 +635,8 @@ def phase_dense_parity(device):
             f"flash_attention h={h} sq={sq} sk={sk} d={d} causal={causal} "
             f"{dt}"))
     torch.cuda.synchronize()
-    errs = {"stream_matmul": 0.0, "stream_conv2d": 0.0,
-            "flash_attention": 0.0}
+    errs = {"stream_matmul": 0.0, "stream_matmul bf16": 0.0,
+            "stream_conv2d": 0.0, "flash_attention": 0.0}
     for (kernel, limit), err in by_limit.items():
         errs[kernel] = max(errs[kernel], err)
         print(f"[dense-parity] {kernel} ({limit}): max abs err {err}")
@@ -644,6 +688,7 @@ def phase_dense_path(device):
     mods = {"stream_matmul": sm, "stream_conv2d": sc, "flash_attention": fa}
     for mod in mods.values():
         mod.launches = mod.plain_calls = 0
+    sm.sgemm_launches = sm.mma_sync_launches = sm.wgmma_launches = 0
     t0 = time.perf_counter()
     out = {"mm": ops.matmul(a, b), "mm16": ops.matmul(a16, b16),
            "attn": ops.attention(q, k, v, causal=True),
@@ -654,17 +699,22 @@ def phase_dense_path(device):
     wall = time.perf_counter() - t0
     launches = {n: m.launches for n, m in mods.items()}
     plain = {n: m.plain_calls for n, m in mods.items()}
+    routes = {"sgemm": sm.sgemm_launches, "mma_sync": sm.mma_sync_launches,
+              "wgmma": sm.wgmma_launches}
     check(all(t.device.type == device.type for t in out.values()),
           f"ops returned a result off {device}")
     check(all(v > 0 for v in launches.values()),
           f"a dense kernel was never launched on its path: {launches}")
     check(all(v == 0 for v in plain.values()),
           f"a plain version ran on the dense path: {plain}")
+    check(routes == {"sgemm": 1, "mma_sync": 0, "wgmma": 1},
+          f"the f32 product must take sgemm once and the bf16 one wgmma "
+          f"once, never mma_sync: {routes}")
     print(f"[dense-path] ops.matmul f32 and bf16 {M}x{K}x{N}, ops.attention "
           f"causal h={h} s={sq} d={d} and full h={hn} s={sqn}, "
           f"ops.conv2d_3x3 {CONV_BIG} and {CONV_SMALL}: {wall:.3f} s wall "
-          f"(host-to-device copies included); launches {launches}, plain "
-          f"calls {plain}")
+          f"(host-to-device copies included); launches {launches}, "
+          f"stream_matmul by route {routes}, plain calls {plain}")
 
     # now, outside the counted run, each result against its plain version
     ins = {"a": out["mm"].new_tensor(a), "b": out["mm"].new_tensor(b),
@@ -696,7 +746,10 @@ def phase_dense_path(device):
     torch.cuda.synchronize()
     print(f"[dense-path] every result within its tolerance of the plain "
           f"version on the card: max abs err {errs}")
-    kernel_errs = {"stream_matmul": max(errs["mm"], errs["mm16"]),
+    launches["stream_matmul"] = routes["sgemm"]
+    launches["stream_matmul bf16"] = routes["wgmma"]
+    kernel_errs = {"stream_matmul": errs["mm"],
+                   "stream_matmul bf16": errs["mm16"],
                    "flash_attention": max(errs["attn"], errs["attn_full"]),
                    "stream_conv2d": max(errs["conv"], errs["conv_s"])}
     return launches, kernel_errs, ins
@@ -769,6 +822,43 @@ def phase_dense_times(ins):
               f"{b_ms:.4f} ms ({b_by}), share of bound {b_ms / ms:.3f}, "
               f"kernel / library {ms / library_ms:.3f}; profiler device ms "
               f"per launch {dev or 'not measured'}")
+
+    # the two bfloat16 designs on the same inputs, in turns (old, new,
+    # new, old), and the wgmma route with a bf16 result beside cuBLAS's
+    # bf16-out call, which is like for like
+    f32, bf16 = torch.float32, torch.bfloat16
+    turns = {"mma_sync": [], "wgmma": []}
+    for r in ("mma_sync", "wgmma", "wgmma", "mma_sync"):
+        turns[r].append(
+            time_ms(lambda: sm._launch_route(a16, b16, f32, r)))
+    mma_ms, wg_ms = (sum(turns[r]) / 2 for r in ("mma_sync", "wgmma"))
+    # the results of the two timed calls not checked on the path, against
+    # the plain version: within 1e-4 of max|C|, and one bf16 ulp more for
+    # the bf16 result
+    want = sm.matmul_plain(a16, b16)
+    tol = MM_REL_TOL["bfloat16"] * float(want.abs().max())
+    e_mma = close(sm._launch_route(a16, b16, f32, "mma_sync"), want, tol,
+                  0.0, f"stream_matmul bf16 {M}x{K}x{N} (mma_sync)")
+    e_out16 = close(sm.matmul_kernel(a16, b16, bf16), want.to(bf16), tol,
+                    2 ** -7, f"stream_matmul bf16 -> bf16 {M}x{K}x{N}")
+    del want
+    print(f"[dense-times] {M}x{K}x{N} against the plain version: mma_sync "
+          f"route max abs err {e_mma}, bf16 out (wgmma) {e_out16} (atol "
+          f"{MM_REL_TOL['bfloat16']} max|C| = {tol}, rtol 0 and 2^-7)")
+    r16 = rows["stream_matmul bf16"]
+    print(f"[dense-times] stream_matmul bf16 in, f32 out, {M}x{K}x{N}, "
+          f"in turns: wgmma {turns['wgmma']} ms, mma_sync "
+          f"{turns['mma_sync']} ms; wgmma / mma_sync {wg_ms / mma_ms:.3f}, "
+          f"bound {r16['bound_ms']:.4f} ms, torch.matmul (bf16 out) "
+          f"{r16['library_ms']:.4f} ms")
+    out16_ms = time_ms(lambda: sm.matmul_kernel(a16, b16, bf16))
+    lib16_ms = time_ms(lambda: torch.matmul(a16, b16))
+    b16_ms, b16_by = dense_bound(2 * (M * K + K * N + M * N), 2 * M * N * K,
+                                 BF16_FLOP_PER_S)
+    print(f"[dense-times] stream_matmul bf16 in, bf16 out (wgmma): kernel "
+          f"{out16_ms:.4f} ms, torch.matmul {lib16_ms:.4f} ms, bound "
+          f"{b16_ms:.4f} ms ({b16_by}), share of bound {b16_ms / out16_ms:.3f}"
+          f", kernel / library {out16_ms / lib16_ms:.3f}")
     return rows
 
 
@@ -837,6 +927,8 @@ def main() -> int:
             "library_ms": None})
     dense = {"stream_matmul": ("stream_matmul f32",
                                "src/repro/kernels/stream_matmul.py:68"),
+             "stream_matmul bf16": ("stream_matmul bf16",
+                                    "src/repro/kernels/stream_matmul.py:68"),
              "stream_conv2d": ("stream_conv2d 4096x4096",
                                "src/repro/kernels/stream_conv2d.py:51"),
              "flash_attention": ("flash_attention causal",
@@ -845,7 +937,7 @@ def main() -> int:
         r = dense_rows[label]
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{kname}.cu",
+            "source": f"src/repro_torch/csrc/{kname.split()[0]}.cu",
             "replaces": replaces, "launches": dense_launches[kname],
             "max_abs_err": max(dense_errs[kname], path_errs[kname]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],

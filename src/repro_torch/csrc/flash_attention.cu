@@ -12,49 +12,81 @@
 // 1/sqrt(d); a masked score is -1e30; a key is allowed when ki < sk and,
 // if causal, q_off + qi >= ki with q_off = sk - sq (queries aligned to the
 // end of the keys); a key tile whose first key lies past the query tile's
-// last query is skipped; the output is acc / max(l, 1e-30). The wrapper
-// refuses causal with sq > sk, where some rows have no allowed key.
+// last query is skipped; the output is acc / max(l, 1e-30). (The kernel
+// keeps scores in log2 units, s * log2(e), and takes 2^x on the SFU: the
+// same softmax; -1e30 still gives 0.) The wrapper refuses causal with
+// sq > sk, where some rows have no allowed key.
 //
 // Bound on the H100: operations. Causal attention over 36 heads at
 // sq = sk = 4096, d = 64 is 77.3 GFLOP (QK^T and PV over the allowed pairs)
 // against 151 MB of q, k, v and o: 1.15 ms at the FP32 units' 67 TFLOP/s
 // against 0.045 ms of memory. Both products stay on the FP32 units, with
-// no TF32, because the reference tolerance is 3e-5.
+// no TF32, because the reference tolerance is 3e-5. So the design feeds
+// the FP32 units from registers and keeps shared-memory traffic below them:
 //
-// Design. One block of 256 threads per (head, 64-query tile); the block
-// loops over 64-key tiles, which takes the place of the Pallas grid's
-// sequential key axis that carries m, l and acc in VMEM scratch. Q is
-// staged once and each K tile per step, both transposed ([d][row]) in
-// shared memory, so a thread reads four queries or four keys as one
-// float4; V stays row-major. Thread (tq, tk) owns queries 4tq..4tq+3: it
-// computes their scores against keys 4tk..4tk+3, takes row maxima and sums
-// over the 16 threads of a row group with warp shuffles, writes its
-// probabilities to shared memory, and accumulates output columns tk + 16j
-// (j < d/16) of its four rows in registers. d takes 16, 64, 80 and 128,
-// the head widths of the reference's tests and model configurations. m and l live in registers too.
-// Shared memory grows with d (115 KB at d = 128), so it is dynamic and the
-// limit is raised with cudaFuncSetAttribute. Blocks of the last query
-// tiles, which see the most keys under the causal mask, are launched first.
+//   * One block of 128 threads per (head, 128-query tile), looping over
+//     64-key tiles, which takes the place of the Pallas grid's sequential
+//     key axis that carries m, l and acc in VMEM scratch; m, l and the
+//     output rows live in registers. Blocks of the last query tiles, which
+//     see the most keys under the causal mask, are launched first.
+//   * Thread (tq, tk) = (t / 8, t % 8) owns queries tq + 16 i (i < 8): their
+//     scores against keys tk + 8 j (j < 8), and their output columns
+//     32 g + 4 tk .. + 3 (g < d / 32, read from V as float4) plus, at
+//     d = 16 and 80, 32 (d / 32) + 2 tk .. + 1. Each product does 64 FMAs
+//     per two float4 reads of shared memory (8 x 4 blocks would do 32 per
+//     three), at 255 registers a thread. Row maxima and sums stay within
+//     the 8 threads of a row group (warp shuffles).
+//   * Q, K and V lie row-major in shared memory. Q and K rows are padded to
+//     d + 4 floats, P rows to 72, so the rows that one warp reads together
+//     fall on distinct banks.
+//   * K and V tiles come in by cp.async.cg 16-byte copies, zero-filled past
+//     sk; bfloat16 inputs are loaded and converted by the threads instead.
+//     K and V are single-buffered and each copy overlaps the other product:
+//     tile j + 1's K loads during tile j's P V, its V during tile j + 1's
+//     Q K^T, at three __syncthreads per key tile.
+//
+// d takes 16, 64, 80 and 128, the head widths of the reference's tests and
+// model configurations. Shared memory grows with d (55 KB at d = 16, 103 KB
+// at d = 64, 119 KB at d = 80, 167 KB at d = 128), so it is dynamic and the
+// limit is raised with cudaFuncSetAttribute. Two blocks fit on an SM up to
+// d = 64, one above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kBQ = 64;                  // queries per block
+constexpr int kBQ = 128;                 // queries per block
 constexpr int kBK = 64;                  // keys per tile
-constexpr int kThreads = 256;            // 16 row groups x 16 key groups
-constexpr int kPStride = kBK + 4;        // P rows: float4-aligned
+constexpr int kThreads = 128;            // 16 row groups x 8 key groups
+constexpr int kPStride = kBK + 8;        // P rows: a warp's four rows on
+                                         // distinct banks
 constexpr float kNegInf = -1e30f;
-static_assert(kBQ == 64 && kBK == 64, "load_transposed stages 64 rows");
+constexpr int kSmemPerSM = 233472;       // 228 KB, 1 KB kept per block
+static_assert(kBQ == 8 * 16 && kBK == 8 * 8 && kThreads == 16 * 8,
+              "each thread owns 8 queries x 8 keys of the 16 x 8 grid");
+
+// Buffers in floats, and whether two blocks fit on an SM
+template <int D>
+struct Layout {
+  static constexpr int QS = D + 4, KS = D + 4, VS = D;   // row strides
+  static constexpr int NV4 = D / 32;          // float4 column groups
+  static constexpr int NV2 = (D % 32) / 16;   // float2 column groups
+  static constexpr int CPT = 4 * NV4 + 2 * NV2;   // columns per thread
+  static constexpr int Q = kBQ * QS, K = kBK * KS, V = kBK * VS,
+                       P = kBQ * kPStride;
+  static constexpr size_t bytes =
+      sizeof(float) * (static_cast<size_t>(Q) + K + V + P);
+  static constexpr bool two_blocks = 2 * (bytes + 1024) <= kSmemPerSM;
+  static_assert(D % 16 == 0 && CPT * 8 == D, "d must be a multiple of 16");
+  static_assert(bytes <= 232448, "the block's shared memory passes 227 KB");
+};
 
 template <typename T>
 __device__ __forceinline__ float4 load4(const T* p);
-template <>
-__device__ __forceinline__ float4 load4<float>(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
 template <>
 __device__ __forceinline__ float4 load4<__nv_bfloat16>(
     const __nv_bfloat16* p) {
@@ -67,54 +99,98 @@ __device__ __forceinline__ float4 load4<__nv_bfloat16>(
 }
 
 template <typename T>
-__device__ __forceinline__ void store1(T* p, float v);
+__device__ __forceinline__ void store4(T* p, float4 v);
 template <>
-__device__ __forceinline__ void store1<float>(float* p, float v) {
-  *p = v;
+__device__ __forceinline__ void store4<float>(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
 }
 template <>
-__device__ __forceinline__ void store1<__nv_bfloat16>(__nv_bfloat16* p,
-                                                      float v) {
-  *p = __float2bfloat16(v);
+__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (static_cast<size_t>(D) * kBQ + static_cast<size_t>(D) * kBK +
-          static_cast<size_t>(kBK) * D + static_cast<size_t>(kBQ) * kPStride);
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float2 v);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
 }
 
-// rows [row0, row0 + 64) of a (rows, D) matrix into dst[d * 64 + r],
-// zero past n_rows
-template <typename T, int D>
-__device__ __forceinline__ void load_transposed(float* dst, const T* src,
-                                                int row0, int n_rows) {
-  for (int idx = threadIdx.x; idx < 64 * (D / 4); idx += kThreads) {
-    const int r = idx % 64, c = (idx / 64) * 4;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [row0, row0 + n) of a (rows, D) matrix into dst (row stride S
+// floats), zero past n_rows: float32 by cp.async (src-size 0 fills zeros),
+// bfloat16 loaded and converted by the threads
+template <typename T, int D, int S>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src,
+                                           int row0, int n, int n_rows) {
+  for (int idx = threadIdx.x; idx < n * (D / 4); idx += kThreads) {
+    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
     const int row = row0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < n_rows) x = load4(src + static_cast<size_t>(row) * D + c);
-    dst[(c + 0) * 64 + r] = x.x;
-    dst[(c + 1) * 64 + r] = x.y;
-    dst[(c + 2) * 64 + r] = x.z;
-    dst[(c + 3) * 64 + r] = x.w;
+    const bool ok = row < n_rows;
+    if constexpr (std::is_same<T, float>::value) {
+      cp_async16(dst + r * S + c,
+                 src + static_cast<size_t>(ok ? row : 0) * D + c,
+                 ok ? 16 : 0);
+    } else {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ok) x = load4(src + static_cast<size_t>(row) * D + c);
+      *reinterpret_cast<float4*>(dst + r * S + c) = x;
+    }
   }
 }
 
+// 2^x by the SFU alone (ex2.approx, relative error about 2^-22, results
+// below 2^-126 flushed to 0): exp2f adds range fixes that cost 3% of the
+// kernel, and a p below 2^-126 adds nothing a float sum of p can hold
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, Layout<D>::two_blocks ? 2 : 1)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
              float scale, int causal) {
-  constexpr int DC = D / 16;             // output columns per thread
+  using L = Layout<D>;
+  constexpr int QS = L::QS, KS = L::KS, VS = L::VS, NV4 = L::NV4,
+                NV2 = L::NV2, CPT = L::CPT;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                      // [D][kBQ]
-  float* Ks = Qs + D * kBQ;              // [D][kBK]
-  float* Vs = Ks + D * kBK;              // [kBK][D]
-  float* Ps = Vs + kBK * D;              // [kBQ][kPStride]
+  float* Qs = smem;                      // [kBQ][QS]
+  float* Ks = Qs + L::Q;                 // [kBK][KS]
+  float* Vs = Ks + L::K;                 // [kBK][VS]
+  float* Ps = Vs + L::V;                 // [kBQ][kPStride]
 
-  const int t = threadIdx.x, tk = t % 16, tq = t / 16;
+  const int t = threadIdx.x, tk = t % 8, tq = t / 8;
+  // scores in log2 units, so that exp(x - m) is one ex2: the same softmax
+  // as the reference's, at a fraction of the instructions of expf
+  const float scale2 = scale * 1.4426950408889634f;
   const int head = blockIdx.y;
   const int qb = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
   const int q0 = qb * kBQ;
@@ -124,129 +200,164 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vh = v + static_cast<size_t>(head) * sk * D;
   T* oh = o + static_cast<size_t>(head) * sq * D;
 
-  load_transposed<T, D>(Qs, qh, q0, sq);
+  // key tiles up to the first that starts past the tile's last query
+  const int n_kb = (sk + kBK - 1) / kBK;
+  const int n_tiles =
+      causal ? min(n_kb, (q_off + q0 + kBQ - 1) / kBK + 1) : n_kb;
 
-  float m[4], l[4], acc[4][DC];
+  stage_rows<T, D, QS>(Qs, qh, q0, kBQ, sq);
+  stage_rows<T, D, KS>(Ks, kh, 0, kBK, sk);
+  cp_async_commit();
+  stage_rows<T, D, VS>(Vs, vh, 0, kBK, sk);
+  cp_async_commit();
+
+  float m[8], l[8], acc[8][CPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 8; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
   }
 
-  const int n_kb = (sk + kBK - 1) / kBK;
-  const int last_q = q_off + q0 + kBQ - 1;     // the tile's last query
-  for (int kb = 0; kb < n_kb; ++kb) {
+  for (int kb = 0; kb < n_tiles; ++kb) {
     const int k0 = kb * kBK;
-    if (causal && k0 > last_q) break;          // this and every later tile
-                                               // is masked out
-    __syncthreads();                           // last tile's Vs, Ps read
-    load_transposed<T, D>(Ks, kh, k0, sk);
-    for (int idx = t; idx < kBK * (D / 4); idx += kThreads) {
-      const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < sk) x = load4(vh + static_cast<size_t>(k0 + r) * D + c);
-      *reinterpret_cast<float4*>(Vs + r * D + c) = x;
-    }
-    __syncthreads();
+    const bool more = kb + 1 < n_tiles;
+    cp_async_wait<1>();          // K (the older group); V may still land
+    __syncthreads();             // tile kb's K visible to every thread
 
-    // S = Q K^T for queries 4tq + i, keys 4tk + j
-    float s[4][4];
+    // S = Q K^T for queries tq + 16 i, keys tk + 8 j, in d order
+    float s[8][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(Qs + d * kBQ + tq * 4);
-      const float4 kv = *reinterpret_cast<const float4*>(Ks + d * kBK + tk * 4);
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int d4 = 0; d4 < D / 4; ++d4) {
+      float4 qv[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(Qs + (tq + 16 * i) * QS +
+                                                 4 * d4);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
+      for (int j = 0; j < 8; ++j) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(Ks + (tk + 8 * j) * KS + 4 * d4);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+        }
+      }
     }
 
     // mask, online softmax, P to shared memory
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q_off + q0 + tq * 4 + i;
+    for (int i = 0; i < 8; ++i) {
+      const int qi = q_off + q0 + tq + 16 * i;
       float row_max = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ki = k0 + tk * 4 + j;
+      for (int j = 0; j < 8; ++j) {
+        const int ki = k0 + tk + 8 * j;
         const bool ok = ki < sk && (!causal || qi >= ki);
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
+        s[i][j] = ok ? s[i][j] * scale2 : kNegInf;
         row_max = fmaxf(row_max, s[i][j]);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off /= 2)
+      for (int off = 4; off > 0; off /= 2)
         row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
       const float m_new = fmaxf(m[i], row_max);
       float row_sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = ex2(s[i][j] - m_new);
         row_sum += s[i][j];
       }
 #pragma unroll
-      for (int off = 8; off > 0; off /= 2)
+      for (int off = 4; off > 0; off /= 2)
         row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
-      const float alpha = expf(m[i] - m_new);
+      const float alpha = ex2(m[i] - m_new);
       l[i] = l[i] * alpha + row_sum;
 #pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] *= alpha;
+      for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
       m[i] = m_new;
-      *reinterpret_cast<float4*>(Ps + (tq * 4 + i) * kPStride + tk * 4) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        Ps[(tq + 16 * i) * kPStride + tk + 8 * j] = s[i][j];
     }
-    __syncthreads();
+    cp_async_wait<0>();          // tile kb's V
+    __syncthreads();             // P and V visible; every thread is done
+                                 // with K
+    if (more) stage_rows<T, D, KS>(Ks, kh, k0 + kBK, kBK, sk);
+    cp_async_commit();
 
-    // acc += P V for queries 4tq + i, columns tk + 16j
+    // acc += P V for queries tq + 16 i and this thread's columns, in key
+    // order
 #pragma unroll 2
     for (int kk = 0; kk < kBK; kk += 4) {
-      float p[4][4];
+      float4 pv[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 pv =
-            *reinterpret_cast<const float4*>(Ps + (tq * 4 + i) * kPStride + kk);
-        p[i][0] = pv.x;
-        p[i][1] = pv.y;
-        p[i][2] = pv.z;
-        p[i][3] = pv.w;
-      }
+      for (int i = 0; i < 8; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ps + (tq + 16 * i) * kPStride +
+                                                 kk);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        float vv[DC];
+        const float* vrow = Vs + (kk + u) * VS;
+        float4 vv[NV4 > 0 ? NV4 : 1];
+        float2 v2 = make_float2(0.f, 0.f);
 #pragma unroll
-        for (int j = 0; j < DC; ++j) vv[j] = Vs[(kk + u) * D + tk + 16 * j];
+        for (int g = 0; g < NV4; ++g)
+          vv[g] = *reinterpret_cast<const float4*>(vrow + 32 * g + 4 * tk);
+        if constexpr (NV2 > 0)
+          v2 = *reinterpret_cast<const float2*>(vrow + 32 * NV4 + 2 * tk);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 8; ++i) {
+          const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y
+                        : u == 2 ? pv[i].z : pv[i].w;
 #pragma unroll
-          for (int j = 0; j < DC; ++j)
-            acc[i][j] = fmaf(p[i][u], vv[j], acc[i][j]);
+          for (int g = 0; g < NV4; ++g) {
+            acc[i][4 * g + 0] = fmaf(p, vv[g].x, acc[i][4 * g + 0]);
+            acc[i][4 * g + 1] = fmaf(p, vv[g].y, acc[i][4 * g + 1]);
+            acc[i][4 * g + 2] = fmaf(p, vv[g].z, acc[i][4 * g + 2]);
+            acc[i][4 * g + 3] = fmaf(p, vv[g].w, acc[i][4 * g + 3]);
+          }
+          if constexpr (NV2 > 0) {
+            acc[i][4 * NV4 + 0] = fmaf(p, v2.x, acc[i][4 * NV4 + 0]);
+            acc[i][4 * NV4 + 1] = fmaf(p, v2.y, acc[i][4 * NV4 + 1]);
+          }
+        }
       }
     }
+    __syncthreads();             // every thread is done with V and P
+    if (more) stage_rows<T, D, VS>(Vs, vh, k0 + kBK, kBK, sk);
+    cp_async_commit();
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + tq * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + tq + 16 * i;
     if (row >= sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    T* orow = oh + static_cast<size_t>(row) * D;
 #pragma unroll
-    for (int j = 0; j < DC; ++j)
-      store1(oh + static_cast<size_t>(row) * D + tk + 16 * j,
-             acc[i][j] / denom);
+    for (int g = 0; g < NV4; ++g)
+      store4(orow + 32 * g + 4 * tk,
+             make_float4(acc[i][4 * g] / denom, acc[i][4 * g + 1] / denom,
+                         acc[i][4 * g + 2] / denom,
+                         acc[i][4 * g + 3] / denom));
+    if constexpr (NV2 > 0)
+      store2(orow + 32 * NV4 + 2 * tk,
+             make_float2(acc[i][4 * NV4] / denom,
+                         acc[i][4 * NV4 + 1] / denom));
   }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int h,
            int sq, int sk, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<D>();
+  constexpr size_t bytes = Layout<D>::bytes;
   // above 48 KB a block may use dynamic shared memory only once the limit
   // is raised (per device, so on every call)
   const cudaError_t rc = cudaFuncSetAttribute(

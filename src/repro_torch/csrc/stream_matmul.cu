@@ -8,30 +8,49 @@
 // bfloat16). Entry point strela_stream_matmul.
 //
 // Bound on the H100: operations. At the main path's shape (4096 x 2304 x
-// 5760) the product is 108.7 GFLOP against 185 MB of traffic: 1.6 ms at the
-// FP32 units' 67 TFLOP/s against 0.055 ms of memory; in bf16 0.11 ms at the
-// tensor cores' 989 TFLOP/s against 0.042 ms. The design therefore keeps the
-// arithmetic units fed from shared memory and registers:
+// 5760) the product is 108.7 GFLOP: 1.6 ms at the FP32 units' 67 TFLOP/s;
+// in bf16 0.11 ms at the tensor cores' 989 TFLOP/s against 0.042 ms for
+// its 139.8 MB (bf16 A and B read once, f32 C written once). Three routes,
+// chosen by the caller (kernels/stream_matmul.py::route) and checked here:
 //
-//   * float32 inputs: sgemm_kernel, a shared-memory-tiled SGEMM on the FP32
-//     units. A 128 x 128 output tile per block of 256 threads, each thread
-//     holding an 8 x 8 register block (two 4-wide halves 64 apart, so its
-//     float4 reads of shared memory are conflict-free). No TF32: the
-//     reference tolerance is 1e-4, and TF32 keeps about three digits.
-//   * bfloat16 inputs: bf16_gemm_kernel, mma.sync m16n8k16 on the tensor
-//     cores with fp32 accumulators. 128 x 128 x 32 tiles, eight warps of
-//     64 x 32 each; fragments come from shared memory by ldmatrix (.trans
-//     for B, which stays row-major (K,N) in shared memory).
+//   * "sgemm", float32 inputs: sgemm_kernel, a shared-memory-tiled SGEMM
+//     on the FP32 units. A 128 x 128 output tile per block of 256 threads,
+//     each thread holding an 8 x 8 register block (two 4-wide halves 64
+//     apart, so its float4 reads of shared memory are conflict-free). No
+//     TF32: the reference tolerance is 1e-4, and TF32 keeps about three
+//     digits.
+//   * "wgmma", bfloat16 inputs whose rows TMA can address (K % 8 == 0,
+//     N % 8 == 0, A and B 16-byte aligned): wgmma_gemm_kernel. A 128 x 256
+//     output tile per block of three warpgroups. One producer thread keeps
+//     a 4-stage ring of 48 KB stages (A: one {64 k, 128 m} TMA box; B: four
+//     {64 n, 64 k} boxes, (K,N) row-major as it lies in device memory)
+//     full, all with 128-byte swizzle; a "full" mbarrier per stage counts
+//     the bytes in, an "empty" one the eight consumer warps out. Two
+//     consumer warpgroups each run wgmma.mma_async m64n256k16 over 64 rows
+//     (A K-major, B MN-major through the transpose bit), keep one
+//     wgmma group in flight and release a stage once the group reading it
+//     is done; setmaxnreg moves registers from the producer (40) to them
+//     (232) for their 128 fp32 accumulators. TMA zero-fills the ragged M,
+//     N and K edges, so the sums equal those of the zero-padded Pallas
+//     inputs; the epilogue stores from the accumulator fragments, masked at
+//     the M/N edges. Blocks walk M fastest, so neighbours share a B tile in
+//     L2. The TMA descriptors are encoded on the host per call
+//     (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so
+//     that the library needs no -lcuda) and passed as __grid_constant__.
+//   * "mma_sync", every other bfloat16 case (misaligned rows or pointers):
+//     bf16_gemm_kernel, mma.sync m16n8k16 on the tensor cores with fp32
+//     accumulators. 128 x 128 x 32 tiles, eight warps of 64 x 32 each;
+//     fragments come from shared memory by ldmatrix (.trans for B, which
+//     stays row-major (K,N) in shared memory).
 //
 // The Pallas kernel carries its sum in a VMEM scratch accumulator across the
-// sequential k axis of its grid; here each block loops over K itself, with
-// the next tile's global loads issued into registers before the current
-// tile's arithmetic. The Pallas wrapper zero-pads A and B to block
-// multiples in device memory; here the ragged M, N and K edges are masked in
-// the loads (zero fill) and stores, which gives the same sums without the
-// copies. Vector loads are used where rows are 16-byte aligned; otherwise
-// each element is loaded alone.
+// sequential k axis of its grid; here each block loops over K itself. The
+// Pallas wrapper zero-pads A and B to block multiples in device memory; here
+// the sgemm and mma_sync routes mask the ragged M, N and K edges in their
+// loads (zero fill) and stores, the wgmma route lets TMA fill them, which
+// gives the same sums without the copies.
 
+#include <cuda.h>          // CUtensorMap and the driver's enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -308,6 +327,321 @@ bf16_gemm_kernel(const uint16_t* __restrict__ A,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 through TMA and wgmma: a warp-specialised ring of tiles
+// ---------------------------------------------------------------------------
+
+constexpr int kWBM = 128, kWBN = 256, kWBK = 64, kWStages = 4;
+constexpr int kWThreads = 384;                // producer + two consumers
+constexpr int kWABytes = kWBM * kWBK * 2;     // 16 KB: one {64 k, 128 m} box
+constexpr int kWBBox = kWBK * 64 * 2;         // 8 KB: one {64 n, 64 k} box
+constexpr int kWBBytes = (kWBN / 64) * kWBBox;  // 32 KB
+constexpr size_t kWSmem =
+    1024 + kWStages * (kWABytes + kWBBytes) + 2 * kWStages * 8;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A ring that stops
+// moving (a fault in this file) traps after about 2^31 polls, so the launch
+// fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == 0x80000000u) __trap();
+  }
+}
+
+// one 2-D TMA box into shared memory, its bytes counted on `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, each >> 4; layout type 1 (SWIZZLE_128B) in bits
+// 62-63. Every stage buffer is 1024-byte aligned, as the swizzle needs.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// D (64 x 256, fp32, 128 registers a thread) += A (64 x 16, K-major) *
+// B (16 x 256, MN-major: transpose bit set)
+__device__ __forceinline__ void wgmma_m64n256k16(float d[128], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "n"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename OutT>
+__device__ __forceinline__ void store_pair(OutT* p, float x, float y);
+template <>
+__device__ __forceinline__ void store_pair<float>(float* p, float x,
+                                                  float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+template <>
+__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p,
+                                                          float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(kWThreads, 1)
+wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b,
+                  OutT* __restrict__ C, int M, int N, int K) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t a_smem = base;                          // + s * kWABytes
+  const uint32_t b_smem = base + kWStages * kWABytes;    // + s * kWBBytes
+  const uint32_t full = b_smem + kWStages * kWBBytes;    // + 8 s
+  const uint32_t empty = full + 8 * kWStages;            // + 8 s
+  const int wg = threadIdx.x / 128;
+  const int m0 = blockIdx.x * kWBM, n0 = blockIdx.y * kWBN;
+  const int n_k = (K + kWBK - 1) / kWBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(full + 8 * s, 1);      // the producer's expect_tx
+      mbar_init(empty + 8 * s, 8);     // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread issues every TMA load of the block
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      // B boxes wholly past N are not loaded: they feed only masked columns
+      const int n_boxes = min(kWBN / 64, (N - n0 + 63) / 64);
+      const uint32_t bytes = kWABytes + n_boxes * kWBBox;
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % kWStages;
+        mbar_wait(empty + 8 * s, ((kt / kWStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, bytes);
+        tma_load_2d(a_smem + s * kWABytes, &map_a, full + 8 * s, kt * kWBK,
+                    m0);
+        for (int j = 0; j < n_boxes; ++j)
+          tma_load_2d(b_smem + s * kWBBytes + j * kWBBox, &map_b,
+                      full + 8 * s, n0 + 64 * j, kt * kWBK);
+      }
+    }
+  } else {
+    // consumers: warpgroup c computes rows 64c .. 64c + 63 of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = wg - 1;
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    float d[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.f;
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int s = kt % kWStages;
+      mbar_wait(full + 8 * s, (kt / kWStages) & 1);
+      // A: K-major, 128-byte rows, 8-row atoms 1024 B apart (SBO); a k16
+      // step is 32 B along the row. B: MN-major, 8-row (k) atoms 1024 B
+      // apart (SBO), 64-column boxes 8 KB apart (LBO); a k16 step is 16
+      // rows, 2048 B.
+      const uint64_t da =
+          wgmma_desc(a_smem + s * kWABytes + c * 64 * 128, 16, 1024);
+      const uint64_t db = wgmma_desc(b_smem + s * kWBBytes, kWBBox, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWBK / 16; ++kk)
+        wgmma_m64n256k16(d, da + 2 * kk, db + 128 * kk);
+      wgmma_commit();
+      wgmma_wait<1>();                 // the previous stage's group is done
+      if (kt > 0 && lane == 0) mbar_arrive(empty + 8 * ((kt - 1) % kWStages));
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+
+    // fragment i of m64nNk16: row 16 warp + lane / 4 (+ 8), column
+    // 8 (i / 4) + 2 (lane % 4) (+ 1). N is even on this route, so a pair
+    // lies wholly inside or wholly outside the matrix.
+    const int row = m0 + c * 64 + warp * 16 + lane / 4;
+    const int col0 = n0 + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = col0 + 8 * i;
+      if (col >= N) continue;
+      if (row < M)
+        store_pair(C + static_cast<size_t>(row) * N + col, d[4 * i],
+                   d[4 * i + 1]);
+      if (row + 8 < M)
+        store_pair(C + static_cast<size_t>(row + 8) * N + col, d[4 * i + 2],
+                   d[4 * i + 3]);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up once through the runtime
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn != nullptr) return fn;
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t rc = cudaGetDriverEntryPoint(
+      "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+  if (rc != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+  fn = reinterpret_cast<EncodeTiled>(p);
+  return fn;
+}
+
+// a (rows, cols) row-major bfloat16 matrix in boxes of {box_cols, box_rows},
+// 128-byte swizzle, zero fill out of bounds
+cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rows,
+                            int cols, int box_rows, int box_cols) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename OutT>
+int launch_wgmma(const void* a, const void* b, void* c, int M, int N, int K,
+                 cudaStream_t s) {
+  CUtensorMap map_a, map_b;
+  cudaError_t rc = encode_bf16_map(&map_a, a, M, K, kWBM, kWBK);
+  if (rc == cudaSuccess) rc = encode_bf16_map(&map_b, b, K, N, kWBK, 64);
+  if (rc == cudaSuccess)
+    rc = cudaFuncSetAttribute(wgmma_gemm_kernel<OutT>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(kWSmem));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((M + kWBM - 1) / kWBM, (N + kWBN - 1) / kWBN);
+  wgmma_gemm_kernel<OutT><<<grid, kWThreads, kWSmem, s>>>(
+      map_a, map_b, static_cast<OutT*>(c), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -316,17 +650,25 @@ bool aligned16(const void* p) {
 
 extern "C" {
 
-// dtype codes shared with kernels/stream_matmul.py: 0 float32, 1 bfloat16.
-// A (M,K), B (K,N) and C (M,N) are contiguous row-major on the device; A
-// and B share in_dtype. Returns the CUDA error of the launch (0 on success).
+// dtype codes shared with kernels/stream_matmul.py: 0 float32, 1 bfloat16;
+// route codes: 0 sgemm (float32 inputs), 1 mma_sync and 2 wgmma (bfloat16
+// inputs). A (M,K), B (K,N) and C (M,N) are contiguous row-major on the
+// device; A and B share in_dtype. A route whose conditions fail is refused
+// (wgmma: K >= 1, K % 8 == 0, N % 8 == 0, A, B and C 16-byte aligned).
+// Returns the CUDA error of the launch (0 on success).
 int strela_stream_matmul(const void* a, const void* b, void* c, int M, int N,
-                         int K, int in_dtype, int out_dtype, void* stream) {
+                         int K, int in_dtype, int out_dtype, int route,
+                         void* stream) {
   if (M < 0 || N < 0 || K < 0 || in_dtype < 0 || in_dtype > 1 ||
-      out_dtype < 0 || out_dtype > 1)
+      out_dtype < 0 || out_dtype > 1 || route < 0 || route > 2 ||
+      (in_dtype == 0) != (route == 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 2 && !(K >= 1 && K % 8 == 0 && N % 8 == 0 && aligned16(a) &&
+                      aligned16(b) && aligned16(c)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 0) {
+  if (route == 0) {
     const int grid_y = (M + kSBM - 1) / kSBM;
     if (grid_y > 65535) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid((N + kSBN - 1) / kSBN, grid_y);
@@ -342,6 +684,12 @@ int strela_stream_matmul(const void* a, const void* b, void* c, int M, int N,
     else
       sgemm_kernel<__nv_bfloat16><<<grid, kSThreads, 0, s>>>(
           A, B, static_cast<__nv_bfloat16*>(c), M, N, K, flags);
+  } else if (route == 2) {
+    if ((N + kWBN - 1) / kWBN > 65535)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return out_dtype == 0
+               ? launch_wgmma<float>(a, b, c, M, N, K, s)
+               : launch_wgmma<__nv_bfloat16>(a, b, c, M, N, K, s);
   } else {
     const int grid_y = (M + kHBM - 1) / kHBM;
     if (grid_y > 65535) return static_cast<int>(cudaErrorInvalidValue);

@@ -5,23 +5,37 @@ stream_matmul`` (``pallas_call`` at line 68, body ``_mm_kernel`` at line
 30): A ``(M, K)`` times B ``(K, N)``, float32 or bfloat16 inputs, fp32
 accumulation over K, the result written as ``out_dtype``.
 
-Kernel: ``csrc/stream_matmul.cu``, entry point ``strela_stream_matmul``.
-float32 inputs run a register-blocked SGEMM on the FP32 units (never TF32:
-the reference tolerance is 1e-4); bfloat16 inputs run ``mma.sync`` tiles
-on the tensor cores with fp32 accumulators. Each block loops over K
-itself, where the Pallas kernel carries a VMEM accumulator across its
-sequential k grid axis, and the ragged M, N and K edges are masked in the
-kernel instead of zero-padding copies of A and B. The TPU block sizes
-``bm``/``bn``/``bk`` are therefore no parameters here.
+Kernels: ``csrc/stream_matmul.cu``, entry point ``strela_stream_matmul``,
+one of three routes chosen by :func:`route` from dtype, shape and
+alignment alone:
+
+- ``"sgemm"`` (float32 inputs): a register-blocked SGEMM on the FP32
+  units, never TF32 (the reference tolerance is 1e-4).
+- ``"wgmma"`` (bfloat16 inputs, :func:`bf16_route`: K and N multiples of
+  8, A and B 16-byte aligned, none of M, N, K empty): a TMA ring of
+  128 x 256 x 64 tiles, four stages, feeding two ``wgmma`` warpgroups
+  from one producer thread; TMA zero-fills the ragged edges.
+- ``"mma_sync"`` (every other bfloat16 case): ``mma.sync`` tiles with
+  fp32 accumulators and masked loads. It is the second route, not a
+  fallback: the rule above picks it before the launch, and the C side
+  refuses a ``"wgmma"`` request whose conditions fail.
+
+Each block loops over K itself, where the Pallas kernel carries a VMEM
+accumulator across its sequential k grid axis, and the ragged M, N and K
+edges are handled in the kernel instead of zero-padding copies of A and
+B. The TPU block sizes ``bm``/``bn``/``bk`` are therefore no parameters
+here.
 
 Bound on the H100: operations at the main path's shapes (108.7 GFLOP at
-4096 x 2304 x 5760 against 185 MB), so the tiles are sized to keep the
-arithmetic units fed from shared memory and registers.
+4096 x 2304 x 5760: 1.62 ms at 67 TFLOP/s in float32, 0.110 ms at 989
+TFLOP/s on the bf16 tensor cores, against 0.042 ms for the 139.8 MB of
+bf16 A, B and f32 C).
 
 Beside it, the plain PyTorch version (``ref.matmul``) runs for tensors on
-the CPU, and only there: a CUDA tensor launches the kernel or raises.
-``launches`` counts kernel launches, ``plain_calls`` calls of the plain
-version.
+the CPU, and only there: a CUDA tensor launches a kernel or raises.
+``launches`` counts kernel launches, ``sgemm_launches``,
+``mma_sync_launches`` and ``wgmma_launches`` those of each route, and
+``plain_calls`` calls of the plain version.
 """
 from __future__ import annotations
 
@@ -30,8 +44,12 @@ import torch
 from repro_torch.kernels import _build, ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}     # csrc dtype codes
+ROUTES = {"sgemm": 0, "mma_sync": 1, "wgmma": 2}   # csrc route codes
 
 launches = 0
+sgemm_launches = 0
+mma_sync_launches = 0
+wgmma_launches = 0
 plain_calls = 0
 
 
@@ -53,6 +71,23 @@ def _check(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> None:
         raise ValueError(f"stream_matmul: A on {a.device}, B on {b.device}")
 
 
+def bf16_route(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The route of a bfloat16 product: ``"wgmma"`` where TMA can address
+    every row of A ``(M, K)`` and B ``(K, N)`` (row strides of 16-byte
+    multiples, ``K % 8 == 0`` and ``N % 8 == 0``; base addresses 16-byte
+    aligned) and no dimension is empty, else ``"mma_sync"``."""
+    (M, K), N = a.shape, b.shape[1]
+    if (min(M, N, K) >= 1 and K % 8 == 0 and N % 8 == 0
+            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0):
+        return "wgmma"
+    return "mma_sync"
+
+
+def route(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The kernel that ``matmul_kernel`` launches for these inputs."""
+    return "sgemm" if a.dtype == torch.float32 else bf16_route(a, b)
+
+
 def matmul_plain(a: torch.Tensor, b: torch.Tensor,
                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The plain PyTorch version of :func:`matmul_kernel`."""
@@ -64,9 +99,23 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor,
 
 def matmul_kernel(a: torch.Tensor, b: torch.Tensor,
                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``A @ B`` by the CUDA kernel: contiguous CUDA tensors only."""
-    global launches
+    """``A @ B`` by the CUDA kernel of :func:`route`: contiguous CUDA
+    tensors only."""
+    return _launch_route(a, b, out_dtype, route(a, b))
+
+
+def _launch_route(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype,
+                  r: str) -> torch.Tensor:
+    """``A @ B`` by the kernel of route ``r`` (a key of ``ROUTES``); the C
+    side refuses a route whose conditions these inputs fail. :func:`route`
+    is the one public way to choose a route: naming one here exists only
+    for ``chip_smoke.py``, which times the two bfloat16 designs on the same
+    inputs, and for the tests of the C side's checks."""
+    global launches, sgemm_launches, mma_sync_launches, wgmma_launches
     _check(a, b, out_dtype)
+    if r not in ROUTES:
+        raise ValueError(f"stream_matmul: route must be one of "
+                         f"{sorted(ROUTES)}, got {r!r}")
     if a.device.type != "cuda":
         raise ValueError(f"stream_matmul: the kernel runs on CUDA tensors, "
                          f"got {a.device}")
@@ -84,9 +133,15 @@ def matmul_kernel(a: torch.Tensor, b: torch.Tensor,
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.strela_stream_matmul(a.data_ptr(), b.data_ptr(),
                                       c.data_ptr(), M, N, K, DTYPES[a.dtype],
-                                      DTYPES[out_dtype], stream)
-    _build.check(lib, rc, f"stream_matmul {M}x{K}x{N}")
+                                      DTYPES[out_dtype], ROUTES[r], stream)
+    _build.check(lib, rc, f"stream_matmul {M}x{K}x{N} ({r})")
     launches += 1
+    if r == "wgmma":
+        wgmma_launches += 1
+    elif r == "mma_sync":
+        mma_sync_launches += 1
+    else:
+        sgemm_launches += 1
     return c
 
 

@@ -176,3 +176,71 @@ def test_flash_attention_kernel_matches_plain(cuda, h, sq, sk, d, causal,
     assert got.dtype == dtype and torch.isfinite(got.float()).all()
     tol = 3e-5 if dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [
+    (64, 64, 256),         # one tile
+    (130, 8, 40),          # K = 8
+    (100, 72, 96),         # K not a multiple of 64
+    (200, 136, 264),       # M and N ragged against the 128 x 256 tile
+    (300, 72, 8),          # N = 8
+    (257, 520, 264),       # a partial last K step, three row tiles
+])
+def test_stream_matmul_wgmma_route_edges(cuda, m, k, n, out_dtype):
+    rng = np.random.default_rng(m * k + n)
+    a = _normal(rng, (m, k), cuda, torch.bfloat16)
+    b = _normal(rng, (k, n), cuda, torch.bfloat16)
+    assert sm.route(a, b) == "wgmma"
+    before = (sm.wgmma_launches, sm.mma_sync_launches)
+    got = sm.matmul_kernel(a, b, out_dtype)
+    want = sm.matmul_plain(a, b, out_dtype)
+    torch.cuda.synchronize()
+    assert (sm.wgmma_launches, sm.mma_sync_launches) == (before[0] + 1,
+                                                         before[1])
+    tol = 5e-2 if out_dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_stream_matmul_misaligned_a_takes_mma_sync(cuda):
+    rng = np.random.default_rng(3)
+    m, k, n = 100, 64, 128
+    a = _normal(rng, (m * k + 1,), cuda, torch.bfloat16)[1:].view(m, k)
+    b = _normal(rng, (k, n), cuda, torch.bfloat16)
+    assert a.is_contiguous() and a.data_ptr() % 16 == 2
+    assert sm.route(a, b) == "mma_sync"
+    before = (sm.wgmma_launches, sm.mma_sync_launches)
+    got = sm.matmul_kernel(a, b)
+    want = sm.matmul_plain(a, b)
+    torch.cuda.synchronize()
+    assert (sm.wgmma_launches, sm.mma_sync_launches) == (before[0],
+                                                         before[1] + 1)
+    torch.testing.assert_close(got, want, atol=5e-2, rtol=5e-2)
+
+
+def test_stream_matmul_cuda_side_refuses_wgmma_on_misaligned_rows(cuda):
+    a = torch.ones((16, 12), dtype=torch.bfloat16, device=cuda)
+    b = torch.ones((12, 16), dtype=torch.bfloat16, device=cuda)
+    launches = sm.wgmma_launches
+    with pytest.raises(RuntimeError, match="wgmma"):
+        sm._launch_route(a, b, torch.float32, "wgmma")
+    assert sm.wgmma_launches == launches
+    torch.testing.assert_close(sm._launch_route(a, b, torch.float32,
+                                               "mma_sync"),
+                               torch.full((16, 16), 12.0, device=cuda))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq", [127, 129, 257])
+@pytest.mark.parametrize("d", [16, 80, 128])
+def test_flash_attention_query_tile_edges(cuda, d, sq, causal):
+    rng = np.random.default_rng(d * sq + causal)
+    sk = sq + 37
+    q = _normal(rng, (2, sq, d), cuda)
+    k, v = (_normal(rng, (2, sk, d), cuda) for _ in range(2))
+    launches = fa.launches
+    got = fa.attention_kernel(q, k, v, causal)
+    want = fa.attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.launches == launches + 1
+    torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)

@@ -184,12 +184,13 @@ def _flash_tiles(q, k, v, causal):
     """``flash_kernel``'s loop in ``csrc/flash_attention.cu``: per query
     tile of BLOCK_Q rows (zero-filled past sq), key tiles of BLOCK_K
     (zero-filled past sk) in order until the first that starts past the
-    tile's last query, the -1e30 fill, the online softmax in fp32, and
+    tile's last query, the -1e30 fill, the online softmax in fp32 over
+    scores in log2 units (``exp2``, as the kernel takes it), and
     ``acc / max(l, 1e-30)``."""
     h, sq, d = q.shape
     sk = k.shape[1]
     bq, bk = fa.BLOCK_Q, fa.BLOCK_K
-    scale = 1.0 / (d ** 0.5)
+    scale = 1.0 / (d ** 0.5) * 1.4426950408889634
     q_off = sk - sq
     out = torch.empty((h, sq, d), dtype=torch.float32)
 
@@ -216,8 +217,8 @@ def _flash_tiles(q, k, v, causal):
                 mask = mask & (qi >= ki)
             s = torch.where(mask, s, torch.tensor(fa.NEG_INF))
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-            p = torch.exp(s - m_new)
-            alpha = torch.exp(m - m_new)
+            p = torch.exp2(s - m_new)
+            alpha = torch.exp2(m - m_new)
             l = l * alpha + p.sum(dim=-1, keepdim=True)
             acc = acc * alpha + p @ vt
             m = m_new
@@ -231,6 +232,8 @@ def _flash_tiles(q, k, v, causal):
     (1, 130, 130, 64, True),       # the skip rule cuts the key loop
     (2, 1, 129, 80, True),         # decode: one key past a tile edge
     (1, 100, 65, 16, False),       # a key tile of one real key
+    (1, 257, 257, 64, True),       # one query past two full query tiles
+    (2, 127, 200, 80, False),      # one query short of a query tile
 ])
 def test_flash_tile_loop_matches_pallas(h, sq, sk, d, causal):
     q, k, v = _qkv(h, sq, sk, d, 3 * sq + sk)
