@@ -8,17 +8,23 @@ Run from the repository root on a machine with one NVIDIA card:
 It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs, in
 order: (1) the card's name, power limit and count, and the TF32 switches
 (both off); (2) the build; (3) every fabric kernel against its plain
-PyTorch version, bit-exact, on the card; (4) the engine's path through
+PyTorch version, bit-exact, on the card, at lane lengths on both sides of
+the lane kernel's units (a warp's lane of 256 elements, a block's of 4096,
+past which lanes split into slices and a fold kernel runs); (4) the
+engine's path through
 ``Engine(backend="cuda")``: PolyBench gemm and gesummv at MEDIUM size, 256
 requests per class of six one-shot kernels at length 4096, a multi-shot
 plan and ``fabric_stream``, each checked against numpy or the port's
-executor, with the kernels' launch counts read around it; (5) each fabric
+executor, with the kernels' launch counts read around it (no fold: every
+lane there fits one block); (5) each fabric
 kernel's time at that path's shapes beside its plain version's time and
 its bound, and the device time per launch from ``torch.profiler``; (6) one
 profiled gemm run: wall time against the time the device was busy; (7) the
 dense kernels (``stream_matmul``, ``stream_conv2d``, ``flash_attention``)
 against their plain versions at the reference tests' shapes and ragged
-ones, the bfloat16 product at the edges of its ``wgmma`` route (K = 8,
+ones (for the float32 SGEMM: K around its 16-deep k tile, M and N around
+its 128 x 128 tile, A or B one float past 16-byte alignment), the
+bfloat16 product at the edges of its ``wgmma`` route (K = 8,
 K = 72, ragged M and N, N = 8) and on a misaligned A, which must take the
 ``mma_sync`` route, with the route counters read around each call, and
 attention at the edges of its 128-query tile; (8) the dense path through
@@ -166,7 +172,8 @@ def compare_stream(g, ins, errs) -> None:
 
 
 def phase_parity(device, lanes=(1, 3, 512),
-                 lengths=(0, 1, 127, 1024, 3000, 4096)):
+                 lengths=(0, 1, 127, 255, 256, 257, 1024, 3000, 4096, 4097,
+                          9000)):
     import numpy as np
     import torch
     from repro_torch.core.isa import AluOp
@@ -240,6 +247,7 @@ def phase_main(device, gemm=(200, 220, 240), gesummv_n=250, per_class=256,
 
     rng = np.random.default_rng(SEED + 1)
     fr.launches = fr.plain_calls = fs.launches = fs.plain_calls = 0
+    fr.fold_launches = 0
     engines = []
     t_all = time.perf_counter()
 
@@ -352,12 +360,17 @@ def phase_main(device, gemm=(200, 220, 240), gesummv_n=250, per_class=256,
               f"lane grid failures: {e.stats}")
     check(sum(e.stats.lane_batches for e in engines) > 0,
           "no lane grid ran")
+    folds = fr.fold_launches
     if device.type == "cuda":
         check(all(v > 0 for v in launches.values()),
               f"a kernel was never launched on the main path: {launches}")
         check(all(v == 0 for v in plain.values()),
               f"a plain version ran on the main path: {plain}")
-    print(f"[main] kernel launches {launches}, plain calls {plain}, "
+        check(folds == 0, f"{folds} fold launches on the main path, whose "
+                          f"lanes all fit one block")
+    print(f"[main] kernel launches {launches} (fabric_reduce_lanes: "
+          f"{launches['fabric_reduce_lanes'] - folds} lane grids + {folds} "
+          f"folds), plain calls {plain}, "
           f"{time.perf_counter() - t_all:.3f} s total")
     return launches
 
@@ -594,10 +607,24 @@ def phase_dense_parity(device):
             # and N not multiples of the 128 x 256 tile, N = 8
             ((130, 8, 40), bf16, f32), ((100, 72, 96), bf16, f32),
             ((200, 136, 264), bf16, f32), ((200, 136, 264), bf16, bf16),
-            ((300, 72, 8), bf16, f32), ((64, 64, 8), bf16, bf16)):
+            ((300, 72, 8), bf16, f32), ((64, 64, 8), bf16, bf16),
+            # the SGEMM's edges: K below, at and past its 16-deep k tile and
+            # its 4-stage ring, M and N around its 128 x 128 tile
+            ((127, 15, 129), f32, f32), ((129, 16, 127), f32, f32),
+            ((128, 17, 128), f32, bf16), ((257, 65, 255), f32, f32)):
         a, b = normal(rng, (m, k), device, dt), normal(rng, (k, n), device, dt)
         label = f"stream_matmul {m}x{k}x{n} {dt}->{out}"
         taken[label] = matmul_case(a, b, out, dt, label)
+    # float32 A, then B, one float past a 16-byte boundary: B then takes the
+    # SGEMM's 4-byte copies
+    m, k, n = 200, 64, 136
+    for which in ("A", "B"):
+        a = normal(rng, (m * k + 1,), device)[1:].view(m, k) if which == "A" \
+            else normal(rng, (m, k), device)
+        b = normal(rng, (k * n + 1,), device)[1:].view(k, n) if which == "B" \
+            else normal(rng, (k, n), device)
+        label = f"stream_matmul {m}x{k}x{n} f32, {which} misaligned by 4 bytes"
+        taken[label] = matmul_case(a, b, f32, f32, label)
     # a contiguous A one element past a 16-byte boundary: TMA cannot
     # address it, so the rule picks mma_sync
     m, k, n = 100, 64, 128

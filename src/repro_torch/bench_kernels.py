@@ -1,0 +1,177 @@
+"""Times the float32 ``stream_matmul`` and the fabric lane grids on the card.
+
+Run on a machine with one NVIDIA card, from the repository root:
+
+    python3 src/repro_torch/bench_kernels.py [--src DIR]
+
+It builds the kernels of ``DIR/repro_torch`` (the ``src`` directory beside
+this file unless ``--src`` names another, so that one run can time two
+versions of the kernels on one card, in turns). It prints one JSON line per
+case, with inputs made from a seed:
+
+- ``stream_matmul`` float32 at 4096 x 2304 x 5760 (minicpm-2b's gate/up
+  projection over 4,096 tokens) beside ``torch.matmul`` on the same inputs,
+  both with TF32 off; the bound is the multiply-adds over the FP32 units'
+  67 TFLOP/s. The result must stay within 1e-5 of max|C| of the plain
+  version.
+- ``fabric_reduce_lanes`` on the engine's lane grids: PolyBench gemm MEDIUM
+  (``mac3``, 14,800 lanes of 240), gesummv MEDIUM (``mac2x``, 250 x 250)
+  and the one-shot mix's ``fft_butterfly`` (256 x 4096); the bound is the
+  bytes over 3.35 TB/s. Results must equal the plain version's bit for bit.
+
+Each case gives the time by CUDA events over 20 warm calls (wrapper
+included), the host's time to enqueue a call, and the device time per call
+from ``torch.profiler`` with its split by kernel name. The last line names
+the card and its power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
+FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+MM = (4096, 2304, 5760)
+MM_REL_TOL = 1e-5              # of max|C|, float32 at K = 2304
+SEED = 0
+REPS = 20
+
+
+def time_ms(fn, reps=REPS, warm=3):
+    """(events ms per call, host ms to enqueue one call)."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host
+
+
+def device_ms(fn, reps=5):
+    """Device ms per call from torch.profiler, and its split by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0].strip()
+            by_name[name] = (by_name.get(name, 0.0)
+                             + e.time_range.elapsed_us() / reps / 1e3)
+    return sum(by_name.values()) if by_name else None, by_name
+
+
+def bench_matmul(src):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import stream_matmul as sm
+    M, K, N = MM
+    rng = np.random.default_rng(SEED)
+    a = torch.from_numpy(rng.standard_normal((M, K), dtype="float32")).cuda()
+    b = torch.from_numpy(rng.standard_normal((K, N), dtype="float32")).cuda()
+    want = sm.matmul_plain(a, b)
+    scale = float(want.abs().max())
+    err = float((sm.matmul_kernel(a, b) - want).abs().max())
+    del want
+    torch.cuda.empty_cache()
+    ms, host = time_ms(lambda: sm.matmul_kernel(a, b))
+    dev, names = device_ms(lambda: sm.matmul_kernel(a, b))
+    lib_ms, _ = time_ms(lambda: torch.matmul(a, b))
+    bound = 2 * M * N * K / FP32_FLOP_PER_S * 1e3
+    ok = err <= MM_REL_TOL * scale
+    return ok, {"src": src, "case": f"stream_matmul f32 {M}x{K}x{N}",
+                "ms": ms, "host_ms": host, "device_ms": dev,
+                "by_name": names, "library_ms": lib_ms, "bound_ms": bound,
+                "bound_by": "operations", "share": bound / ms,
+                "vs_library": ms / lib_ms, "max_abs_err": err,
+                "limit": MM_REL_TOL * scale}
+
+
+def lane_grids():
+    from repro_torch.core import kernels_lib as K
+    return (("gemm mac3", K.mac3(240), 200 * -(-220 // 3), 240),
+            ("gesummv mac2x", K.mac2x(250), 250, 250),
+            ("fft", K.fft_butterfly(), 256, 4096))
+
+
+def bench_lanes(src):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import fabric_reduce as fr
+    rng = np.random.default_rng(SEED + 1)
+    ok, rows = True, []
+    for label, g, n_lanes, length in lane_grids():
+        ins = {k: torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, (n_lanes, length), dtype=np.int64)
+            .astype(np.int32)).cuda() for k in g.inputs}
+        kf, kr = fr.reduce_lanes(g, ins)
+        pf, pr = fr.reduce_lanes_plain(g, ins)
+        exact = (all(torch.equal(kf[o], pf[o]) for o in pf)
+                 and all(torch.equal(kr[r], pr[r]) for r in pr))
+        ok = ok and exact
+        ms, host = time_ms(lambda: fr.reduce_lanes(g, ins))
+        dev, names = device_ms(lambda: fr.reduce_lanes(g, ins))
+        n_el = n_lanes * length
+        n_bytes = 4 * (n_el * len(g.inputs) + n_el * len(pf)
+                       + n_lanes * len(pr))
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        rows.append({"src": src, "case": f"fabric_reduce_lanes {label} "
+                                         f"{n_lanes}x{length}",
+                     "ms": ms, "host_ms": host, "device_ms": dev,
+                     "by_name": names, "bound_ms": bound, "bound_by": "bytes",
+                     "share": bound / (dev or ms), "bit_exact": exact})
+    return ok, rows
+
+
+def main(argv=None) -> int:
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--src", default=here)
+    args = p.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.src))
+
+    import torch
+    if not torch.cuda.is_available():
+        print("bench_kernels: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import _build
+    _build.build()
+    ok_mm, mm = bench_matmul(args.src)
+    print(json.dumps(mm), flush=True)
+    ok_lanes, rows = bench_lanes(args.src)
+    for row in rows:
+        print(json.dumps(row), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip() or smi.stderr.strip())
+    if not (ok_mm and ok_lanes):
+        print("bench_kernels: a result disagreed with the plain version",
+              file=sys.stderr)
+    return 0 if ok_mm and ok_lanes else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,60 +3,91 @@
 // ctypes by kernels/_build.py).
 //
 // Replaces the two Pallas TPU kernels of the JAX package:
-//   * repro/kernels/fabric_reduce.py::fabric_reduce_lanes  -> fabric_kernel<true>
-//     (+ fold_kernel), entry point strela_fabric_reduce_lanes
-//   * repro/kernels/fabric_stream.py::fabric_stream        -> fabric_kernel<false>,
-//     entry point strela_fabric_stream
+//   * repro/kernels/fabric_reduce.py::fabric_reduce_lanes -> lane_kernel
+//     (+ fold_kernel for lanes longer than a block), entry point
+//     strela_fabric_reduce_lanes
+//   * repro/kernels/fabric_stream.py::fabric_stream -> stream_kernel, entry
+//     point strela_fabric_stream
 //
-// Design. The wrapper lowers one shot DFG, in topological order, to a small
-// int32 instruction table (kernels/fabric_stream.py::lower); every block
-// loads it into shared memory and each thread interprets it once per stream
-// element. One build serves every DFG: no per-DFG code generation sits on
-// the request path. A thread keeps one value slot per wire in shared memory
-// ([slot][thread], so neighbouring threads hit neighbouring banks) and one
-// validity bit per wire in a 64-bit register; the opcode is the same for the
+// Both interpret the instruction table that the wrapper lowers from one shot
+// DFG, in topological order (kernels/fabric_stream.py::lower). One build
+// serves every DFG: no per-DFG code generation sits on the request path.
+// A block loads the table into shared memory; each thread keeps its wire
+// values in shared memory (slot-major, so neighbouring threads hit
+// neighbouring banks) and, where the table has a Merge, one validity bit per
+// wire in a 64-bit register per element. The opcode is the same for the
 // whole warp, so the switch does not diverge. Branch legs run speculatively
-// and Merge is a masked select, as in the reference.
+// and Merge is a masked select, as in the reference. One copy of the
+// instruction step (step()) serves both kernels.
 //
 // Arithmetic is done in uint32_t: signed overflow is undefined in C++ while
 // the reference wraps mod 2^32. SHR is an arithmetic shift of int32_t, shift
 // counts are masked with & 31, CMP tests the wrapped difference a - b.
 //
-// Lanes: blockIdx.x is a flattened (lane, chunk) index (gridDim.y stops at
-// 65,535 and a gemm MEDIUM grid already has 14,800 lanes); a chunk is
-// kThreads * kItems elements and the kernel masks the ragged tail itself.
-//
-// Reductions take two passes. The Pallas kernel carries its sum across grid
-// steps that run in order; a GPU grid does not. Each block folds its chunk
-// (registers, then warp shuffles, then shared memory) into one partial per
-// reduction node, and fold_kernel folds each lane's partials into acc_init.
-// This is exact: ADD, MUL, AND, OR and XOR are associative and commutative
-// mod 2^32, and SUB folds as acc - sum(x).
-//
 // Bound: bytes. Each element is read once per input stream and written once
 // per full-rate output (int32), a few integer operations per element; at
 // 3.35 TB/s the card's memory is the limit long before its ALUs.
+//
+// lane_kernel (N same-DFG lanes of one length, the engine's lane grid):
+//   * Units. A grid without reductions is one flat stream (the lanes lie
+//     end to end), cut into tiles of kTile elements. With reductions, a lane
+//     of at most kWarpLane elements is the unit of one warp (eight lanes per
+//     block at a time), a lane of at most kBlockLane elements that of one
+//     block, which loops over its tiles; both fold their reductions in
+//     registers and warp shuffles and write them straight to red_out, in
+//     one pass. Only a longer lane is split into kBlockLane slices, one
+//     partial each, which fold_kernel folds into acc_init.
+//   * Blocks are persistent: as many as fit on the SMs at once, each
+//     loading the table once and walking the units by a grid-stride loop.
+//   * Loads first. For each pass over its items a thread puts every input
+//     element it will use in flight at once, by cp.async into its value
+//     slots (16-byte copies where the rows allow), then interprets. Each
+//     instruction is decoded once and applied to all of the pass's items:
+//     kV items per pass, 8 where the DFG's wires fit kSlotBytes of shared
+//     memory at 8 items a thread, fewer for wider DFGs.
+//   * Reductions are exact in any order: ADD, MUL, AND, OR and XOR are
+//     associative and commutative mod 2^32, and SUB folds as acc - sum(x).
+//
+// stream_kernel (one lane, no reductions: fabric_stream) keeps the first
+// design: one block per chunk of kChunk elements, each thread interpreting
+// the whole table once per element.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kItems = 8;                     // elements per thread per chunk
-constexpr int kChunk = kThreads * kItems;     // elements per block
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSlots = 64;                 // one validity bit per slot
 constexpr int kMaxInstr = 128;
 constexpr int kMaxIO = 16;
 constexpr int kMaxRed = 16;
 constexpr int kInstrWords = 8;                // kind op dst a b c imm aux
 
+// stream_kernel
+constexpr int kThreads = 128;
+constexpr int kItems = 8;                     // elements per thread per chunk
+constexpr int kChunk = kThreads * kItems;     // elements per block
+
+// lane_kernel (kernels/fabric_reduce.py mirrors kWarpLane and kBlockLane)
+constexpr int kLThreads = 256;
+constexpr int kLWarps = kLThreads / 32;
+constexpr int kLItems = 8;                    // elements per thread per tile
+constexpr int kTile = kLThreads * kLItems;    // elements per block tile
+constexpr int kWarpLane = 256;                // lanes this short: a warp each
+constexpr int kBlockLane = 4096;              // lanes this short: one pass
+constexpr int kSlotBytes = 64 * 1024;         // wire values per block
+static_assert(kWarpLane == 32 * kLItems, "a warp's tile is one lane");
+static_assert(kBlockLane % kTile == 0, "slices are whole tiles");
+static_assert(kMaxInstr <= kLThreads, "one thread per instruction scan");
+
 enum Kind { K_INPUT = 0, K_CONST, K_ALU, K_CMP, K_MUX, K_BRANCH, K_MERGE,
             K_RED, K_OUT };
 enum Alu { A_NOP = 0, A_ADD, A_SUB, A_MUL, A_SHL, A_SHR, A_AND, A_OR,
            A_XOR };
 enum Cmp { C_EQZ = 1, C_GTZ = 2 };
+enum Mode { kModeFlat = 0, kModeWarp, kModeBlock, kModeSplit };
 
 struct Params {
   const int32_t* in[kMaxIO];
@@ -66,9 +97,12 @@ struct Params {
   int n_instr;
   int n_slots;
   int n_red;
-  long long length;            // elements per lane
-  long long chunks_per_lane;
+  int mode;                    // lane_kernel: a Mode
+  int vec;                     // lane_kernel: 16-byte copies and stores
+  long long length;            // elements per lane (flat: in the grid)
   long long n_lanes;
+  long long n_units;           // lane_kernel: tiles, lanes or lane slices
+  long long slices;            // kModeSplit: slices per lane
 };
 
 __device__ __forceinline__ int32_t alu(int op, int32_t a, int32_t b) {
@@ -98,142 +132,487 @@ __device__ __forceinline__ int32_t identity(int op) {
   return 0;
 }
 
-template <bool kReduce>
-__global__ void __launch_bounds__(kThreads)
-fabric_kernel(const int32_t* __restrict__ prog, const Params p,
-              int32_t* __restrict__ partials) {
-  extern __shared__ int32_t smem[];
-  int32_t* sprog = smem;                                  // n_instr x 8
-  int32_t* sval = sprog + p.n_instr * kInstrWords;        // n_slots x kThreads
-  int32_t* sacc = sval + p.n_slots * kThreads;            // n_red x kThreads
-  __shared__ int32_t swarp[kMaxRed][kWarps];
+// acc_init folded with a lane's sum
+__device__ __forceinline__ int32_t finish(int op, int32_t init, int32_t s) {
+  return op == A_SUB ? alu(A_SUB, init, s) : combine(op, init, s);
+}
 
-  const int tid = threadIdx.x;
-  for (int i = tid; i < p.n_instr * kInstrWords; i += kThreads)
-    sprog[i] = prog[i];
-  if (kReduce)
-    for (int r = 0; r < p.n_red; ++r)
-      sacc[r * kThreads + tid] = identity(p.red_op[r]);
-  __syncthreads();
+// kW consecutive int32 items, moved to and from memory as one vector
+template <int kW>
+struct Items {
+  int32_t v[kW];
+};
 
-  const long long lane = blockIdx.x / p.chunks_per_lane;
-  const long long chunk = blockIdx.x % p.chunks_per_lane;
-  const long long base = lane * p.length;
-#define SV(slot) sval[(slot) * kThreads + tid]
-  for (int j = 0; j < kItems; ++j) {
-    const long long e = chunk * kChunk + j * kThreads + tid;
-    if (e >= p.length) break;                     // ragged tail of the lane
-    const long long idx = base + e;
-    uint64_t valid = 0;
-    for (int k = 0; k < p.n_instr; ++k) {
-      const int32_t* ins = sprog + k * kInstrWords;
-      const int kind = ins[0], op = ins[1], dst = ins[2];
-      const int a = ins[3], b = ins[4], c = ins[5];
-      const int32_t imm = ins[6];
-      switch (kind) {
-        case K_INPUT:
-          SV(dst) = p.in[a][idx];
-          valid |= 1ull << dst;
-          break;
-        case K_CONST:
-          SV(dst) = imm;
-          valid |= 1ull << dst;
-          break;
-        case K_ALU: {
-          const uint64_t ma = (valid >> a) & 1ull;
-          const uint64_t mb = b >= 0 ? (valid >> b) & 1ull : ma;
-          SV(dst) = alu(op, SV(a), b >= 0 ? SV(b) : imm);
-          valid |= (ma & mb) << dst;
-          break;
-        }
-        case K_CMP: {
-          uint64_t m = (valid >> a) & 1ull;
-          int32_t d;
-          if (b >= 0) {
-            d = alu(A_SUB, SV(a), SV(b));
-            m &= (valid >> b) & 1ull;
-          } else {
-            d = alu(A_SUB, SV(a), imm);
-          }
-          SV(dst) = op == C_EQZ ? (d == 0) : (d > 0);
-          valid |= m << dst;
-          break;
-        }
-        case K_MUX: {
-          const uint64_t ma = (valid >> a) & 1ull;
-          const uint64_t mb = b >= 0 ? (valid >> b) & 1ull : ma;
-          const uint64_t mc = (valid >> c) & 1ull;
-          const int32_t vb = b >= 0 ? SV(b) : imm;
-          SV(dst) = SV(c) != 0 ? SV(a) : vb;
-          valid |= (ma & mb & mc) << dst;
-          break;
-        }
-        case K_BRANCH: {                            // dst = leg t, b = leg f
-          const uint64_t m = (valid >> a) & (valid >> c) & 1ull;
-          const uint64_t taken = SV(c) != 0 ? 1ull : 0ull;
-          const int32_t v = SV(a);
-          SV(dst) = v;
-          SV(b) = v;
-          valid |= (m & taken) << dst;
-          valid |= (m & (taken ^ 1ull)) << b;
-          break;
-        }
-        case K_MERGE: {
-          const uint64_t ma = (valid >> a) & 1ull;
-          const uint64_t mb = (valid >> b) & 1ull;
-          SV(dst) = ma ? SV(a) : SV(b);
-          valid |= (ma | mb) << dst;
-          break;
-        }
-        case K_RED:
-          if (kReduce) {
-            const int r = ins[7];
-            int32_t& acc = sacc[r * kThreads + tid];
-            acc = combine(op, acc, a >= 0 ? SV(a) : imm);
-          }
-          break;
-        case K_OUT:
-          p.out[ins[7]][idx] = SV(a);
-          break;
-      }
-    }
+template <int kW>
+__device__ __forceinline__ Items<kW> load_items(const int32_t* p) {
+  Items<kW> r;
+  if constexpr (kW == 4) {
+    const int4 x = *reinterpret_cast<const int4*>(p);
+    r.v[0] = x.x; r.v[1] = x.y; r.v[2] = x.z; r.v[3] = x.w;
+  } else if constexpr (kW == 2) {
+    const int2 x = *reinterpret_cast<const int2*>(p);
+    r.v[0] = x.x; r.v[1] = x.y;
+  } else {
+    r.v[0] = *p;
   }
-#undef SV
-  if (!kReduce) return;
+  return r;
+}
 
-  const int warp = tid / 32, lid = tid % 32;
-  for (int r = 0; r < p.n_red; ++r) {
-    const int op = p.red_op[r];
-    int32_t v = sacc[r * kThreads + tid];
-    for (int off = 16; off > 0; off /= 2)
-      v = combine(op, v, __shfl_down_sync(0xffffffffu, v, off));
-    if (lid == 0) swarp[r][warp] = v;
-  }
-  __syncthreads();
-  if (tid < p.n_red) {
-    const int op = p.red_op[tid];
-    int32_t v = identity(op);
-    for (int w = 0; w < kWarps; ++w) v = combine(op, v, swarp[tid][w]);
-    partials[static_cast<long long>(tid) * gridDim.x + blockIdx.x] = v;
+template <int kW>
+__device__ __forceinline__ void store_items(int32_t* p, const Items<kW>& r) {
+  if constexpr (kW == 4) {
+    *reinterpret_cast<int4*>(p) = make_int4(r.v[0], r.v[1], r.v[2], r.v[3]);
+  } else if constexpr (kW == 2) {
+    *reinterpret_cast<int2*>(p) = make_int2(r.v[0], r.v[1]);
+  } else {
+    *p = r.v[0];
   }
 }
 
-// one thread per (reduction, lane): fold the lane's chunk partials into
+template <int kW>
+__device__ __forceinline__ Items<kW> splat(int32_t x) {
+  Items<kW> r;
+#pragma unroll
+  for (int c = 0; c < kW; ++c) r.v[c] = x;
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// the instruction step, shared by both kernels
+// ---------------------------------------------------------------------------
+
+// This thread's kV = kNQ * kW items: wire slot s of its vector q lies at
+// vals + (s * kNQ + q) * vstride (kW consecutive int32).
+template <int kW, int kNQ>
+struct Slots {
+  int32_t* vals;
+  int vstride;
+  __device__ __forceinline__ int32_t* at(int s, int q) const {
+    return vals + (s * kNQ + q) * vstride;
+  }
+  __device__ __forceinline__ Items<kW> get(int s, int q) const {
+    return load_items<kW>(at(s, q));
+  }
+  // operand b, or the immediate where the table has none
+  __device__ __forceinline__ Items<kW> get_or(int s, int q,
+                                              int32_t imm) const {
+    return s >= 0 ? get(s, q) : splat<kW>(imm);
+  }
+  __device__ __forceinline__ void put(int s, int q,
+                                      const Items<kW>& r) const {
+    store_items<kW>(at(s, q), r);
+  }
+};
+
+// dst = f(a, b or imm), item by item
+template <int kW, int kNQ, class F>
+__device__ __forceinline__ void map2(const Slots<kW, kNQ>& sv, int dst, int a,
+                                     int b, int32_t imm, F f) {
+#pragma unroll
+  for (int q = 0; q < kNQ; ++q) {
+    const Items<kW> x = sv.get(a, q), y = sv.get_or(b, q, imm);
+    Items<kW> r;
+#pragma unroll
+    for (int c = 0; c < kW; ++c) r.v[c] = f(x.v[c], y.v[c]);
+    sv.put(dst, q, r);
+  }
+}
+
+// Apply one table instruction to this thread's items. valid[j] holds item
+// j's validity bits, one per slot, kept only when `track` (only a Merge
+// reads them). INPUT, RED and OUT touch device memory, which the kernels
+// reach differently: they call back on_input(dst, a), on_red(op, a, imm, r)
+// and on_out(a, o).
+template <int kW, int kNQ, class OnInput, class OnRed, class OnOut>
+__device__ __forceinline__ void step(const int32_t* ins,
+                                     const Slots<kW, kNQ>& sv,
+                                     uint64_t (&valid)[kW * kNQ], bool track,
+                                     OnInput on_input, OnRed on_red,
+                                     OnOut on_out) {
+  constexpr int kV = kW * kNQ;
+  const int4 w0 = *reinterpret_cast<const int4*>(ins);      // kind op dst a
+  const int4 w1 = *reinterpret_cast<const int4*>(ins + 4);  // b c imm aux
+  const int kind = w0.x, op = w0.y, dst = w0.z, a = w0.w;
+  const int b = w1.x, c = w1.y;
+  const int32_t imm = w1.z;
+  switch (kind) {
+    case K_INPUT:
+      on_input(dst, a);
+      if (track)
+#pragma unroll
+        for (int j = 0; j < kV; ++j) valid[j] |= 1ull << dst;
+      break;
+    case K_CONST:
+#pragma unroll
+      for (int q = 0; q < kNQ; ++q) sv.put(dst, q, splat<kW>(imm));
+      if (track)
+#pragma unroll
+        for (int j = 0; j < kV; ++j) valid[j] |= 1ull << dst;
+      break;
+    case K_ALU: {
+      using U = uint32_t;
+      switch (op) {
+        case A_ADD:
+          map2(sv, dst, a, b, imm, [](int32_t x, int32_t y) {
+            return static_cast<int32_t>(U(x) + U(y)); });
+          break;
+        case A_SUB:
+          map2(sv, dst, a, b, imm, [](int32_t x, int32_t y) {
+            return static_cast<int32_t>(U(x) - U(y)); });
+          break;
+        case A_MUL:
+          map2(sv, dst, a, b, imm, [](int32_t x, int32_t y) {
+            return static_cast<int32_t>(U(x) * U(y)); });
+          break;
+        case A_SHL:
+          map2(sv, dst, a, b, imm, [](int32_t x, int32_t y) {
+            return static_cast<int32_t>(U(x) << (U(y) & 31u)); });
+          break;
+        case A_SHR:
+          map2(sv, dst, a, b, imm, [](int32_t x, int32_t y) {
+            return x >> static_cast<int>(U(y) & 31u); });
+          break;
+        case A_AND:
+          map2(sv, dst, a, b, imm, [](int32_t x, int32_t y) {
+            return static_cast<int32_t>(U(x) & U(y)); });
+          break;
+        case A_OR:
+          map2(sv, dst, a, b, imm, [](int32_t x, int32_t y) {
+            return static_cast<int32_t>(U(x) | U(y)); });
+          break;
+        case A_XOR:
+          map2(sv, dst, a, b, imm, [](int32_t x, int32_t y) {
+            return static_cast<int32_t>(U(x) ^ U(y)); });
+          break;
+        default:
+          map2(sv, dst, a, b, imm, [](int32_t x, int32_t) { return x; });
+      }
+      if (track)
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          const uint64_t ma = (valid[j] >> a) & 1ull;
+          const uint64_t mb = b >= 0 ? (valid[j] >> b) & 1ull : ma;
+          valid[j] |= (ma & mb) << dst;
+        }
+      break;
+    }
+    case K_CMP:
+      if (op == C_EQZ)
+        map2(sv, dst, a, b, imm, [](int32_t x, int32_t y) {
+          return static_cast<int32_t>(alu(A_SUB, x, y) == 0); });
+      else
+        map2(sv, dst, a, b, imm, [](int32_t x, int32_t y) {
+          return static_cast<int32_t>(alu(A_SUB, x, y) > 0); });
+      if (track)
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          uint64_t m = (valid[j] >> a) & 1ull;
+          if (b >= 0) m &= (valid[j] >> b) & 1ull;
+          valid[j] |= m << dst;
+        }
+      break;
+    case K_MUX:
+#pragma unroll
+      for (int q = 0; q < kNQ; ++q) {
+        const Items<kW> x = sv.get(a, q), y = sv.get_or(b, q, imm);
+        const Items<kW> s = sv.get(c, q);
+        Items<kW> r;
+#pragma unroll
+        for (int e = 0; e < kW; ++e) r.v[e] = s.v[e] != 0 ? x.v[e] : y.v[e];
+        sv.put(dst, q, r);
+      }
+      if (track)
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          const uint64_t ma = (valid[j] >> a) & 1ull;
+          const uint64_t mb = b >= 0 ? (valid[j] >> b) & 1ull : ma;
+          const uint64_t mc = (valid[j] >> c) & 1ull;
+          valid[j] |= (ma & mb & mc) << dst;
+        }
+      break;
+    case K_BRANCH:                                // dst = leg t, b = leg f
+#pragma unroll
+      for (int q = 0; q < kNQ; ++q) {
+        const Items<kW> x = sv.get(a, q);
+        sv.put(dst, q, x);
+        sv.put(b, q, x);
+        if (track) {
+          const Items<kW> s = sv.get(c, q);
+#pragma unroll
+          for (int e = 0; e < kW; ++e) {
+            uint64_t& v = valid[q * kW + e];
+            const uint64_t m = (v >> a) & (v >> c) & 1ull;
+            const uint64_t taken = s.v[e] != 0 ? 1ull : 0ull;
+            v |= (m & taken) << dst;
+            v |= (m & (taken ^ 1ull)) << b;
+          }
+        }
+      }
+      break;
+    case K_MERGE:                 // a table with a Merge always tracks
+#pragma unroll
+      for (int q = 0; q < kNQ; ++q) {
+        const Items<kW> x = sv.get(a, q), y = sv.get(b, q);
+        Items<kW> r;
+#pragma unroll
+        for (int e = 0; e < kW; ++e) {
+          uint64_t& v = valid[q * kW + e];
+          const uint64_t ma = (v >> a) & 1ull, mb = (v >> b) & 1ull;
+          r.v[e] = ma ? x.v[e] : y.v[e];
+          v |= (ma | mb) << dst;
+        }
+        sv.put(dst, q, r);
+      }
+      break;
+    case K_RED:
+      on_red(op, a, imm, w1.w);
+      break;
+    case K_OUT:
+      on_out(a, w1.w);
+      break;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// stream_kernel: one lane, no reductions (fabric_stream)
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+stream_kernel(const int32_t* __restrict__ prog, const Params p) {
+  extern __shared__ __align__(16) int32_t smem[];
+  int32_t* sprog = smem;                                  // n_instr x 8
+  int32_t* sval = sprog + p.n_instr * kInstrWords;        // n_slots x kThreads
+  const int tid = threadIdx.x;
+  for (int i = tid; i < p.n_instr * kInstrWords; i += kThreads)
+    sprog[i] = prog[i];
+  __syncthreads();
+
+  const Slots<1, 1> sv{sval + tid, kThreads};
+  for (int j = 0; j < kItems; ++j) {
+    const long long idx = blockIdx.x * static_cast<long long>(kChunk) +
+                          j * kThreads + tid;
+    if (idx >= p.length) break;                   // ragged tail
+    uint64_t valid[1] = {0};
+    for (int k = 0; k < p.n_instr; ++k)
+      step(sprog + k * kInstrWords, sv, valid, true,
+           [&](int dst, int a) { *sv.at(dst, 0) = p.in[a][idx]; },
+           [](int, int, int32_t, int) {},
+           [&](int a, int o) { p.out[o][idx] = *sv.at(a, 0); });
+  }
+}
+
+// ---------------------------------------------------------------------------
+// lane_kernel: N lanes, reductions in one pass where a lane fits a block
+// ---------------------------------------------------------------------------
+
+// kBytes from src to shared dst by cp.async; src_bytes 0 fills zeros
+template <int kBytes>
+__device__ __forceinline__ void cp_async(int32_t* dst, const int32_t* src,
+                                         int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(src_bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(kBytes), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// kW elements of src from element e, zero past n: one vector copy where
+// the vector is whole and the rows allow it, else one copy per element
+template <int kW>
+__device__ __forceinline__ void fetch(int32_t* dst, const int32_t* src,
+                                      int e, int n, bool vec) {
+  if (kW > 1 && vec && e + kW <= n) {
+    cp_async<4 * kW>(dst, src + e, 4 * kW);
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < kW; ++c) {
+    const bool ok = e + c < n;
+    cp_async<4>(dst + c, ok ? src + e + c : src, ok ? 4 : 0);
+  }
+}
+
+// acc folded by f with this thread's items of slot a (or imm); where the
+// pass is not whole, items at or past n count as the identity id
+template <int kW, int kNQ, class F>
+__device__ __forceinline__ int32_t fold_items(const Slots<kW, kNQ>& sv,
+                                              int a, int32_t imm,
+                                              int32_t acc, int32_t id,
+                                              bool whole, int e0, int q_step,
+                                              int n, F f) {
+#pragma unroll
+  for (int q = 0; q < kNQ; ++q) {
+    const Items<kW> x = a >= 0 ? sv.get(a, q) : splat<kW>(imm);
+#pragma unroll
+    for (int c = 0; c < kW; ++c)
+      acc = f(acc, whole || e0 + q * q_step + c < n ? x.v[c] : id);
+  }
+  return acc;
+}
+
+// f applied with op's reduction (SUB folds as ADD) and its identity
+template <class F>
+__device__ __forceinline__ void with_fold(int op, F f) {
+  using U = uint32_t;
+  switch (op == A_SUB ? A_ADD : op) {
+    case A_MUL:
+      f([](int32_t x, int32_t y) { return static_cast<int32_t>(U(x) * U(y)); },
+        1);
+      break;
+    case A_AND:
+      f([](int32_t x, int32_t y) { return x & y; }, -1);
+      break;
+    case A_OR:
+      f([](int32_t x, int32_t y) { return x | y; }, 0);
+      break;
+    case A_XOR:
+      f([](int32_t x, int32_t y) { return x ^ y; }, 0);
+      break;
+    default:
+      f([](int32_t x, int32_t y) { return static_cast<int32_t>(U(x) + U(y)); },
+        0);
+  }
+}
+
+template <int kV>
+__global__ void __launch_bounds__(kLThreads)
+lane_kernel(const int32_t* __restrict__ prog, const Params p,
+            int32_t* __restrict__ red_out, int32_t* __restrict__ partials) {
+  constexpr int kW = kV < 4 ? kV : 4;           // items per vector
+  constexpr int kNQ = kV / kW;                  // vectors per pass
+  extern __shared__ __align__(16) int32_t lsmem[];
+  int32_t* sprog = lsmem;                               // n_instr x 8
+  int32_t* sval = sprog + p.n_instr * kInstrWords;      // slots x kV x thr
+  int32_t* sacc = sval + p.n_slots * kV * kLThreads;    // n_red x thr
+  __shared__ int32_t swarp[kMaxRed][kLWarps];
+
+  const int tid = threadIdx.x, lid = tid % 32, warp = tid / 32;
+  for (int i = tid; i < p.n_instr * kInstrWords; i += kLThreads)
+    sprog[i] = prog[i];
+  for (int r = 0; r < p.n_red; ++r)
+    sacc[r * kLThreads + tid] = identity(p.red_op[r]);
+  // the validity bits matter only to a Merge: keep them where there is one
+  const bool track = __syncthreads_or(
+      tid < p.n_instr && prog[tid * kInstrWords] == K_MERGE);
+
+  const bool by_warp = p.mode == kModeWarp;
+  const int G = by_warp ? 32 : kLThreads;       // threads sharing a unit
+  const int g = by_warp ? lid : tid;
+  const long long per_block = by_warp ? kLWarps : 1;
+  const int q_step = G * kW;                    // elements between vectors
+  const int pass_len = q_step * kNQ;            // elements per pass
+  const Slots<kW, kNQ> sv{sval + tid * kW, kLThreads * kW};
+
+  for (long long u = blockIdx.x * per_block + (by_warp ? warp : 0);
+       u < p.n_units; u += gridDim.x * per_block) {
+    // the unit: elements [begin, begin + n) of the lane-major grid; n is
+    // at most kBlockLane, so offsets within it are ints
+    long long lane = u, begin;
+    int n;
+    if (p.mode == kModeFlat) {
+      begin = u * kTile;
+      n = static_cast<int>(min(static_cast<long long>(kTile),
+                               p.length - begin));
+    } else if (p.mode == kModeSplit) {
+      lane = u / p.slices;
+      const long long off = (u % p.slices) * kBlockLane;
+      begin = lane * p.length + off;
+      n = static_cast<int>(min(static_cast<long long>(kBlockLane),
+                               p.length - off));
+    } else {
+      begin = lane * p.length;
+      n = static_cast<int>(p.length);
+    }
+    for (int e0 = g * kW; e0 < n; e0 += pass_len) {
+      // this pass: vector q of this thread starts at element e0 + q * q_step
+      const bool whole = e0 + (kNQ - 1) * q_step + kW <= n;
+      for (int k = 0; k < p.n_instr; ++k) {     // every input in flight
+        const int32_t* ins = sprog + k * kInstrWords;
+        if (ins[0] != K_INPUT) continue;
+        const int32_t* src = p.in[ins[3]] + begin;
+#pragma unroll
+        for (int q = 0; q < kNQ; ++q)
+          fetch<kW>(sv.at(ins[2], q), src, e0 + q * q_step, n, p.vec);
+      }
+      cp_async_wait_all();                      // own copies only
+      uint64_t valid[kV] = {};
+      for (int k = 0; k < p.n_instr; ++k)
+        step(sprog + k * kInstrWords, sv, valid, track,
+             [](int, int) {},                     // inputs are in place
+             [&](int op, int a, int32_t imm, int r) {
+               int32_t& acc = sacc[r * kLThreads + tid];
+               with_fold(op, [&](auto f, int32_t id) {
+                 acc = fold_items(sv, a, imm, acc, id, whole, e0, q_step, n,
+                                  f);
+               });
+             },
+             [&](int a, int o) {
+               int32_t* out = p.out[o] + begin;
+#pragma unroll
+               for (int q = 0; q < kNQ; ++q) {
+                 const Items<kW> x = sv.get(a, q);
+                 const int e = e0 + q * q_step;
+                 if (kW > 1 && p.vec && e + kW <= n) {
+                   store_items<kW>(out + e, x);
+                 } else {
+#pragma unroll
+                   for (int c = 0; c < kW; ++c)
+                     if (e + c < n) out[e + c] = x.v[c];
+                 }
+               }
+             });
+    }
+    if (p.n_red == 0) continue;
+
+    // the unit's reductions: registers, warp shuffles, then across warps
+    for (int r = 0; r < p.n_red; ++r) {
+      const int op = p.red_op[r];
+      int32_t v = sacc[r * kLThreads + tid];
+      with_fold(op, [&](auto f, int32_t id) {
+        sacc[r * kLThreads + tid] = id;
+        for (int off = 16; off > 0; off /= 2)
+          v = f(v, __shfl_xor_sync(0xffffffffu, v, off));
+      });
+      if (lid != 0) continue;
+      if (by_warp)
+        red_out[r * p.n_lanes + lane] = finish(op, p.red_init[r], v);
+      else
+        swarp[r][warp] = v;
+    }
+    if (by_warp) continue;
+    __syncthreads();
+    if (tid < p.n_red) {
+      const int op = p.red_op[tid];
+      int32_t v = identity(op);
+      for (int w = 0; w < kLWarps; ++w) v = combine(op, v, swarp[tid][w]);
+      if (p.mode == kModeSplit)
+        partials[(tid * p.n_lanes + lane) * p.slices + u % p.slices] = v;
+      else
+        red_out[tid * p.n_lanes + lane] = finish(op, p.red_init[tid], v);
+    }
+    __syncthreads();
+  }
+}
+
+// one thread per (reduction, lane): fold the lane's slice partials into
 // acc_init
 __global__ void fold_kernel(const int32_t* __restrict__ partials,
-                            int32_t* __restrict__ red_out, const Params p,
-                            long long n_blocks) {
+                            int32_t* __restrict__ red_out, const Params p) {
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (t >= p.n_red * p.n_lanes) return;
   const int r = static_cast<int>(t / p.n_lanes);
-  const long long lane = t % p.n_lanes;
   const int op = p.red_op[r];
-  const int32_t* part = partials + r * n_blocks + lane * p.chunks_per_lane;
+  const int32_t* part = partials + t * p.slices;
   int32_t s = identity(op);
-  for (long long c = 0; c < p.chunks_per_lane; ++c) s = combine(op, s, part[c]);
-  const int32_t acc = p.red_init[r];
-  red_out[t] = op == A_SUB ? alu(A_SUB, acc, s) : combine(op, acc, s);
+  for (long long c = 0; c < p.slices; ++c) s = combine(op, s, part[c]);
+  red_out[t] = finish(op, p.red_init[r], s);
 }
 
 int check_sizes(int n_instr, int n_slots, int n_in, int n_out, int n_red) {
@@ -244,42 +623,101 @@ int check_sizes(int n_instr, int n_slots, int n_in, int n_out, int n_red) {
   return 0;
 }
 
-size_t smem_bytes(const Params& p) {
-  return sizeof(int32_t) * (static_cast<size_t>(p.n_instr) * kInstrWords +
-                            static_cast<size_t>(p.n_slots + p.n_red) *
-                                kThreads);
-}
-
 Params make_params(int n_instr, int n_slots, const long long* in_ptrs,
                    int n_in, const long long* out_ptrs, int n_out,
-                   long long n_lanes, long long length) {
+                   long long n_lanes, long long length, bool* aligned) {
   Params p = {};
-  for (int i = 0; i < n_in; ++i)
+  *aligned = true;
+  for (int i = 0; i < n_in; ++i) {
     p.in[i] = reinterpret_cast<const int32_t*>(in_ptrs[i]);
-  for (int i = 0; i < n_out; ++i)
+    *aligned = *aligned && in_ptrs[i] % 16 == 0;
+  }
+  for (int i = 0; i < n_out; ++i) {
     p.out[i] = reinterpret_cast<int32_t*>(out_ptrs[i]);
+    *aligned = *aligned && out_ptrs[i] % 16 == 0;
+  }
   p.n_instr = n_instr;
   p.n_slots = n_slots;
   p.length = length;
-  p.chunks_per_lane = (length + kChunk - 1) / kChunk;
   p.n_lanes = n_lanes;
   return p;
+}
+
+// the most any table takes: kMaxInstr rows, kSlotBytes of wire values,
+// kMaxRed sums a thread
+constexpr size_t kLaneSmemMax =
+    sizeof(int32_t) * (kMaxInstr * kInstrWords + kMaxRed * kLThreads) +
+    kSlotBytes;
+
+size_t lane_smem(const Params& p, int kv) {
+  return sizeof(int32_t) *
+         (static_cast<size_t>(p.n_instr) * kInstrWords +
+          static_cast<size_t>(p.n_slots) * kv * kLThreads +
+          static_cast<size_t>(p.n_red) * kLThreads);
+}
+
+// The blocks of lane_kernel<kV> that fit on the device at once with smem
+// bytes of shared memory each, remembered per (device, kV, smem): the
+// attribute and occupancy queries cost host time on every grid otherwise.
+template <int kV>
+cudaError_t resident_blocks(size_t smem, long long* out) {
+  struct Entry { int dev; size_t smem; long long blocks; };
+  static std::mutex mu;
+  static Entry seen[16];
+  static int n_seen = 0;
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_seen; ++i)
+    if (seen[i].dev == dev && seen[i].smem == smem) {
+      *out = seen[i].blocks;
+      return cudaSuccess;
+    }
+  int n_sm = 0, per_sm = 0;
+  rc = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaFuncSetAttribute(lane_kernel<kV>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(kLaneSmemMax));
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, lane_kernel<kV>, kLThreads, smem);
+  if (rc != cudaSuccess) return rc;
+  *out = static_cast<long long>(per_sm > 0 ? per_sm : 1) * n_sm;
+  if (n_seen < 16) seen[n_seen++] = {dev, smem, *out};
+  return cudaSuccess;
+}
+
+// persistent blocks: as many as fit on the SMs at once, at most one a unit
+template <int kV>
+int launch_lanes(const int32_t* prog, const Params& p, int32_t* red_out,
+                 int32_t* partials, cudaStream_t s) {
+  const size_t smem = lane_smem(p, kV);
+  long long resident = 0;
+  const cudaError_t rc = resident_blocks<kV>(smem, &resident);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const long long per_block = p.mode == kModeWarp ? kLWarps : 1;
+  long long blocks = (p.n_units + per_block - 1) / per_block;
+  if (blocks > resident) blocks = resident;
+  lane_kernel<kV><<<static_cast<unsigned>(blocks), kLThreads, smem, s>>>(
+      prog, p, red_out, partials);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// elements per block: the caller sizes the reduction partials with it
-int strela_chunk_elements() { return kChunk; }
-
 const char* strela_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// N same-DFG lanes of `length` elements each. `partials` holds
-// n_red * n_lanes * ceil(length / chunk) int32, `red_out` n_red * n_lanes.
-// Returns the CUDA error of the launches (0 on success).
+// N same-DFG lanes of `length` elements each, lane-major. `red_out` holds
+// n_red * n_lanes int32. `partials` (n_red * n_lanes * ceil(length /
+// kBlockLane) int32) is read only when some reduction's lanes are longer
+// than kBlockLane, and may be null otherwise. Returns the CUDA error of the
+// launches (0 on success).
 int strela_fabric_reduce_lanes(const int32_t* prog, int n_instr, int n_slots,
                                const long long* in_ptrs, int n_in,
                                const long long* out_ptrs, int n_out,
@@ -290,28 +728,49 @@ int strela_fabric_reduce_lanes(const int32_t* prog, int n_instr, int n_slots,
   int rc = check_sizes(n_instr, n_slots, n_in, n_out, n_red);
   if (rc) return rc;
   if (n_lanes <= 0 || length <= 0) return 0;
+  bool aligned = true;
   Params p = make_params(n_instr, n_slots, in_ptrs, n_in, out_ptrs, n_out,
-                         n_lanes, length);
+                         n_lanes, length, &aligned);
   p.n_red = n_red;
   for (int r = 0; r < n_red; ++r) {
     p.red_op[r] = red_ops[r];
     p.red_init[r] = red_inits[r];
   }
-  const long long n_blocks = n_lanes * p.chunks_per_lane;
-  if (n_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_red > 0) {
-    fabric_kernel<true><<<static_cast<unsigned>(n_blocks), kThreads,
-                          smem_bytes(p), s>>>(prog, p, partials);
-    rc = static_cast<int>(cudaGetLastError());
-    if (rc) return rc;
-    const long long n_fold = n_red * n_lanes;
-    fold_kernel<<<static_cast<unsigned>((n_fold + 255) / 256), 256, 0, s>>>(
-        partials, red_out, p, n_blocks);
+  p.slices = 1;
+  if (n_red == 0) {                     // the lanes lie end to end
+    p.mode = kModeFlat;
+    p.length = n_lanes * length;
+    p.n_units = (p.length + kTile - 1) / kTile;
+    p.vec = aligned;
   } else {
-    fabric_kernel<false><<<static_cast<unsigned>(n_blocks), kThreads,
-                           smem_bytes(p), s>>>(prog, p, nullptr);
+    p.vec = aligned && length % 4 == 0;
+    p.n_units = n_lanes;
+    if (length <= kWarpLane) {
+      p.mode = kModeWarp;
+    } else if (length <= kBlockLane) {
+      p.mode = kModeBlock;
+    } else {
+      if (partials == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      p.mode = kModeSplit;
+      p.slices = (length + kBlockLane - 1) / kBlockLane;
+      p.n_units = n_lanes * p.slices;
+    }
   }
+  int kv = 8;                           // items a thread holds per pass
+  while (kv > 1 && static_cast<size_t>(n_slots) * kv * kLThreads *
+                           sizeof(int32_t) > kSlotBytes)
+    kv /= 2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kv) {
+    case 8: rc = launch_lanes<8>(prog, p, red_out, partials, s); break;
+    case 4: rc = launch_lanes<4>(prog, p, red_out, partials, s); break;
+    case 2: rc = launch_lanes<2>(prog, p, red_out, partials, s); break;
+    default: rc = launch_lanes<1>(prog, p, red_out, partials, s);
+  }
+  if (rc || p.mode != kModeSplit) return rc;
+  const long long n_fold = n_red * n_lanes;
+  fold_kernel<<<static_cast<unsigned>((n_fold + 255) / 256), 256, 0, s>>>(
+      partials, red_out, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -323,13 +782,16 @@ int strela_fabric_stream(const int32_t* prog, int n_instr, int n_slots,
   int rc = check_sizes(n_instr, n_slots, n_in, n_out, 0);
   if (rc) return rc;
   if (length <= 0) return 0;
-  Params p = make_params(n_instr, n_slots, in_ptrs, n_in, out_ptrs, n_out,
-                         1, length);
-  if (p.chunks_per_lane > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  fabric_kernel<false><<<static_cast<unsigned>(p.chunks_per_lane), kThreads,
-                         smem_bytes(p), static_cast<cudaStream_t>(stream)>>>(
-      prog, p, nullptr);
+  bool aligned = true;
+  const Params p = make_params(n_instr, n_slots, in_ptrs, n_in, out_ptrs,
+                               n_out, 1, length, &aligned);
+  const long long blocks = (length + kChunk - 1) / kChunk;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(int32_t) *
+                      (static_cast<size_t>(n_instr) * kInstrWords +
+                       static_cast<size_t>(n_slots) * kThreads);
+  stream_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+                  static_cast<cudaStream_t>(stream)>>>(prog, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,12 +13,17 @@
 // its 139.8 MB (bf16 A and B read once, f32 C written once). Three routes,
 // chosen by the caller (kernels/stream_matmul.py::route) and checked here:
 //
-//   * "sgemm", float32 inputs: sgemm_kernel, a shared-memory-tiled SGEMM
-//     on the FP32 units. A 128 x 128 output tile per block of 256 threads,
-//     each thread holding an 8 x 8 register block (two 4-wide halves 64
-//     apart, so its float4 reads of shared memory are conflict-free). No
-//     TF32: the reference tolerance is 1e-4, and TF32 keeps about three
-//     digits.
+//   * "sgemm", float32 inputs: sgemm_kernel, an SGEMM on the FP32 units. A
+//     128 x 128 output tile per block of 256 threads, two blocks per SM (at
+//     most 128 registers a thread). A 4-stage cp.async ring of 16-deep k
+//     tiles in dynamic shared memory, one barrier per tile; A is transposed
+//     on the way in by 4-byte copies, B copied as it lies (16-byte copies
+//     where its rows allow). Warps tile the block 2 x 4; each thread holds
+//     8 x 8 sums, and every float4 a warp reads from shared memory serves
+//     several of its threads. Blocks are rasterised in groups of 8 M tiles,
+//     so blocks running together share B tiles in L2 (B alone is 53 MB at
+//     the main path's shape, more than the 50 MB L2). No TF32: the
+//     reference tolerance is 1e-4, and TF32 keeps about three digits.
 //   * "wgmma", bfloat16 inputs whose rows TMA can address (K % 8 == 0,
 //     N % 8 == 0, A and B 16-byte aligned): wgmma_gemm_kernel. A 128 x 256
 //     output tile per block of three warpgroups. One producer thread keeps
@@ -60,7 +65,7 @@
 namespace {
 
 // flags: which operands take 16-byte vector loads / stores
-constexpr int kVecA = 1, kVecB = 2, kVecC = 4;
+constexpr int kVecA = 1, kVecB = 2;
 
 template <typename OutT>
 __device__ __forceinline__ void store_out(OutT* p, float v);
@@ -75,43 +80,124 @@ __device__ __forceinline__ void store_out<__nv_bfloat16>(__nv_bfloat16* p,
 }
 
 // ---------------------------------------------------------------------------
-// float32: register-blocked SGEMM on the FP32 units
+// float32: SGEMM on the FP32 units, a cp.async ring of k tiles
 // ---------------------------------------------------------------------------
 
-constexpr int kSBM = 128, kSBN = 128, kSBK = 8, kSThreads = 256;
-constexpr int kSAStride = kSBM + 4;  // As[k][m]: transposed stores stay
-                                     // conflict-free, rows 16-byte aligned
+constexpr int kSBM = 128, kSBN = 128, kSBK = 16, kSStages = 4;
+constexpr int kSThreads = 256;
+constexpr int kSGroupM = 8;           // M tiles per rasterisation group
+constexpr int kSAStride = kSBM + 4;   // As[k][m]: rows 16-byte aligned, the
+                                      // transposing copies conflict-free
+constexpr int kSAStage = kSBK * kSAStride;   // floats per stage
+constexpr int kSBStage = kSBK * kSBN;
+constexpr size_t kSSmem =
+    sizeof(float) * kSStages * (kSAStage + kSBStage);
+static_assert(kSBK % 8 == 0 && kSThreads == 256 && kSBM == 128 &&
+              kSBN == 128, "the copy and fragment maps assume these");
 
-// four consecutive floats of one row from column c, zero past `lim`
-__device__ __forceinline__ float4 load4_f32(const float* row, int c, int lim,
-                                            bool ok, bool vec) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (!ok || c >= lim) return v;
-  if (vec) return *reinterpret_cast<const float4*>(row + c);
-  v.x = row[c];
-  if (c + 1 < lim) v.y = row[c + 1];
-  if (c + 2 < lim) v.z = row[c + 2];
-  if (c + 3 < lim) v.w = row[c + 3];
-  return v;
+// kBytes from src to shared dst by cp.async; src_bytes 0 fills zeros
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(src_bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(kSThreads)
-sgemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
-             OutT* __restrict__ C, int M, int N, int K, int flags) {
-  __shared__ __align__(16) float As[kSBK][kSAStride];
-  __shared__ __align__(16) float Bs[kSBK][kSBN];
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;
-  const int m0 = blockIdx.y * kSBM, n0 = blockIdx.x * kSBN;
-  const bool vec_a = flags & kVecA, vec_b = flags & kVecB;
+// One k tile [k0, k0 + kSBK) into a stage, zero past M, N and K: A
+// transposed into As[k][m] by 4-byte copies (each warp copies 4 rows x 8 k,
+// 32-byte row segments, onto 32 distinct banks), B as it lies into
+// Bs[k][n], by 16-byte copies where its rows allow (kB16), else by 4-byte
+// ones. a_src: this thread's first A element (row m0 + t / 8, column
+// t % 8); a_rows: bit j set when its row m0 + t / 8 + 32 j is below M. A
+// zero-filling copy names A's or B's first element as its source.
+template <bool kB16>
+__device__ __forceinline__ void sgemm_stage(float* As, float* Bs,
+                                            const float* A,
+                                            const float* a_src, int a_rows,
+                                            const float* B, int N, int K,
+                                            int n0, int k0, int t) {
+  constexpr int kKG = kSBK / 8;          // groups of 8 k per A row
+  const int ak = t % 8, am = t / 8;
+#pragma unroll
+  for (int j = 0; j < 4 * kKG; ++j) {
+    const int k = ak + 8 * (j % kKG), m = am + 32 * (j / kKG);
+    const bool ok = (a_rows >> (j / kKG) & 1) && k0 + k < K;
+    const float* src = a_src + static_cast<size_t>(32 * (j / kKG)) * K +
+                       k0 + 8 * (j % kKG);
+    cp_async<4>(As + k * kSAStride + m, ok ? src : A, ok ? 4 : 0);
+  }
+  if constexpr (kB16) {
+#pragma unroll
+    for (int j = 0; j < kSBK * kSBN / 4 / kSThreads; ++j) {
+      const int idx = t + kSThreads * j;
+      const int kb = idx / (kSBN / 4), nb = (idx % (kSBN / 4)) * 4;
+      const bool ok = k0 + kb < K && n0 + nb < N;
+      const float* src = B + static_cast<size_t>(k0 + kb) * N + n0 + nb;
+      cp_async<16>(Bs + kb * kSBN + nb, ok ? src : B, ok ? 16 : 0);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kSBK * kSBN / kSThreads; ++j) {
+      const int idx = t + kSThreads * j;
+      const int kb = idx / kSBN, nb = idx % kSBN;
+      const bool ok = k0 + kb < K && n0 + nb < N;
+      const float* src = B + static_cast<size_t>(k0 + kb) * N + n0 + nb;
+      cp_async<4>(Bs + kb * kSBN + nb, ok ? src : B, ok ? 4 : 0);
+    }
+  }
+}
 
-  // this thread's share of each tile: one float4 of A, one of B
-  const int a_m = t / 2, a_k = (t % 2) * 4;      // A tile: 128 rows x 8
-  const int b_k = t / 32, b_n = (t % 32) * 4;    // B tile: 8 rows x 128
-  const bool a_ok = m0 + a_m < M;
-  const float* a_row = A + static_cast<size_t>(a_ok ? m0 + a_m : 0) * K;
-  const bool bn_ok = n0 + b_n < N;
+// A 128 x 128 tile of C per block of 256 threads, two blocks per SM. The
+// eight warps tile it 2 (M) x 4 (N), 64 x 32 each; a warp's threads sit 8
+// (M) x 4 (N), each holding 8 x 8 sums (rows r..r+3 and r+32..r+35, columns
+// c..c+3 and c+16..c+19), so each float4 a warp reads from shared memory
+// serves 4 (A) or 8 (B) threads at once. A kSStages-deep ring of kSBK-deep
+// k tiles: one cp.async group per tile, one barrier per tile. The k loop is
+// unrolled, and the compiler's schedule loads step k + 1's fragments while
+// step k multiplies. At two blocks per SM ptxas has 128 registers a thread
+// and this loop needs all of them: a second fragment buffer written out by
+// hand, pointers stepped through the tile, 32-deep tiles or A kept
+// row-major each made it spill, and each ran 4-25% slower.
+template <typename OutT, bool kB16>
+__global__ void __launch_bounds__(kSThreads, 2)
+sgemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
+             OutT* __restrict__ C, int M, int N, int K, bool vec_c) {
+  extern __shared__ __align__(16) float ssm[];
+  float* As = ssm;                            // kSStages x kSAStage
+  float* Bs = ssm + kSStages * kSAStage;      // kSStages x kSBStage
+
+  // rasterise: within a group of kSGroupM M tiles, M walks fastest, so the
+  // blocks running together share their B tiles in L2
+  const int tiles_m = (M + kSBM - 1) / kSBM, tiles_n = (N + kSBN - 1) / kSBN;
+  const int per_group = kSGroupM * tiles_n;
+  const int first_m = static_cast<int>(blockIdx.x) / per_group * kSGroupM;
+  const int group_m = min(tiles_m - first_m, kSGroupM);
+  const int in_group = static_cast<int>(blockIdx.x) % per_group;
+  const int m0 = (first_m + in_group % group_m) * kSBM;
+  const int n0 = in_group / group_m * kSBN;
+
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int ra = (warp / 4) * 64 + (lane / 4) * 4;   // A fragment rows
+  const int cb = (warp % 4) * 32 + (lane % 4) * 4;   // B fragment columns
+
+  int a_rows = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    a_rows |= (m0 + t / 8 + 32 * j < M) << j;
+  const float* a_src =
+      A + static_cast<size_t>(a_rows & 1 ? m0 + t / 8 : 0) * K + t % 8;
 
   float acc[8][8];
 #pragma unroll
@@ -120,28 +206,34 @@ sgemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   const int n_k = (K + kSBK - 1) / kSBK;
-  float4 ra = load4_f32(a_row, a_k, K, a_ok, vec_a);
-  float4 rb = load4_f32(B + static_cast<size_t>(b_k) * N, n0 + b_n, N,
-                        bn_ok && b_k < K, vec_b);
+#pragma unroll
+  for (int s = 0; s < kSStages - 1; ++s) {
+    if (s < n_k)
+      sgemm_stage<kB16>(As + s * kSAStage, Bs + s * kSBStage, A, a_src,
+                         a_rows, B, N, K, n0, s * kSBK, t);
+    cp_async_commit();
+  }
   for (int kt = 0; kt < n_k; ++kt) {
-    As[a_k + 0][a_m] = ra.x;
-    As[a_k + 1][a_m] = ra.y;
-    As[a_k + 2][a_m] = ra.z;
-    As[a_k + 3][a_m] = ra.w;
-    *reinterpret_cast<float4*>(&Bs[b_k][b_n]) = rb;
-    __syncthreads();
-    if (kt + 1 < n_k) {                  // next tile's loads in flight
-      const int k0 = (kt + 1) * kSBK;
-      ra = load4_f32(a_row, k0 + a_k, K, a_ok, vec_a);
-      rb = load4_f32(B + static_cast<size_t>(k0 + b_k) * N, n0 + b_n, N,
-                     bn_ok && k0 + b_k < K, vec_b);
+    cp_async_wait<kSStages - 2>();    // this thread's copies of tile kt
+    __syncthreads();                  // everyone's; and tile kt - 1 is read
+    const int nk = kt + kSStages - 1;
+    if (nk < n_k) {
+      const int slot = nk % kSStages;
+      sgemm_stage<kB16>(As + slot * kSAStage, Bs + slot * kSBStage, A,
+                         a_src, a_rows, B, N, K, n0, nk * kSBK, t);
     }
+    cp_async_commit();
+    const float* as = As + (kt % kSStages) * kSAStage;
+    const float* bs = Bs + (kt % kSStages) * kSBStage;
 #pragma unroll
     for (int k = 0; k < kSBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][64 + tx * 4]);
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(as + k * kSAStride + ra);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(as + k * kSAStride + ra + 32);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + k * kSBN + cb);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(bs + k * kSBN + cb + 16);
       const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -149,18 +241,17 @@ sgemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
 
-  const bool vec_c = flags & kVecC;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    const int row = m0 + ra + (i < 4 ? i : 28 + i);
     if (row >= M) continue;
     OutT* c_row = C + static_cast<size_t>(row) * N;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int col = n0 + half * 64 + tx * 4;
+      const int col = n0 + cb + 16 * half;
       if constexpr (std::is_same<OutT, float>::value) {
         if (vec_c && col + 3 < N) {
           *reinterpret_cast<float4*>(c_row + col) =
@@ -174,6 +265,21 @@ sgemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
         if (col + j < N) store_out(c_row + col + j, acc[i][half * 4 + j]);
     }
   }
+}
+
+template <typename OutT, bool kB16>
+int launch_sgemm(const float* A, const float* B, OutT* C, int M, int N,
+                 int K, bool vec_c, cudaStream_t s) {
+  const long long blocks = static_cast<long long>((M + kSBM - 1) / kSBM) *
+                           ((N + kSBN - 1) / kSBN);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t rc = cudaFuncSetAttribute(
+      sgemm_kernel<OutT, kB16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSSmem));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  sgemm_kernel<OutT, kB16><<<static_cast<unsigned>(blocks), kSThreads,
+                              kSSmem, s>>>(A, B, C, M, N, K, vec_c);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -669,21 +775,19 @@ int strela_stream_matmul(const void* a, const void* b, void* c, int M, int N,
   if (M == 0 || N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 0) {
-    const int grid_y = (M + kSBM - 1) / kSBM;
-    if (grid_y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((N + kSBN - 1) / kSBN, grid_y);
-    int flags = 0;
-    if (K % 4 == 0 && aligned16(a)) flags |= kVecA;
-    if (N % 4 == 0 && aligned16(b)) flags |= kVecB;
-    if (N % 4 == 0 && aligned16(c) && out_dtype == 0) flags |= kVecC;
     const float* A = static_cast<const float*>(a);
     const float* B = static_cast<const float*>(b);
-    if (out_dtype == 0)
-      sgemm_kernel<float><<<grid, kSThreads, 0, s>>>(
-          A, B, static_cast<float*>(c), M, N, K, flags);
-    else
-      sgemm_kernel<__nv_bfloat16><<<grid, kSThreads, 0, s>>>(
-          A, B, static_cast<__nv_bfloat16*>(c), M, N, K, flags);
+    const bool b16 = N % 4 == 0 && aligned16(b);
+    const bool vec_c = N % 4 == 0 && aligned16(c);
+    if (out_dtype == 0) {
+      float* C = static_cast<float*>(c);
+      return b16 ? launch_sgemm<float, true>(A, B, C, M, N, K, vec_c, s)
+                 : launch_sgemm<float, false>(A, B, C, M, N, K, vec_c, s);
+    }
+    __nv_bfloat16* C = static_cast<__nv_bfloat16*>(c);
+    return b16 ? launch_sgemm<__nv_bfloat16, true>(A, B, C, M, N, K, false, s)
+               : launch_sgemm<__nv_bfloat16, false>(A, B, C, M, N, K, false,
+                                                    s);
   } else if (route == 2) {
     if ((N + kWBN - 1) / kWBN > 65535)
       return static_cast<int>(cudaErrorInvalidValue);

@@ -118,8 +118,6 @@ def load() -> ctypes.CDLL:
         lib.strela_flash_attention.restype = i
         lib.strela_error_string.argtypes = [i]
         lib.strela_error_string.restype = ctypes.c_char_p
-        lib.strela_chunk_elements.argtypes = []
-        lib.strela_chunk_elements.restype = i
         _lib = lib
         return lib
 

@@ -9,27 +9,30 @@ single-emission associative reductions (ADD, SUB as ``acc - sum(x)``, MUL,
 AND, OR, XOR, all wrapping mod 2^32) folded per lane from ``acc_init``.
 Stride-0 outputs keep the last element.
 
-Kernel: ``fabric_kernel<true>`` + ``fold_kernel`` in ``csrc/fabric.cu``,
-entry point ``strela_fabric_reduce_lanes``. ``blockIdx.x`` is a flattened
-(lane, chunk) index; each block writes one partial per reduction node and
-the fold kernel combines each lane's partials. The Pallas carry relied on
-grid steps running in order; the two passes do not, and are exact because
+Kernel: ``lane_kernel`` (+ ``fold_kernel``) in ``csrc/fabric.cu``, entry
+point ``strela_fabric_reduce_lanes``. Persistent blocks walk the grid's
+units (:func:`lane_layout`): a grid without reductions is one flat stream;
+a lane of at most ``WARP_LANE`` elements is one warp's unit, a lane of at
+most ``BLOCK_LANE`` one block's, and either writes its reductions straight
+to the result in one pass. Only longer lanes are split into ``BLOCK_LANE``
+slices whose partials the fold kernel combines. The Pallas carry relied on
+grid steps running in order; the GPU's folds do not, and are exact because
 the ops are associative and commutative mod 2^32.
 
 Bound on the H100: bytes. The lane grid reads each input element once and
 writes each full-rate output element once (int32); the integer work per
-element is a few operations. The design streams every element through
-registers and shared memory once, and only one partial per block and
-reduction ever reaches device memory besides the outputs.
+element is a few operations. Each thread puts all its input elements in
+flight (``cp.async``, 16 bytes where rows allow) before it interprets the
+table, decoding each instruction once for all its elements.
 
 Beside it, the plain PyTorch version (:func:`reduce_lanes_plain`, built on
 ``ref.eval_dfg_streams`` and ``ref.fold_lanes``) runs for tensors on the
-CPU and only there. ``launches`` counts kernel launches (one per grid,
-fold included), ``plain_calls`` calls of the plain version.
+CPU and only there. ``launches`` counts kernel launches (the lane kernel
+and each fold), ``fold_launches`` the folds alone, ``plain_calls`` calls of
+the plain version.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, List, Tuple, Union
 
 import numpy as np
@@ -45,7 +48,12 @@ from repro_torch.kernels.fabric_stream import (check_tensors, lower,
 
 I32 = np.int32
 
+# the lane kernel's layout (csrc/fabric.cu kWarpLane and kBlockLane)
+WARP_LANE = 256        # lanes at most this long: one warp each
+BLOCK_LANE = 4096      # lanes at most this long: one block, one pass
+
 launches = 0
+fold_launches = 0
 plain_calls = 0
 
 Lanes = Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
@@ -65,12 +73,28 @@ def reduce_lanes_plain(g: D.DFG, ins: Dict[str, torch.Tensor]) -> Lanes:
     return full, red
 
 
+def lane_layout(n_red: int, length: int) -> Tuple[str, int]:
+    """How ``strela_fabric_reduce_lanes`` lays out a grid of lanes of
+    ``length`` elements with ``n_red`` reductions: the unit (``"flat"``
+    tiles of the whole grid when there is no reduction, else one
+    ``"warp"`` or one ``"block"`` per lane, or ``"split"`` slices of
+    ``BLOCK_LANE`` elements) and the partials per lane and reduction (0
+    unless split: the other units write their results directly)."""
+    if n_red == 0:
+        return "flat", 0
+    if length <= WARP_LANE:
+        return "warp", 0
+    if length <= BLOCK_LANE:
+        return "block", 0
+    return "split", -(-length // BLOCK_LANE)
+
+
 def reduce_lanes(g: D.DFG, ins: Dict[str, torch.Tensor]) -> Lanes:
     """Evaluate a DFG over N lanes of ``(N, L)`` int32 streams on the
     tensors' device. Returns the full-rate outputs ``(N, L)`` and one
     ``(N,)`` result per reduction node. CUDA tensors launch the kernel,
     CPU tensors take the plain version; nothing else runs."""
-    global launches
+    global launches, fold_launches
     prog = lower(g)
     tensors = [ins[n] for n in prog.in_names]
     check_tensors(g.name, tensors, tensors[0].shape)
@@ -81,34 +105,48 @@ def reduce_lanes(g: D.DFG, ins: Dict[str, torch.Tensor]) -> Lanes:
     if dev.type != "cuda":
         raise ValueError(f"{g.name}: fabric_reduce_lanes runs on cuda or "
                          f"cpu tensors, got {dev}")
-    full = [torch.empty((n_lanes, length), dtype=torch.int32, device=dev)
-            for _ in prog.full_names]
-    n_red = len(prog.red_names)
+    n_full, n_red = len(prog.full_names), len(prog.red_names)
+    full = torch.empty((n_full, n_lanes, length), dtype=torch.int32,
+                       device=dev).unbind(0) if n_full else ()
     if n_lanes * length == 0:             # nothing to fold: acc_init, no launch
         red_out = torch.tensor(prog.red_inits, dtype=torch.int32,
                                device=dev).reshape(n_red, 1).expand(
                                    n_red, n_lanes).contiguous()
         return (dict(zip(prog.full_names, full)),
                 dict(zip(prog.red_names, red_out)))
-    red_out = torch.empty((n_red, n_lanes), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    cpl = -(-length // lib.strela_chunk_elements())
-    partials = torch.empty(max(n_red, 1) * n_lanes * cpl, dtype=torch.int32,
-                           device=dev)
-    red_ops = (ctypes.c_int * max(n_red, 1))(*prog.red_ops)
-    red_inits = (ctypes.c_int * max(n_red, 1))(*prog.red_inits)
+    mode, per_lane = lane_layout(n_red, length)
+    red_out = torch.empty((n_red, n_lanes), dtype=torch.int32,
+                          device=dev) if n_red else None
+    partials = torch.empty(n_red * n_lanes * per_lane, dtype=torch.int32,
+                           device=dev) if per_lane else None
+    red_ops, red_inits = prog.c_reductions()
     table = prog.device_table(dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.strela_fabric_reduce_lanes(
+    lib = _build.load()
+
+    def launch() -> int:
+        # the raw stream handle: torch.cuda.current_stream() builds a
+        # Stream object on every call, and a lane grid's kernel often takes
+        # less time on the card than its wrapper takes on the host
+        return lib.strela_fabric_reduce_lanes(
             table.data_ptr(), len(prog.table), prog.n_slots,
-            pointers(tensors), len(tensors), pointers(full), len(full),
-            red_ops, red_inits, n_red, partials.data_ptr(),
-            red_out.data_ptr(), n_lanes, length, stream)
+            pointers(tensors), len(tensors), pointers(full), n_full,
+            red_ops, red_inits, n_red,
+            None if partials is None else partials.data_ptr(),
+            None if red_out is None else red_out.data_ptr(), n_lanes,
+            length, torch._C._cuda_getCurrentRawStream(dev.index))
+
+    if dev.index == torch.cuda.current_device():
+        rc = launch()
+    else:
+        with torch.cuda.device(dev):
+            rc = launch()
     _build.check(lib, rc, f"{g.name}: fabric_reduce_lanes")
     launches += 1
-    return dict(zip(prog.full_names, full)), dict(zip(prog.red_names,
-                                                      red_out))
+    if mode == "split":
+        launches += 1
+        fold_launches += 1
+    return (dict(zip(prog.full_names, full)),
+            dict(zip(prog.red_names, red_out)) if n_red else {})
 
 
 def fabric_reduce_lanes(g: D.DFG, inputs_list: List[Dict[str, np.ndarray]],

@@ -47,6 +47,8 @@ K_INPUT, K_CONST, K_ALU, K_CMP, K_MUX, K_BRANCH, K_MERGE, K_RED, K_OUT = \
 
 launches = 0
 plain_calls = 0
+lowerings = 0              # DFGs lowered (lower() is memoized per DFG)
+table_uploads = 0          # instruction tables copied to a device
 
 
 @dataclasses.dataclass
@@ -61,16 +63,29 @@ class Program:
     red_ops: List[int]
     red_inits: List[int]
     red_of: Dict[str, str]         # reduction-fed OUTPUT -> its node
-    _device_tables: Dict[str, torch.Tensor] = dataclasses.field(
+    _device_tables: Dict[torch.device, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
+    _c_reductions: Optional[tuple] = dataclasses.field(default=None,
+                                                       repr=False)
 
     def device_table(self, device: torch.device) -> torch.Tensor:
-        key = str(device)
-        t = self._device_tables.get(key)
+        """The table on ``device``, copied there once per Program (and a
+        Program is made once per DFG, see :func:`lower`)."""
+        global table_uploads
+        t = self._device_tables.get(device)
         if t is None:
             t = torch.from_numpy(self.table).to(device)
-            self._device_tables[key] = t
+            self._device_tables[device] = t
+            table_uploads += 1
         return t
+
+    def c_reductions(self) -> tuple:
+        """The reduction ops and initial values as ctypes int arrays."""
+        if self._c_reductions is None:
+            n = max(len(self.red_ops), 1)
+            self._c_reductions = ((ctypes.c_int * n)(*self.red_ops),
+                                  (ctypes.c_int * n)(*self.red_inits))
+        return self._c_reductions
 
 
 def _imm(value) -> int:
@@ -85,9 +100,11 @@ def lower(g: D.DFG) -> Program:
     substrate evaluates (back edges, non-reducible merges), and a
     :class:`CapabilityError` naming the limit for a DFG larger than the
     kernel holds. Memoized on the DFG (dropped when it is pickled)."""
+    global lowerings
     memo = g.__dict__.get("_cuda_program")
     if memo is not None:
         return memo
+    lowerings += 1
     ref.check_streamable(g)
     slot: Dict[tuple, int] = {}
 

@@ -9,8 +9,10 @@ Kernels: ``csrc/stream_matmul.cu``, entry point ``strela_stream_matmul``,
 one of three routes chosen by :func:`route` from dtype, shape and
 alignment alone:
 
-- ``"sgemm"`` (float32 inputs): a register-blocked SGEMM on the FP32
-  units, never TF32 (the reference tolerance is 1e-4).
+- ``"sgemm"`` (float32 inputs): an SGEMM on the FP32 units, never TF32
+  (the reference tolerance is 1e-4): 128 x 128 tiles, two blocks per SM,
+  a 4-stage ``cp.async`` ring of 16-deep k tiles, warp-tiled 8 x 8 sums
+  per thread, blocks rasterised in groups of 8 M tiles.
 - ``"wgmma"`` (bfloat16 inputs, :func:`bf16_route`: K and N multiples of
   8, A and B 16-byte aligned, none of M, N, K empty): a TMA ring of
   128 x 256 x 64 tiles, four stages, feeding two ``wgmma`` warpgroups

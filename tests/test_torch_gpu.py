@@ -49,21 +49,34 @@ def _full_range(rng, shape, device):
     return torch.from_numpy(x.astype(np.int32)).to(device)
 
 
+# lane lengths at the edges of the lane kernel's units: a warp's lane
+# (fr.WARP_LANE = 256), a block's tile (2048) and lane (fr.BLOCK_LANE =
+# 4096, past which lanes split into slices folded by a second kernel)
+LANE_LENGTHS = (0, 1, 31, 32, 33, 127, 240, 250, 255, 256, 257, 1024, 1025,
+                3000, 4095, 4096, 4097)
+LANE_COUNTS = (1, 3, 7, 8, 9, 37, 512)
+
+
 @pytest.mark.parametrize("name", sorted(PARITY))
 def test_fabric_reduce_lanes_kernel_matches_plain(cuda, name):
     rng = np.random.default_rng(len(name))
-    for length in (0, 1, 127, 1024, 3000, 4096):
+    shapes = [(n, length) for length in LANE_LENGTHS for n in LANE_COUNTS]
+    if name == "mac3":
+        shapes.append((14800, 240))          # PolyBench gemm MEDIUM's grid
+    for n_lanes, length in shapes:
         g = PARITY[name](length)
-        for n_lanes in (1, 3, 512):
-            ins = {k: _full_range(rng, (n_lanes, length), cuda)
-                   for k in g.inputs}
-            kf, kr = fr.reduce_lanes(g, ins)
-            pf, pr = fr.reduce_lanes_plain(g, ins)
-            torch.cuda.synchronize()
-            for o in pf:
-                assert torch.equal(kf[o], pf[o]), (length, n_lanes, o)
-            for r in pr:
-                assert torch.equal(kr[r], pr[r]), (length, n_lanes, r)
+        ins = {k: _full_range(rng, (n_lanes, length), cuda)
+               for k in g.inputs}
+        folds = fr.fold_launches
+        kf, kr = fr.reduce_lanes(g, ins)
+        pf, pr = fr.reduce_lanes_plain(g, ins)
+        torch.cuda.synchronize()
+        split = bool(pr) and length > fr.BLOCK_LANE
+        assert fr.fold_launches == folds + split, (length, n_lanes)
+        for o in pf:
+            assert torch.equal(kf[o], pf[o]), (length, n_lanes, o)
+        for r in pr:
+            assert torch.equal(kr[r], pr[r]), (length, n_lanes, r)
 
 
 @pytest.mark.parametrize("op", [AluOp.ADD, AluOp.SUB, AluOp.MUL, AluOp.AND,
@@ -75,7 +88,9 @@ def test_each_reduction_op_folds_like_plain(cuda, op):
     b.out("sum", b.alu("s", op, m, acc_init=-7, emit_every=0))
     g = b.done()
     rng = np.random.default_rng(int(op))
-    for n_lanes, length in ((1, 1), (3, 1025), (512, 4096), (2, 70000)):
+    for n_lanes, length in ((1, 1), (1, 33), (7, 255), (8, 256), (9, 257),
+                            (3, 1025), (37, 4095), (512, 4096), (37, 4097),
+                            (2, 70000)):
         ins = {k: _full_range(rng, (n_lanes, length), cuda)
                for k in g.inputs}
         _, kr = fr.reduce_lanes(g, ins)
@@ -113,11 +128,24 @@ def test_cuda_engine_serves_clients_through_the_kernel(cuda):
     want = (3 * (A.astype(np.int64) @ B) + 2 * C).astype(np.int32)
     eng = Engine(backend="cuda", cache=ArtifactCache(memory_only=True))
     assert eng.device.type == "cuda"
-    launches, plain = fr.launches, fr.plain_calls
+    launches, plain, folds = fr.launches, fr.plain_calls, fr.fold_launches
     clients.run_gemm(eng, 3, A, B, 2, C)
     np.testing.assert_array_equal(C, want)
     assert fr.launches > launches and fr.plain_calls == plain
+    assert fr.fold_launches == folds        # every lane fits one block
     assert eng.stats.lane_batches > 0 and eng.stats.lane_batch_failures == 0
+
+
+def test_reduce_lanes_lowers_and_uploads_each_dfg_once(cuda):
+    g = K.mac3(240)
+    ins = {k: _full_range(np.random.default_rng(5), (9, 240), cuda)
+           for k in g.inputs}
+    lowered, uploads = fs.lowerings, fs.table_uploads
+    first = fr.reduce_lanes(g, ins)[1]
+    second = fr.reduce_lanes(g, ins)[1]
+    assert (fs.lowerings, fs.table_uploads) == (lowered + 1, uploads + 1)
+    for r in first:
+        assert torch.equal(first[r], second[r])
 
 
 def _normal(rng, shape, device, dtype=torch.float32):
@@ -125,19 +153,47 @@ def _normal(rng, shape, device, dtype=torch.float32):
     return x.to(device).to(dtype)
 
 
-@pytest.mark.parametrize("m,k,n,dtype,out_dtype,tol", [
-    (70, 90, 50, torch.float32, torch.float32, 1e-4),
-    (1, 1, 1, torch.float32, torch.float32, 1e-4),
-    (300, 300, 300, torch.float32, torch.float32, 1e-4),
-    (129, 67, 131, torch.float32, torch.bfloat16, 2 ** -7),
-    (70, 90, 50, torch.bfloat16, torch.float32, 5e-2),
-    (300, 300, 300, torch.bfloat16, torch.float32, 5e-2),
-    (136, 64, 200, torch.bfloat16, torch.bfloat16, 2 ** -7),
+def _offset(x, off):
+    """``x``'s values in a contiguous tensor ``off`` elements past an
+    aligned allocation."""
+    if off == 0:
+        return x
+    flat = torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)
+    y = flat[off:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+# the float32 cases hold the SGEMM's edges: K below, at and one past its
+# 16-deep k tile and past its ring of four, K % 4 != 0, M and N around its
+# 128 x 128 tile, A or B one float past 16-byte alignment (B then takes the
+# 4-byte copies), and both output types
+@pytest.mark.parametrize("m,k,n,dtype,out_dtype,tol,a_off,b_off", [
+    (70, 90, 50, F32, F32, 1e-4, 0, 0),
+    (1, 1, 1, F32, F32, 1e-4, 0, 0),
+    (300, 300, 300, F32, F32, 1e-4, 0, 0),
+    (129, 67, 131, F32, BF16, 2 ** -7, 0, 0),
+    (127, 15, 129, F32, F32, 1e-4, 0, 0),
+    (129, 16, 127, F32, F32, 1e-4, 0, 0),
+    (128, 17, 128, F32, F32, 1e-4, 0, 0),
+    (128, 17, 128, F32, BF16, 2 ** -7, 0, 0),
+    (257, 65, 255, F32, F32, 1e-4, 0, 0),
+    (200, 64, 136, F32, F32, 1e-4, 1, 0),
+    (200, 64, 136, F32, F32, 1e-4, 0, 1),
+    (200, 64, 136, F32, BF16, 2 ** -7, 1, 1),
+    (70, 90, 50, BF16, F32, 5e-2, 0, 0),
+    (300, 300, 300, BF16, F32, 5e-2, 0, 0),
+    (136, 64, 200, BF16, BF16, 2 ** -7, 0, 0),
 ])
 def test_stream_matmul_kernel_matches_plain(cuda, m, k, n, dtype, out_dtype,
-                                            tol):
+                                            tol, a_off, b_off):
     rng = np.random.default_rng(m + k + n)
-    a, b = _normal(rng, (m, k), cuda, dtype), _normal(rng, (k, n), cuda, dtype)
+    a = _offset(_normal(rng, (m, k), cuda, dtype), a_off)
+    b = _offset(_normal(rng, (k, n), cuda, dtype), b_off)
+    assert a.is_contiguous() and b.is_contiguous()
     launches = sm.launches
     got = sm.matmul_kernel(a, b, out_dtype)
     want = sm.matmul_plain(a, b, out_dtype)

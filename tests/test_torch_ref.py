@@ -4,9 +4,11 @@ instruction table (``fabric_stream.lower``) against the plain evaluator.
 
 The CUDA kernel itself runs only on a card; what it interprets is the
 table that ``lower`` builds here on the CPU. ``_run_table`` below executes
-that table with the semantics of ``csrc/fabric.cu`` (uint32 arithmetic,
-per-chunk partials folded per lane), so a lowering fault shows up in the
-CPU tests and not first on the chip.
+that table with the semantics of ``csrc/fabric.cu`` (uint32 arithmetic;
+each lane of at most ``BLOCK_LANE`` elements folded in one pass, longer
+lanes as per-slice partials folded per lane, as ``fabric_reduce.
+lane_layout`` says), so a lowering or layout fault shows up in the CPU
+tests and not first on the chip.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,11 +22,10 @@ from repro_torch.core import kernels_lib as K
 from repro_torch.core.dfg import DFG
 from repro_torch.core.isa import AluOp, CmpOp
 from repro_torch.engine.capabilities import backend_skip_reason
+from repro_torch.kernels import fabric_reduce as fr
 from repro_torch.kernels import fabric_stream as fs
 from repro_torch.kernels import ref
 from test_conformance import N_CASES, _mk_case
-
-CHUNK = 1024                   # csrc/fabric.cu kChunk
 
 
 def _full_range(rng, shape):
@@ -227,8 +228,10 @@ def _combine(op, a, b):
 
 def _run_table(prog, ins):
     """Interpret ``prog.table`` over ``(N, L)`` numpy lanes as fabric.cu
-    does: every element runs the table; each reduction folds CHUNK-element
-    partials, then each lane's partials into acc_init."""
+    does: every element runs the table; each reduction folds a lane in one
+    pass where ``fr.lane_layout`` gives it no partials, else folds each
+    ``BLOCK_LANE``-element slice into a partial and the partials into
+    acc_init."""
     n, length = next(iter(ins.values())).shape
     val = [None] * prog.n_slots
     ok = [None] * prog.n_slots
@@ -266,20 +269,30 @@ def _run_table(prog, ins):
             red_x[aux] = val[a] if a >= 0 else imm_arr
         elif kind == fs.K_OUT:
             full[aux] = val[a]
+    _, per_lane = fr.lane_layout(len(prog.red_names), length)
+    unit = fr.BLOCK_LANE if per_lane else max(length, 1)
+    n_units = max(per_lane, 1)
     reds = []
-    cpl = -(-length // CHUNK)
     for r, (op, init) in enumerate(zip(prog.red_ops, prog.red_inits)):
         op = AluOp(op)
         ident = int(ref.IDENTITY[op])
-        x = np.full((n, cpl * CHUNK), ident, np.int32)
+        x = np.full((n, n_units * unit), ident, np.int32)
         x[:, :length] = red_x[r]
-        part = x.reshape(n, cpl, CHUNK)
+        part = x.reshape(n, n_units, unit)
         while part.shape[2] > 1:          # any order is exact: tree-fold
-            h = part.shape[2] // 2
+            h = (part.shape[2] + 1) // 2
+            pad = np.full((n, n_units, 2 * h - part.shape[2]), ident,
+                          np.int32)
+            part = np.concatenate([part, pad], axis=2)
             part = _combine(op, part[:, :, :h], part[:, :, h:])
-        s = np.full(n, ident, np.int32)
-        for k in range(cpl):
-            s = _combine(op, s, part[:, k, 0])
+        s = part[:, :, 0]
+        if per_lane:                      # the fold kernel's second pass
+            acc_s = np.full(n, ident, np.int32)
+            for k in range(per_lane):
+                acc_s = _combine(op, acc_s, s[:, k])
+            s = acc_s
+        else:
+            s = s[:, 0]
         acc = np.full(n, init, np.int32)
         reds.append(_alu_u32(AluOp.SUB, acc, s) if op == AluOp.SUB
                     else _combine(op, acc, s))
@@ -320,7 +333,8 @@ TABLE_CASES = {
 
 @pytest.mark.parametrize("name", sorted(TABLE_CASES))
 @pytest.mark.parametrize("n_lanes,length", [(1, 1), (3, 1023), (2, 1025),
-                                            (1, 3000)])
+                                            (1, 3000), (3, 257), (2, 4097),
+                                            (1, 9000)])
 def test_lowered_table_matches_plain(name, n_lanes, length):
     g = TABLE_CASES[name]()
     rng = np.random.default_rng(len(name) * 1000 + length)
