@@ -16,10 +16,18 @@ engine's path through
 requests per class of six one-shot kernels at length 4096, a multi-shot
 plan and ``fabric_stream``, each checked against numpy or the port's
 executor, with the kernels' launch counts read around it (no fold: every
-lane there fits one block); (5) each fabric
-kernel's time at that path's shapes beside its plain version's time and
-its bound, and the device time per launch from ``torch.profiler``; (6) one
-profiled gemm run: wall time against the time the device was busy; (7) the
+lane there fits one block); (5) the serving loop ``repro_torch.serve`` on
+``Engine(backend="cuda")``: (a) a virtual-clock soak of the paper mix at
+length 4096 (seed 0, 256 requests at load 2.0 of the calibrated
+capacity), every answer bit-exact against the executor and both digests
+equal to the same soak on the CPU, and (b) a wall-clock ``Server``
+answering 256 requests from one client thread, timed, then profiled for
+the device's idle share, each with the launch counts read around it and
+no failed request, failed lane grid, plain call or fold allowed; (6) each
+fabric kernel's time at that path's shapes beside its plain version's
+time, its bound and, for ``fabric_stream`` on relu, ``torch.relu``'s, and
+the device time per launch from ``torch.profiler``; (7) one
+profiled gemm run: wall time against the time the device was busy; (8) the
 dense kernels (``stream_matmul``, ``stream_conv2d``, ``flash_attention``)
 against their plain versions at the reference tests' shapes and ragged
 ones (for the float32 SGEMM: K around its 16-deep k tile, M and N around
@@ -27,13 +35,13 @@ its 128 x 128 tile, A or B one float past 16-byte alignment), the
 bfloat16 product at the edges of its ``wgmma`` route (K = 8,
 K = 72, ragged M and N, N = 8) and on a misaligned A, which must take the
 ``mma_sync`` route, with the route counters read around each call, and
-attention at the edges of its 128-query tile; (8) the dense path through
+attention at the edges of its 128-query tile; (9) the dense path through
 ``repro_torch.kernels.ops`` at realistic widths (minicpm-2b's gate/up
 projection over 4,096 tokens in float32 and bfloat16, its causal
 attention at 4k context, a 16-megapixel frame), with the launch counts
 and the matmul's route counters read around it (the bfloat16 product goes
 through ``wgmma`` once, ``mma_sync`` never) and each result then held
-against its plain version; (9) the dense kernels' times beside their plain
+against its plain version; (10) the dense kernels' times beside their plain
 versions', their bounds and one PyTorch library call each, the bfloat16
 product's ``wgmma`` and ``mma_sync`` routes timed in turns on the same
 inputs, and its bf16-out time beside ``torch.matmul``'s, each of those two
@@ -46,6 +54,7 @@ It imports neither ``jax`` nor the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -77,6 +86,21 @@ def full_range(rng, shape):
     import numpy as np
     return rng.integers(-2 ** 31, 2 ** 31, size=shape,
                         dtype=np.int64).astype(np.int32)
+
+
+def reset_fabric_counts():
+    from repro_torch.kernels import fabric_reduce as fr
+    from repro_torch.kernels import fabric_stream as fs
+    fr.launches = fr.plain_calls = fr.fold_launches = 0
+    fs.launches = fs.plain_calls = 0
+
+
+def fabric_counts():
+    from repro_torch.kernels import fabric_reduce as fr
+    from repro_torch.kernels import fabric_stream as fs
+    return {"lane_kernel": fr.launches - fr.fold_launches,
+            "fold_kernel": fr.fold_launches, "stream_kernel": fs.launches,
+            "plain": fr.plain_calls + fs.plain_calls}
 
 
 # ---------------------------------------------------------------------------
@@ -246,8 +270,7 @@ def phase_main(device, gemm=(200, 220, 240), gesummv_n=250, per_class=256,
             torch.cuda.synchronize()
 
     rng = np.random.default_rng(SEED + 1)
-    fr.launches = fr.plain_calls = fs.launches = fs.plain_calls = 0
-    fr.fold_launches = 0
+    reset_fabric_counts()
     engines = []
     t_all = time.perf_counter()
 
@@ -376,7 +399,198 @@ def phase_main(device, gemm=(200, 220, 240), gesummv_n=250, per_class=256,
 
 
 # ---------------------------------------------------------------------------
-# phase 5: times at the main path's shapes
+# phase 5: the serving loop, repro_torch.serve on Engine(backend="cuda")
+# ---------------------------------------------------------------------------
+
+SERVE_LENGTH = 4096     # the one-shot mix's stream length (phase 4)
+SERVE_REQUESTS = 256
+SERVE_LOAD = 2.0        # offered load, in units of the calibrated capacity
+
+
+def check_served(tickets, label):
+    """Every served result bit-exact against the port's executor."""
+    import numpy as np
+    from repro_torch.core.executor import execute
+    for tk in tickets:
+        want = execute(tk.artifact.dfg, tk.inputs)
+        check(set(want) == set(tk.outputs),
+              f"{label}: request {tk.rid} ({tk.cls}) outputs "
+              f"{sorted(tk.outputs)} != executor's {sorted(want)}")
+        for o in want:
+            check(np.array_equal(tk.outputs[o], want[o]),
+                  f"{label}: request {tk.rid} ({tk.cls}) output {o} != "
+                  f"executor")
+
+
+def check_serve_path(counts, stats, report, label):
+    check(report["failed"] == 0, f"{label}: {report['failed']} failed")
+    check(report["offered"] == report["served"] + report["rejected"] +
+          report["failed"], f"{label}: requests lost: {report}")
+    check(stats.lane_batch_failures == 0,
+          f"{label}: a lane grid failed and fell back: {stats}")
+    check(counts["plain"] == 0,
+          f"{label}: a plain version ran on the card's path: {counts}")
+    check(counts["lane_kernel"] > 0, f"{label}: no lane kernel: {counts}")
+    check(counts["fold_kernel"] == 0,
+          f"{label}: folds on lanes of {SERVE_LENGTH}: {counts}")
+
+
+def serve_session(eng, classes, reqs, cfg, poll_s=0.002):
+    """One client thread submits ``reqs`` to a ``Server`` (wall clock) as
+    fast as it can; returns the server, its tickets and the wall seconds
+    from the first submission to the last answer. ``poll_s`` is the
+    server's wait on an empty ingress queue (its default)."""
+    import threading
+    from repro_torch.serve import Server
+    tickets = []
+    srv = Server(eng, cfg, poll_s=poll_s)
+    try:
+        def client():
+            for _, label, ins in reqs:
+                tickets.append(srv.submit(classes[label], ins))
+
+        t0 = time.perf_counter()
+        th = threading.Thread(target=client, name="serve-client")
+        th.start()
+        th.join(120)
+        check(not th.is_alive(), "serve client did not finish submitting")
+        for tk in tickets:
+            tk.result(timeout=300)
+        wall = time.perf_counter() - t0
+    finally:
+        srv.stop(timeout=300)
+    return srv, tickets, wall
+
+
+def phase_serve(device, length=SERVE_LENGTH, n=SERVE_REQUESTS,
+                load=SERVE_LOAD):
+    """(a) a virtual-clock soak of the paper mix on the card, held to the
+    executor and to the same soak on the CPU; (b) a wall-clock ``Server``
+    answering one client's requests, timed, then profiled."""
+    import numpy as np
+    import torch
+    from repro_torch import bench_serve
+    from repro_torch.serve import (ServeConfig, make_labeled_requests,
+                                   request_inputs, serve_classes)
+    print(f"[serve] card: {nvidia_smi()}")
+
+    # (a) the soak: seed 0, load 2.0 of the cuda capacity, calibrated as
+    # benchmarks/bench_serve.py calibrates
+    mean_us = bench_serve.calibrate("cuda", length, device=device)
+    kw = dict(seed=SEED, n_requests=n, length=length, backend="cuda",
+              rate_per_us=load / mean_us)
+    t0 = time.perf_counter()
+    skipped = {}
+    serve_classes(bench_serve.fresh_engine("cuda", device), length,
+                  skipped=skipped)
+    t_compile = time.perf_counter() - t0
+    reset_fabric_counts()
+    t0 = time.perf_counter()
+    serve, rep = bench_serve.soak(device=device, **kw)
+    torch.cuda.synchronize()
+    t_soak = time.perf_counter() - t0
+    counts = fabric_counts()
+    st = serve.engine.stats
+    check_serve_path(counts, st, rep, "serve soak")
+    check(serve.engine.device == device, f"soak engine on "
+                                         f"{serve.engine.device}")
+    check_served(serve.served, "serve soak")
+    _, cpu = bench_serve.soak(device="cpu", **kw)
+    for k in ("served", "rejected", "failed", "preemptions",
+              "trace_digest", "results_digest"):
+        check(rep[k] == cpu[k], f"serve soak {k}: card {rep[k]} != cpu "
+                                f"{cpu[k]}")
+    lat = rep["latency"]
+    print(f"[serve] (a) virtual-clock soak, paper mix at length {length}, "
+          f"seed {SEED}, {n} requests at load {load} of the cuda capacity "
+          f"({mean_us:.4f} us a request, {kw['rate_per_us']:.6f} "
+          f"requests/us); skipped {skipped}: served {rep['served']}, "
+          f"rejected {rep['rejected']}, failed {rep['failed']}, "
+          f"preemptions {rep['preemptions']}, batches {rep['batches']} "
+          f"{rep['close_reasons']}; virtual p50 {lat['p50_us']:.2f} us, "
+          f"p99 {lat['p99_us']:.2f} us; engine {st.requests} requests, "
+          f"{st.lane_batches} lane grids ({st.lane_requests} lanes), "
+          f"lane_batch_failures {st.lane_batch_failures}; kernels "
+          f"{counts}; host wall {t_soak:.3f} s (place & route of the "
+          f"classes about {t_compile:.3f} s of it); bit-exact against the "
+          f"executor; trace {rep['trace_digest'][:16]} results "
+          f"{rep['results_digest'][:16]} == the cpu run's")
+
+    # (b) the wall-clock Server: one client, n requests back to back; the
+    # queue holds them all, so every request is answered. An always-on
+    # server is warm: one request per class first, on the same engine,
+    # records each class's timing trace (the cycle simulation of a shot,
+    # run once per config class and length)
+    eng = bench_serve.fresh_engine("cuda", device)
+    classes = serve_classes(eng, length)
+    rng = np.random.default_rng(SEED + 7)
+    cfg = ServeConfig(queue_capacity=n)
+    first = [(0.0, label, request_inputs(classes[label], length, rng,
+                                         label=label))
+             for label in sorted(classes)]
+    _, first_tickets, first_wall = serve_session(eng, classes, first, cfg)
+    check_served(first_tickets, "first server session")
+    reqs = make_labeled_requests(classes, np.zeros(n), length, rng)
+    before = dataclasses.replace(eng.stats)
+    reset_fabric_counts()
+    srv, tickets, wall = serve_session(eng, classes, reqs, cfg)
+    torch.cuda.synchronize()
+    server_counts = fabric_counts()
+    wrep = srv.core.report()
+    check(wrep["served"] == n and wrep["rejected"] == 0,
+          f"server answered {wrep['served']} of {n}: {wrep}")
+    check_serve_path(server_counts, eng.stats, wrep, "server")
+    check(eng.device == device, f"server engine on {eng.device}")
+    check_served(tickets, "server")
+    wlat = wrep["latency"]
+    units = wrep["batches"] + sum(ev[0] == "resume" for ev in srv.core.trace)
+    grids = eng.stats.lane_batches - before.lane_batches
+    print(f"[serve] (b) Server under WallClock, one client thread, on a "
+          f"warm engine (its first session, one request per class: "
+          f"{first_wall:.4f} s): {n} paper-mix requests at length "
+          f"{length}, {n} answered, bit-exact against the executor; wall "
+          f"{wall:.4f} s, {n / wall:.1f} requests/s; wall latency p50 "
+          f"{wlat['p50_us']:.1f} us, p99 {wlat['p99_us']:.1f} us; batches "
+          f"{wrep['batches']} {wrep['close_reasons']}, preemptions "
+          f"{wrep['preemptions']}, {units} dispatch units (batches and "
+          f"resumes), {wall / units * 1e3:.3f} ms of wall a unit; {grids} "
+          f"lane grids ({eng.stats.lane_requests - before.lane_requests} "
+          f"lanes) in {eng.stats.flushes - before.flushes} flushes; "
+          f"kernels {server_counts}")
+
+    # the worker waits up to poll_s on an empty ingress queue before each
+    # dispatch, work queued or not: the same session at a 20x shorter wait
+    _, short_tickets, short_wall = serve_session(eng, classes, reqs, cfg,
+                                                 poll_s=1e-4)
+    check_served(short_tickets, "server, short poll")
+    print(f"[serve] (b) the same session with the server's ingress wait "
+          f"(poll_s) at 0.1 ms instead of 2 ms: wall {short_wall:.4f} s, "
+          f"{n / short_wall:.1f} requests/s")
+
+    # the same session once more under the profiler: the device's share
+    out = []
+    prof = profile_run(lambda: out.append(
+        serve_session(eng, classes, reqs, cfg)))
+    check(out[0][0].core.report()["served"] == n, "profiled server run")
+    check_served(out[0][1], "profiled server")
+    if prof["by_name"]:
+        check(any("lane_kernel" in k for k in prof["by_name"]),
+              f"the profiler saw no lane kernel: {list(prof['by_name'])}")
+        top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:5]
+        print(f"[serve] (b) profiled Server session: wall "
+              f"{prof['wall_s']:.4f} s, device busy "
+              f"{prof['busy_s'] * 1e3:.4f} ms, device idle share "
+              f"{1 - prof['busy_s'] / prof['wall_s']:.5f}; device ms by "
+              f"name {({k: round(v / 1e3, 4) for k, v in top})}")
+    else:
+        print("[serve] (b) device idle share not measured (the profiler "
+              "recorded no device activity)")
+    print(f"[serve] card: {nvidia_smi()}")
+    return {"soak": counts, "server": server_counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: times at the main path's shapes
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, reps=20, warm=3):
@@ -446,16 +660,23 @@ def phase_times(device, gemm=(200, 220, 240), per_class=256, length=4096,
     check(err == 0, "fabric_stream: kernel != plain at main-path shape")
     ms = time_ms(lambda: fs.stream_kernel(g, xs))
     plain_ms = time_ms(lambda: fs.stream_plain(g, xs), reps=5)
+    # torch.relu is one PyTorch call computing the relu DFG: max(x, 0)
+    check(torch.equal(torch.relu(xs["x"]), k["out"]),
+          "torch.relu != fabric_stream relu")
+    library_ms = time_ms(lambda: torch.relu(xs["x"]))
     b_ms, b_by = bound(4 * stream_n, 4 * stream_n,
                        stream_n * elementwise_ops(g))
     rows[f"fabric_stream relu n={stream_n}"] = dict(
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        max_abs_err=err)
+        max_abs_err=err, library_ms=library_ms)
     for label, r in rows.items():
+        lib = r.get("library_ms")
         print(f"[times] {label}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), share of bound "
-              f"{r['bound_ms'] / r['ms']:.3f}, library_ms: none")
+              f"{r['bound_ms'] / r['ms']:.3f}, library_ms: "
+              + (f"{lib:.4f} (torch.relu; kernel / library "
+                 f"{r['ms'] / lib:.3f})" if lib else "none"))
 
     # device time per launch from the profiler: the event times above
     # include the wrapper's host work whenever it outlasts the kernel
@@ -469,6 +690,7 @@ def phase_times(device, gemm=(200, 220, 240), per_class=256, length=4096,
                for k in gg.inputs}
         grids[label] = (lambda gg=gg, ins=ins: fr.reduce_lanes(gg, ins))
     grids[f"relu n={stream_n}"] = lambda: fs.stream_kernel(g, xs)
+    grids[f"torch.relu n={stream_n}"] = lambda: torch.relu(xs["x"])
     for label, fn in grids.items():
         fn()
         prof = profile_run(lambda: [fn() for _ in range(reps)])
@@ -538,7 +760,7 @@ def phase_profile(device, gemm=(200, 220, 240)):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the dense kernels against their plain versions
+# phase 8: the dense kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def normal(rng, shape, device, dtype=None):
@@ -674,7 +896,7 @@ def phase_dense_parity(device):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the dense path through repro_torch.kernels.ops
+# phase 9: the dense path through repro_torch.kernels.ops
 # ---------------------------------------------------------------------------
 
 MM = (4096, 2304, 5760)        # minicpm-2b gate/up projection, 4,096 tokens
@@ -783,7 +1005,7 @@ def phase_dense_path(device):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the dense kernels' times
+# phase 10: the dense kernels' times
 # ---------------------------------------------------------------------------
 
 def dense_bound(n_bytes, n_flop, flop_per_s):
@@ -929,6 +1151,9 @@ def main() -> int:
 
     errs = phase_parity(device)
     launches = phase_main(device)
+    serve_launches = phase_serve(device)
+    for path in serve_launches.values():
+        launches["fabric_reduce_lanes"] += path["lane_kernel"]
     rows = phase_times(device)
     phase_profile(device)
     dense_errs = phase_dense_parity(device)
@@ -951,7 +1176,7 @@ def main() -> int:
             "max_abs_err": max(errs[kname], r["max_abs_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None})
+            "library_ms": r.get("library_ms")})
     dense = {"stream_matmul": ("stream_matmul f32",
                                "src/repro/kernels/stream_matmul.py:68"),
              "stream_matmul bf16": ("stream_matmul bf16",

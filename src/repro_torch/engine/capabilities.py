@@ -25,14 +25,16 @@ Capability matrix (DESIGN.md §11):
 
   feature               sim   cuda     why cuda can('t)
   ------------------------------------------------------------------
-  elementwise chains     x      x      one thread per stream element
+  elementwise chains     x      x      flat tiles, 1-8 items a thread
   branch-merge conds     x      x      speculative legs + masked select
-  reductions (1 emit)    x      x      block partials + per-lane fold
-  segmented reductions   x      -      mid-stream emissions misalign chunks
+  reductions (1 emit)    x      x      one pass per lane (a warp up to 256
+                                       elements, a block up to 4096); only
+                                       longer lanes fold slices after
+  segmented reductions   x      -      mid-stream emissions misalign units
   loop-state cells       x      -      per-element sequential carry
   recirculation loops    x      -      data-dependent trip counts
   multi-shot plans       x      x      per-shot kernels, IMN/OMN handoff
-  lane batching          x      x      (lane, chunk) grid
+  lane batching          x      x      one grid of lanes (lane_layout)
 """
 from __future__ import annotations
 

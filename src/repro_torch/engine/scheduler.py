@@ -33,8 +33,9 @@ feature.
 On the cuda backend, ``flush()`` additionally coalesces consecutive
 same-artifact single-shot requests into one **lane-batched** kernel grid
 (``run_dfg_lanes``, mirroring the simulator's ``simulate_lanes``): a
-config-class batch costs one kernel launch (plus one fold launch when it
-reduces) instead of N, with one host-to-device copy per input stream and
+config-class batch costs one kernel launch instead of N (its reductions
+close in the same pass; a second, fold launch runs only for lanes longer
+than 4096 elements), with one host-to-device copy per input stream and
 one device-to-host copy per output.
 
 The public API stays numpy in, numpy out, as in the reference. The cuda

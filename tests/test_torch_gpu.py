@@ -136,6 +136,57 @@ def test_cuda_engine_serves_clients_through_the_kernel(cuda):
     assert eng.stats.lane_batches > 0 and eng.stats.lane_batch_failures == 0
 
 
+def test_cuda_serve_soak_matches_the_cpu_run(cuda):
+    """A virtual-clock soak of the paper mix on the card: every batch and
+    every shot through the lane kernel (no fold, no plain version, no
+    failed grid), with digests equal to the same soak on the CPU."""
+    from repro_torch import bench_serve as pb
+    length = 512
+    mean_us = pb.calibrate("cuda", length, device="cpu")
+    kw = dict(seed=0, n_requests=64, length=length, backend="cuda",
+              rate_per_us=2.0 / mean_us)
+    launches, plain, folds = fr.launches, fr.plain_calls, fr.fold_launches
+    serve, rep = pb.soak(**kw)
+    torch.cuda.synchronize()
+    assert serve.engine.device.type == "cuda"
+    assert fr.launches > launches and fr.plain_calls == plain
+    assert fr.fold_launches == folds
+    assert serve.engine.stats.lane_batches > 0
+    assert serve.engine.stats.lane_batch_failures == 0
+    assert rep["failed"] == 0 and rep["served"] > 0
+    assert rep["offered"] == rep["served"] + rep["rejected"]
+    _, cpu = pb.soak(device="cpu", **kw)
+    for k in ("served", "rejected", "preemptions", "trace_digest",
+              "results_digest"):
+        assert rep[k] == cpu[k], k
+
+
+def test_cuda_server_serves_exact_results_from_its_worker(cuda):
+    """``Server`` runs the engine on a worker thread: its grids launch on
+    the engine's device and every answer equals the executor's."""
+    from repro_torch.core.executor import execute
+    from repro_torch.engine import ArtifactCache, Engine
+    from repro_torch.serve import (ServeConfig, Server, request_inputs,
+                                   serve_classes)
+    length = 1024
+    eng = Engine(backend="cuda", cache=ArtifactCache(memory_only=True))
+    classes = serve_classes(eng, length)
+    rng = np.random.default_rng(7)
+    launches, plain = fr.launches, fr.plain_calls
+    with Server(eng, ServeConfig(max_wait_us=500.0)) as srv:
+        tickets = [(art, srv.submit(art, request_inputs(art, length, rng)))
+                   for _ in range(4) for _, art in sorted(classes.items())]
+        for art, tk in tickets:
+            out = tk.result(timeout=120)
+            want = execute(art.dfg, tk.inputs)
+            for k in want:
+                np.testing.assert_array_equal(out[k], want[k])
+    assert not srv._thread.is_alive()
+    assert srv.core.report()["served"] == len(tickets)
+    assert fr.launches > launches and fr.plain_calls == plain
+    assert eng.stats.lane_batch_failures == 0
+
+
 def test_reduce_lanes_lowers_and_uploads_each_dfg_once(cuda):
     g = K.mac3(240)
     ins = {k: _full_range(np.random.default_rng(5), (9, 240), cuda)
