@@ -45,7 +45,16 @@ against its plain version; (10) the dense kernels' times beside their plain
 versions', their bounds and one PyTorch library call each, the bfloat16
 product's ``wgmma`` and ``mma_sync`` routes timed in turns on the same
 inputs, and its bf16-out time beside ``torch.matmul``'s, each of those two
-results then held against the plain version. It exits non-zero,
+results then held against the plain version; (11, run after (5)) the
+traced frontend: torch functions (the one-shot mix at length 4096, a
+two-way ``torch.cond``, the demo's epilogue also at 2^22 elements, a graph
+larger than the fabric) traced on this machine's torch and run through
+``@offload(backend="cuda")`` with the launch counts read around them,
+every output bit-exact against ``backend="sim"`` and the eager function,
+the multi-shot tally equal to sim's, the torch loop kernels refused with
+a ``CapabilityError`` naming their feature, then each kernel's trace+key,
+cold compile and warm call times and the device's idle share over 20 warm
+calls. It exits non-zero,
 printing no result line, when there is no CUDA device, when the port is
 missing, or when any phase fails. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -1111,6 +1120,251 @@ def phase_dense_times(ins):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the traced frontend on the card, @offload(backend="cuda")
+# ---------------------------------------------------------------------------
+
+FRONTEND_LENGTH = 4096          # the one-shot mix's stream length (phase 4)
+FRONTEND_BIG = 1 << 22          # the demo epilogue at 16 MB a stream
+EPI_ALPHA, EPI_BETA = 3, 2      # examples/strela_offload.py's alpha, beta
+
+
+def frontend_forms():
+    """name -> (torch function, stream count, hand-built kernels_lib DFG or
+    None): the one-shot mix written as plain torch, a two-way
+    ``torch.cond``, the demo's epilogue and a graph larger than the
+    fabric (a multi-shot plan)."""
+    import torch
+    from repro_torch.core import kernels_lib as K
+    wr, wi = 23170, -23170
+
+    def fft(ar, ai, br, bi):
+        tr = br * wr - bi * wi
+        ti = br * wi + bi * wr
+        return ar + tr, ai + ti, ar - tr, ai - ti
+
+    def cond2(x):
+        return torch.cond(x > 0, lambda v: v * 3 - 1, lambda v: v + 7, (x,))
+
+    def epilogue(d, y):
+        return torch.relu(EPI_ALPHA * d + EPI_BETA * y)
+
+    def big(x, y):
+        t = x
+        for i in range(1, 23):           # 66 PEs against the fabric's 16
+            t = t * 3 + y + i
+        return t
+
+    return {
+        "relu_where": (lambda x: torch.where(x > 0, x, 0), 1, K.relu()),
+        "relu_clamp": (lambda x: torch.clamp(x, min=0), 1, K.relu()),
+        "vadd": (lambda x, y: x + y, 2, K.vadd()),
+        "fft": (fft, 4, K.fft_butterfly()),
+        "axpby": (lambda x, y: 3 * x + 5 * y, 2, K.axpby(3, 5)),
+        "scale_add": (lambda x, y: 4 * x + y, 2, K.scale_add(4)),
+        "mac1_sum": (lambda a, b0: (a * b0).sum(), 2,
+                     K.mac1(FRONTEND_LENGTH)),
+        "mac1_dot": (lambda a, b: torch.dot(a, b), 2,
+                     K.mac1(FRONTEND_LENGTH)),
+        "cond": (cond2, 1, None),
+        "epilogue": (epilogue, 2, None),
+        "big": (big, 2, None),
+    }
+
+
+def leaves_of(result):
+    import numpy as np
+    from torch.utils import _pytree as pytree
+    return [np.asarray(v) for v in pytree.tree_leaves(result)]
+
+
+def phase_frontend(device):
+    """Trace torch functions and run them through
+    ``@offload(backend="cuda")``: each output bit-exact against
+    ``backend="sim"`` and the eager function, signatures equal to the
+    hand-built DFGs, the multi-shot tally equal to sim's, the lane kernel
+    launched and the plain version never; the loop kernels refused by
+    name. Then each kernel's trace+key, cold compile and warm call times,
+    and the device's idle share over 20 warm calls."""
+    import numpy as np
+    import torch
+    from repro_torch.core import kernels_lib as K
+    from repro_torch.core.executor import execute
+    from repro_torch.engine import ArtifactCache, CapabilityError
+    from repro_torch.engine.compiler import fn_cache_key, geometry_of
+    from repro_torch.frontend import offload
+    from repro_torch.frontend.tracer import arg_names_of
+    from repro_torch.kernels import fabric_reduce as fr
+    from repro_torch.kernels.fabric_stream import lower
+
+    L = FRONTEND_LENGTH
+    forms = frontend_forms()
+    rng = np.random.default_rng(SEED + 9)
+    cases = [(name, L) for name in forms] + [("epilogue", FRONTEND_BIG)]
+    ins = {(name, n): [rng.integers(-1000, 1000, n).astype(np.int32)
+                       for _ in range(forms[name][1])] for name, n in cases}
+
+    # trace + key and a cold compile (a fresh artifact cache), host clock
+    kernels, host = {}, {}
+    for name, n in cases:
+        fn, _, hand = forms[name]
+        k = offload(fn, backend="cuda", device=device, name=name,
+                    cache=ArtifactCache(memory_only=True))
+        args = arg_names_of(fn, name)
+        t0 = time.perf_counter()
+        fn_cache_key(fn, n, "auto", "cuda", geometry_of(k.fabric), args)
+        t_key = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ck = k.compile(n)
+        t_compile = time.perf_counter() - t0
+        kernels[(name, n)] = (k, ck)
+        host[(name, n)] = {"trace_key_ms": t_key * 1e3,
+                           "cold_compile_ms": t_compile * 1e3}
+        if hand is not None:
+            check(ck.dfg.canonical_signature() == hand.canonical_signature(),
+                  f"traced {name}: canonical signature differs from its "
+                  f"hand-built kernels_lib DFG {hand.name}")
+    shots = {c: kernels[c][1].plan.n_shots for c in cases}
+    check(shots[("big", L)] > 1, f"big: expected a multi-shot plan, {shots}")
+
+    # the main path: every count at 0, each kernel once through @offload
+    reset_fabric_counts()
+    t0 = time.perf_counter()
+    outs, infos = {}, {}
+    for c in cases:
+        outs[c] = kernels[c][0](*ins[c])
+        infos[c] = kernels[c][0].last
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fabric_counts()
+    check(counts["plain"] == 0,
+          f"frontend: a plain version ran on the card's path: {counts}")
+    check(counts["lane_kernel"] > 0, f"frontend: no lane kernel: {counts}")
+    check(counts["lane_kernel"] + counts["fold_kernel"] ==
+          sum(shots.values()),
+          f"frontend: one launch a shot expected, {counts}, shots {shots}")
+    print(f"[frontend] @offload(backend='cuda') of {len(cases)} traced "
+          f"kernels ({', '.join(f'{c[0]}@{c[1]}' for c in cases)}): wall "
+          f"{wall:.4f} s; shots {sum(shots.values())}; launches {counts}")
+
+    # gates: the eager function, offload(backend="sim") and, for the
+    # multi-shot plan, sim's tally
+    for (name, n) in cases:
+        k, ck = kernels[(name, n)]
+        got = leaves_of(outs[(name, n)])
+        want = k.reference(ins[(name, n)], ck)
+        check(len(got) == len(want) and all(
+            np.array_equal(g.reshape(-1), w.reshape(-1))
+            for g, w in zip(got, want)),
+            f"{name}@{n}: cuda output differs from the eager torch function")
+        ks = offload(forms[name][0], backend="sim", name=name,
+                     cache=ArtifactCache(memory_only=True))
+        if n == L:
+            sim_leaves = leaves_of(ks(*ins[(name, n)]))
+            check(all(np.array_equal(g, s) for g, s in zip(got, sim_leaves)),
+                  f"{name}@{n}: cuda output differs from backend='sim'")
+            if shots[(name, n)] > 1:
+                check(vars(infos[(name, n)].tally) == vars(ks.last.tally),
+                      f"{name}: tally {infos[(name, n)].tally} != sim's "
+                      f"{ks.last.tally}")
+                print(f"[frontend] {name}: {shots[(name, n)]} shots, tally "
+                      f"equal to sim's: {ks.last.tally}")
+        else:
+            # the cycle simulation of 2^22 elements would take minutes: the
+            # executor (sim's value semantics) on every element, the cycle
+            # simulation on the first and last 4096 (elementwise kernel)
+            ex = execute(ck.dfg, dict(zip(ck.dfg.inputs, ins[(name, n)])))
+            check(np.array_equal(ex["out0"], got[0]),
+                  f"{name}@{n}: cuda output differs from the executor")
+            for sl in (slice(0, L), slice(n - L, n)):
+                s = ks(*[a[sl] for a in ins[(name, n)]])
+                check(np.array_equal(np.asarray(s), got[0][sl]),
+                      f"{name}@{n}: cuda output differs from sim on {sl}")
+    print(f"[frontend] every output bit-exact against the eager torch "
+          f"function and backend='sim' (at n={FRONTEND_BIG}: the executor "
+          f"on every element, sim on the first and last {L}); signatures "
+          f"equal to kernels_lib's for "
+          f"{[c for c, f in forms.items() if f[2] is not None]}")
+
+    # the loop kernels are outside the cuda capability set
+    before = fabric_counts()
+    feature = {"div_iter": "recirculation edge",
+               "isqrt": "recirculation edge",
+               "clip_scan": "loop-carried back edge",
+               "gemv_early": "loop-carried back edge"}
+    for lname, (make, n_in) in K.TRACED_LOOPS.items():
+        k = offload(make(), backend="cuda", device=device, name=lname,
+                    cache=ArtifactCache(memory_only=True))
+        try:
+            k(*[np.arange(L, dtype=np.int32)] * n_in)
+        except CapabilityError as e:
+            check(feature[lname] in str(e), f"{lname}: {e}")
+            print(f"[frontend] {lname} on cuda: CapabilityError: {e}")
+        else:
+            raise SmokeFailure(f"{lname} ran on cuda; a CapabilityError "
+                               f"naming {feature[lname]!r} was expected")
+    check(fabric_counts() == before, "a refused loop kernel launched")
+
+    # a warm call split: the whole call (host clock, ending in the result's
+    # copy to the host), its dispatch (the call's "offload" span: the lane
+    # kernel's wrapper or the shot runner), the rest before it (trace, key,
+    # cache hit), and the lane kernel alone at the call's shapes (CUDA
+    # events, inputs already on the card)
+    from repro_torch import obs
+    for (name, n) in cases:
+        k, ck = kernels[(name, n)]
+        dispatches, calls = [], []
+        for _ in range(5):
+            obs.enable(fresh=True)
+            t0 = time.perf_counter()
+            k(*ins[(name, n)])
+            calls.append(time.perf_counter() - t0)
+            (sp,) = [s for s in obs.spans() if s.name == "offload"]
+            dispatches.append(sp.dur_us / 1e6)
+            obs.disable()
+        kernel_ms = 0.0
+        for shot in ck.plan.shots:
+            g = shot.dfg
+            dev = {s: torch.from_numpy(rng.integers(
+                       -1000, 1000, (1, n)).astype(np.int32)).to(device)
+                   for s in lower(g).in_names}
+            kernel_ms += time_ms(lambda: fr.reduce_lanes(g, dev))
+        call_ms = float(np.median(calls)) * 1e3
+        disp_ms = float(np.median(dispatches)) * 1e3
+        key_ms = float(np.median(np.subtract(calls, dispatches))) * 1e3
+        host[(name, n)]["kernel_ms"] = kernel_ms
+        h = host[(name, n)]
+        print(f"[frontend] {name}@{n} ({shots[(name, n)]} shot(s), est. "
+              f"{infos[(name, n)].cycles} fabric cycles): trace+key "
+              f"{h['trace_key_ms']:.3f} ms, cold compile "
+              f"{h['cold_compile_ms']:.3f} ms; warm call {call_ms:.4f} ms: "
+              f"trace+key+lookup {key_ms:.4f} ms, dispatch {disp_ms:.4f} ms "
+              f"(host clock, medians of 5); lane kernel {kernel_ms:.5f} ms "
+              f"(events)")
+    n_big = FRONTEND_BIG
+    b_ms, b_by = bound(2 * 4 * n_big, 4 * n_big, 5 * n_big)
+    print(f"[frontend] epilogue@{n_big} lane kernel "
+          f"{host[('epilogue', n_big)]['kernel_ms']:.5f} ms against its "
+          f"bound {b_ms:.5f} ms ({b_by})")
+
+    # the device's idle share over 20 warm calls of the epilogue at 4096
+    k_epi = kernels[("epilogue", L)][0]
+    prof = profile_run(lambda: [k_epi(*ins[("epilogue", L)])
+                                for _ in range(20)])
+    if prof["by_name"]:
+        top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:4]
+        print(f"[frontend] 20 warm @offload calls of epilogue@{L} under the "
+              f"profiler: wall {prof['wall_s']:.4f} s, device busy "
+              f"{prof['busy_s'] * 1e3:.4f} ms, device idle share "
+              f"{1 - prof['busy_s'] / prof['wall_s']:.5f}; device ms by "
+              f"name {({kk: round(v / 1e3, 4) for kk, v in top})}")
+    else:
+        print("[frontend] device idle share not measured (the profiler "
+              "recorded no device activity)")
+    print(f"[frontend] card: {nvidia_smi()}")
+    return counts
+
+
 def nvidia_smi() -> str:
     try:
         out = subprocess.run(
@@ -1154,6 +1408,7 @@ def main() -> int:
     serve_launches = phase_serve(device)
     for path in serve_launches.values():
         launches["fabric_reduce_lanes"] += path["lane_kernel"]
+    launches["fabric_reduce_lanes"] += phase_frontend(device)["lane_kernel"]
     rows = phase_times(device)
     phase_profile(device)
     dense_errs = phase_dense_parity(device)

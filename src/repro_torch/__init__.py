@@ -4,9 +4,12 @@ Each subpackage mirrors the JAX package ``repro`` module for module, so a
 port module names the reference module it is held against:
 
   repro_torch.core      — the paper's model (DFG IR, mapper, elastic cycle
-                          simulator, multi-shot runner), copied verbatim
-  repro_torch.obs       — spans and metrics (copied verbatim)
-  repro_torch.frontend  — the multi-shot partitioner
+                          simulator, multi-shot runner) and its published
+                          numbers and energy model, copied verbatim
+  repro_torch.obs       — spans, metrics and the fabric profiler (copied
+                          verbatim)
+  repro_torch.frontend  — torch functions -> DFGs (``trace``, ``@offload``)
+                          and the multi-shot partitioner
   repro_torch.engine    — compile -> artifact -> ``Engine``; backends
                           ``"sim"`` and ``"cuda"``
   repro_torch.kernels   — hand-written CUDA kernels for Hopper

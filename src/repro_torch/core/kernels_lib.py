@@ -8,6 +8,9 @@ One-shot kernels:
 
 Irregular-loop kernels (data-dependent trip counts, gated Branch/Merge):
   * ``div_loop``  — hand-built divmod-by-repeated-subtraction (10 FUs)
+  * ``TRACED_LOOPS`` — plain-Python torch ``while_loop``/``scan`` kernels
+    (div_iter / isqrt / clip_scan / gemv_early) lowered by
+    ``repro_torch.frontend``
 
 Multi-shot building blocks:
   * ``mac3``      — three dot-products at a time (Fig. 7c: 4 input vectors)
@@ -191,6 +194,87 @@ def div_loop(divisor: int = 7) -> DFG:
     b.out("out_q", brq, src_port="f")
     b.out("out_r", brr, src_port="f")
     return b.done()
+
+
+# ---------------------------------------------------------------------------
+# traced irregular-loop kernels (plain Python/torch, lowered by the frontend)
+# ---------------------------------------------------------------------------
+
+def loop_div_fn(divisor: int = 7):
+    """q, r = divmod(x, divisor) for x >= 0 via a ``while_loop`` of
+    repeated subtraction — a data-dependent trip count per element."""
+    import torch
+    from torch._higher_order_ops.while_loop import while_loop
+
+    def div_iter(x):
+        def cond(q, r):
+            return r > divisor - 1
+
+        def body(q, r):
+            return q + 1, r - divisor
+
+        return while_loop(cond, body, (torch.zeros_like(x), x))
+    return div_iter
+
+
+def loop_isqrt_fn():
+    """Integer square root: smallest s with (s+1)^2 > x (x >= 0) — the
+    stream element rides the loop as a cond-closure invariant."""
+    import torch
+    from torch._higher_order_ops.while_loop import while_loop
+
+    def isqrt(x):
+        def cond(s):
+            return (s + 1) * (s + 1) <= x
+        return while_loop(cond, lambda s: s + 1, (torch.zeros_like(x),))
+    return isqrt
+
+
+def clip_scan_fn(lo: int = -128, hi: int = 127):
+    """Data-dependent clipping integrator: acc' = clip(acc + x, lo, hi) —
+    a ``scan`` recurrence (loop-carried back edge, like dither). torch's
+    scan refuses a body that returns one tensor as both carry and output,
+    hence the ``clone``."""
+    import torch
+    from torch._higher_order_ops.scan import scan
+
+    def clip_scan(x):
+        def f(acc, xi):
+            a2 = torch.clamp(acc + xi, lo, hi)
+            return a2, a2.clone()
+        _, ys = scan(f, torch.zeros((), dtype=torch.int32), x)
+        return ys
+    return clip_scan
+
+
+def gemv_early_fn(threshold: int = 1 << 20):
+    """Dot-product row with an early-exit threshold: accumulation freezes
+    once the partial sum exceeds ``threshold`` (branchy GEMV row); the final
+    carry drains through a last-value OMN. torch's scan needs a tensor
+    per-step output, so the body emits the partial sum, which is unused."""
+    import torch
+    from torch._higher_order_ops.scan import scan
+
+    def gemv_early(a, b):
+        def f(c, ab):
+            acc, done = c
+            ai, bi = ab
+            acc2 = torch.where(done != 0, acc, acc + ai * bi)
+            done2 = done | (acc2 > threshold).to(torch.int32)
+            return (acc2, done2), acc2.clone()
+        zero = torch.zeros((), dtype=torch.int32)
+        (acc, _), _ = scan(f, (zero, zero.clone()), (a, b))
+        return acc
+    return gemv_early
+
+
+# name -> (python-function factory, number of input streams)
+TRACED_LOOPS = {
+    "div_iter": (loop_div_fn, 1),
+    "isqrt": (loop_isqrt_fn, 1),
+    "clip_scan": (clip_scan_fn, 1),
+    "gemv_early": (gemv_early_fn, 2),
+}
 
 
 def mac1(vec_len: int) -> DFG:

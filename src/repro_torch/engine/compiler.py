@@ -1,22 +1,28 @@
-"""``compile(dfg, geometry) -> CompiledArtifact`` — the compile half of
-the port's execution pipeline (counterpart of ``repro.engine.compiler``).
+"""``compile(fn_or_dfg, geometry) -> CompiledArtifact`` — the compile half
+of the port's execution pipeline (counterpart of ``repro.engine.compiler``).
 
-Takes a hand-built ``core.dfg.DFG`` (kernels_lib / benchmark
-decompositions, or a reference DFG carried across by ``convert``), keyed
-by a structural content digest. The kernel is partitioned against the
-*target geometry* (``frontend.partition.plan`` on an arbitrary ``Fabric``),
-every shot is placed & routed, and the per-shot ISA configuration word
-streams are packed (Sec. V-B bus format). The resulting
-``CompiledArtifact`` is stored in the persistent cache and handed to
-``engine.Engine`` for execution.
+Accepts either of the two kernel sources the code base produces:
 
-Python callables need a frontend that lowers torch code to a DFG; that
-frontend is not ported yet, so ``compile`` refuses them by name.
+  * a hand-built ``core.dfg.DFG`` (kernels_lib / benchmark decompositions,
+    or a reference DFG carried across by ``convert``), keyed by a
+    structural content digest;
+  * a plain Python/torch callable, traced through the frontend
+    (``frontend.tracer``) and keyed by a digest of its aten graph — the
+    same key the ``@offload`` decorator uses, so both entry points share
+    one artifact cache.
+
+Either way the kernel is partitioned against the *target geometry*
+(``frontend.partition.plan`` on an arbitrary ``Fabric``), every shot is
+placed & routed, and the per-shot ISA configuration word streams are packed
+(Sec. V-B bus format). The resulting ``CompiledArtifact`` is stored in the
+persistent cache and handed to ``engine.Engine`` for execution.
+
+Frontend modules are imported lazily, as in the reference.
 """
 from __future__ import annotations
 
 import hashlib
-from typing import Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 from repro_torch import obs
 from repro_torch.core import dfg as D
@@ -59,8 +65,36 @@ def dfg_digest(g: D.DFG, geometry: Geometry, backend: str,
     return h.hexdigest()
 
 
+def fn_cache_key(fn: Callable, length: int, mode: str, backend: str,
+                 geometry: Geometry, arg_names: List[str],
+                 pe_limit: Optional[int] = None, mapper: str = "greedy",
+                 seed: int = 0) -> Tuple[str, Any, bool]:
+    """(digest, traced graph, element_mode) for a traced-function compile.
+
+    Traces ``fn`` once with the tracer's own mode resolution; the returned
+    ``frontend.tracer.TracedGraph`` carries the output structure and shapes
+    and is what a cache miss lowers, so a compile traces only once. The
+    digest covers the graph *and every subgraph* (``print_readable`` prints
+    the bodies of ``cond``/``while_loop``/``scan``, which ``gm.code`` names
+    only), the values of captured tensor constants, and the compile
+    request's length, geometry, backend, ``pe_limit``, mapper and seed.
+    """
+    from repro_torch.frontend import tracer
+    tg = tracer.make_graph(fn, length, len(arg_names), mode)
+    # a GraphModule holds the tensors its graphs read as buffers
+    consts = [(name, str(t.dtype), t.tolist())
+              for name, t in tg.gm.named_buffers()]
+    text = tg.gm.print_readable(print_output=False)
+    digest = hashlib.sha1(
+        f"v{SCHEMA_VERSION}|{text}|{consts}|{length}|{geometry}|"
+        f"{backend}|{pe_limit}|{mapper}|{seed}".encode()).hexdigest()
+    return digest, tg, tg.element_mode
+
+
 def build_artifact(g: D.DFG, key: str, fabric: Fabric, backend: str,
-                   name: Optional[str] = None,
+                   name: Optional[str] = None, length: Optional[int] = None,
+                   element_mode: bool = False,
+                   out_shapes: Optional[List[Tuple[int, ...]]] = None,
                    restarts: int = 200,
                    pe_limit: Optional[int] = None,
                    mapper: Optional[str] = None,
@@ -83,6 +117,9 @@ def build_artifact(g: D.DFG, key: str, fabric: Fabric, backend: str,
         sp.set(shots=pl.n_shots)
     features = capabilities.plan_features(pl)
     capabilities.check_backend(features, backend, name)
+    if backend == "cuda" and length is not None:
+        for shot in pl.shots:
+            capabilities.check_stream_length(shot.dfg, length, backend)
     config_class = f"{name}:{key[:10]}"
     words: Dict[str, List[int]] = {}
     with obs.span("config_emit", kernel=name):
@@ -95,19 +132,20 @@ def build_artifact(g: D.DFG, key: str, fabric: Fabric, backend: str,
     return CompiledArtifact(
         name=name, key=key, backend=backend, geometry=geometry_of(fabric),
         plan=pl, config_words=words, config_class=config_class,
+        length=length, element_mode=element_mode, out_shapes=out_shapes,
         features=tuple(sorted(features)), mapper=mapper)
 
 
 def compile(fn_or_dfg: Union[Callable, D.DFG], length: Optional[int] = None,
             *, fabric: Optional[Fabric] = None, backend: str = "sim",
-            name: Optional[str] = None,
+            mode: str = "auto", name: Optional[str] = None,
             cache: Optional[ArtifactCache] = None, restarts: int = 200,
             pe_limit: Optional[int] = None, mapper: Optional[str] = None,
             seed: Optional[int] = None) -> CompiledArtifact:
     """Compile a kernel into a cached, runnable ``CompiledArtifact``.
 
-    ``length`` is ignored for DFGs, whose mappings are length-independent
-    (kept for signature parity with the reference). ``mapper``
+    ``length`` is required for callables (the traced stream extent) and
+    ignored for DFGs, whose mappings are length-independent. ``mapper``
     selects place & route ("greedy" | "anneal", default from
     ``STRELA_MAPPER``) and ``seed`` the P&R RNG stream (default from
     ``STRELA_MAP_SEED``); both key the artifact digest.
@@ -137,9 +175,32 @@ def compile(fn_or_dfg: Union[Callable, D.DFG], length: Optional[int] = None,
             cache.put(art)
             return art
 
-    if callable(fn_or_dfg):
-        raise ArtifactError(
-            f"compile() of a Python callable "
-            f"({getattr(fn_or_dfg, '__name__', fn_or_dfg)!r}) needs a torch "
-            f"frontend, which repro_torch does not have yet; pass a DFG")
-    raise ArtifactError(f"compile() takes a DFG, got {type(fn_or_dfg)!r}")
+    if not callable(fn_or_dfg):
+        raise ArtifactError(f"compile() takes a DFG or a callable, got "
+                            f"{type(fn_or_dfg)!r}")
+    if length is None:
+        raise ArtifactError("compile(fn) requires the stream length")
+    from repro_torch.frontend import tracer
+    fn = fn_or_dfg
+    kname = name or getattr(fn, "__name__", "kernel")
+    with obs.span("compile", kernel=kname, backend=backend) as sp:
+        arg_names = tracer.arg_names_of(fn, kname)
+        key, tg, element_mode = fn_cache_key(
+            fn, length, mode, backend, geometry, arg_names, pe_limit,
+            mapper=mapper, seed=seed)
+        with obs.span("cache.lookup", key=key[:12]):
+            hit = cache.get(key)
+        if hit is not None:
+            obs.inc("compile.cache_hits")
+            sp.set(cache="hit")
+            return hit
+        obs.inc("compile.cache_misses")
+        with obs.span("frontend.trace", kernel=kname):
+            g = tracer.lower(tg, length, kname, arg_names)
+        art = build_artifact(g, key, fabric, backend, name=kname,
+                             length=length, element_mode=element_mode,
+                             out_shapes=tg.out_shapes(length),
+                             restarts=restarts, pe_limit=pe_limit,
+                             mapper=mapper, seed=seed)
+        cache.put(art)
+        return art

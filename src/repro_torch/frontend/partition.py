@@ -33,11 +33,7 @@ from repro_torch.core import dfg as D
 from repro_torch.core.fabric import Fabric
 from repro_torch.core.mapper import Mapping, MappingError, map_dfg
 from repro_torch.core.multishot import ShotRunner
-
-class FrontendError(Exception):
-    """A kernel cannot be lowered onto the fabric (the counterpart of the
-    reference tracer's error; the torch tracer comes in a later slice)."""
-
+from repro_torch.frontend.tracer import FrontendError
 
 Sig = Tuple[str, str]      # (producer node in the original DFG, out port)
 

@@ -351,3 +351,49 @@ def test_flash_attention_query_tile_edges(cuda, d, sq, causal):
     torch.cuda.synchronize()
     assert fa.launches == launches + 1
     torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+
+
+# ---------------------------------------------------------------------------
+# the traced frontend: @offload(backend="cuda") on the card
+# ---------------------------------------------------------------------------
+
+def _offload_big(x, y):
+    t = x
+    for i in range(1, 23):                 # 66 PEs: a multi-shot plan
+        t = t * 3 + y + i
+    return t
+
+
+def _offload_cond(x):
+    return torch.cond(x > 0, lambda v: v * 3 - 1, lambda v: v + 7, (x,))
+
+
+@pytest.mark.parametrize("name,fn,n_in", [
+    ("mac1", lambda a, b0: torch.sum(a * b0), 2),
+    ("cond", _offload_cond, 1),
+    ("big", _offload_big, 2),
+])
+def test_offload_cuda_matches_sim_on_the_card(cuda, name, fn, n_in):
+    """Traced kernels through ``@offload(backend="cuda")``: values from the
+    lane kernel, bit-exact against ``backend="sim"``, the multi-shot tally
+    equal to sim's, and the plain version never called."""
+    from repro_torch.engine import ArtifactCache
+    from repro_torch.frontend import offload
+    rng = np.random.default_rng(4)
+    ins = [rng.integers(-1000, 1000, 1024).astype(np.int32)
+           for _ in range(n_in)]
+    kc = offload(fn, backend="cuda", name=name, debug=True,
+                 cache=ArtifactCache(memory_only=True))
+    ks = offload(fn, backend="sim", name=name,
+                 cache=ArtifactCache(memory_only=True))
+    assert kc.device.type == "cuda"
+    launches, plain = fr.launches, fr.plain_calls
+    got = kc(*ins)
+    assert fr.launches - launches == kc.last.n_shots
+    assert fr.plain_calls == plain
+    want = ks(*ins)
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        np.testing.assert_array_equal(g, w)
+    if kc.last.n_shots > 1:
+        assert kc.last.tally == ks.last.tally
