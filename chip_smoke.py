@@ -7,16 +7,21 @@ Run from the repository root on a machine with one NVIDIA card:
 
 It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs, in
 order: (1) the card's name, power limit and count, and the TF32 switches
-(both off); (2) the build; (3) every fabric kernel against its plain
-PyTorch version, bit-exact, on the card, at lane lengths on both sides of
-the lane kernel's units (a warp's lane of 256 elements, a block's of 4096,
-past which lanes split into slices and a fold kernel runs); (4) the
-engine's path through
+(both off); (2) the build; (4, run before (3) so that its first calls are
+the process's first) the engine's path through
 ``Engine(backend="cuda")``: PolyBench gemm and gesummv at MEDIUM size, 256
 requests per class of six one-shot kernels at length 4096, a multi-shot
-plan and ``fabric_stream``, each checked against numpy or the port's
-executor, with the kernels' launch counts read around it (no fold: every
-lane there fits one block); (5) the serving loop ``repro_torch.serve`` on
+plan and ``fabric_stream`` on relu at n = 4096 and 2^24 (the first call,
+then the median and range of 7 warm calls, by the host clock), each
+checked against numpy or the port's executor, with the kernels' launch
+counts read around it (no fold: every lane there fits one block); (3)
+every fabric kernel against its plain PyTorch version, bit-exact, on the
+card, at lane lengths on both sides of the lane kernel's units (a warp's
+lane of 256 elements, a block's of 4096, past which lanes split into
+slices and a fold kernel runs), for the stream kernel also at its tile's
+edges, past the card's resident blocks and on streams 4, 8 and 12 bytes
+past 16-byte alignment, with 64-slot tables among the DFGs; (5) the
+serving loop ``repro_torch.serve`` on
 ``Engine(backend="cuda")``: (a) a virtual-clock soak of the paper mix at
 length 4096 (seed 0, 256 requests at load 2.0 of the calibrated
 capacity), every answer bit-exact against the executor and both digests
@@ -25,7 +30,11 @@ answering 256 requests from one client thread, timed, then profiled for
 the device's idle share, each with the launch counts read around it and
 no failed request, failed lane grid, plain call or fold allowed; (6) each
 fabric kernel's time at that path's shapes beside its plain version's
-time, its bound and, for ``fabric_stream`` on relu, ``torch.relu``'s, and
+time and its bound; for ``fabric_stream`` (relu and vadd at n = 2^24
+beside ``torch.relu`` and ``torch.add``, ``fft_butterfly`` at 2^22, a
+copy DFG at 2^24 beside ``clone``) both
+over one input set and over a rotation of 4 input and output sets that
+the card's L2 cannot hold; and
 the device time per launch from ``torch.profiler``; (7) one
 profiled gemm run: wall time against the time the device was busy; (8) the
 dense kernels (``stream_matmul``, ``stream_conv2d``, ``flash_attention``)
@@ -154,6 +163,42 @@ def branch_merge_dfg():
     return b.done()
 
 
+def wide_dfg(merge):
+    """A table of 64 wire slots, the most the kernels hold: x, y and a chain
+    of ALU ops; where ``merge``, the chain ends in a Branch/Merge on x > 0
+    (tracked validity bits, so the stream kernel runs it with one stage)."""
+    from repro_torch.core.dfg import DFG
+    from repro_torch.core.isa import AluOp, CmpOp
+    b = DFG.build("wide_merge" if merge else "wide")
+    x, y = b.inp("x"), b.inp("y")
+    w = x
+    ops = (AluOp.ADD, AluOp.XOR, AluOp.MUL, AluOp.SUB)
+    for i in range(56 if merge else 62):
+        w = b.alu(f"w{i}", ops[i % 4], w, y if i % 3 else None,
+                  const_b=None if i % 3 else 2 * i + 1)
+    if merge:
+        c = b.cmp("c", CmpOp.GTZ, x)
+        bw = b.branch("bw", w, c)
+        t = b.alu("t", AluOp.MUL, bw, const_b=3, a_port="t")
+        f = b.alu("f", AluOp.SHR, bw, const_b=2, a_port="f")
+        w = b.merge("m", t, f)
+    b.out("out", w)
+    return b.done()
+
+
+def stream_edges(g):
+    """Stream lengths at the edges of the stream kernel's tile for g's
+    table: one short of a tile, a tile, one past, and more tiles than the
+    card can hold blocks at once (an SM holds at most 2048 threads) plus 3,
+    ragged."""
+    import torch
+    from repro_torch.kernels import fabric_stream as fs
+    _, tile = fs.stream_geometry(fs.lower(g).n_slots)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (tile - 1, tile, tile + 1,
+            (sms * (2048 // fs.THREADS) + 3) * tile + 1)
+
+
 def reduction_dfg(op):
     """One single-emission reduction of op over x*y, nonzero acc_init,
     beside a full-rate output."""
@@ -194,7 +239,10 @@ def compare_lanes(g, ins, errs) -> None:
 
 def compare_stream(g, ins, errs) -> None:
     from repro_torch.kernels import fabric_stream as fs
+    launches, x = fs.launches, ins[g.inputs[0]]
     k = fs.stream_kernel(g, ins)
+    check(fs.launches == launches + (x.is_cuda and x.numel() > 0),
+          f"fabric_stream {g.name}: launch not counted")
     p = fs.stream_plain(g, ins)
     for o in p:
         e = max_err(k[o], p[o])
@@ -213,7 +261,7 @@ def phase_parity(device, lanes=(1, 3, 512),
     rng = np.random.default_rng(SEED)
     errs = {"fabric_reduce_lanes": 0, "fabric_stream": 0}
     graphs = [mk(16) for mk in parity_kernels().values()]
-    graphs.append(branch_merge_dfg())
+    graphs += [branch_merge_dfg(), wide_dfg(False), wide_dfg(True)]
     graphs += [reduction_dfg(op) for op in (AluOp.ADD, AluOp.SUB,
                                             AluOp.MUL, AluOp.AND, AluOp.OR,
                                             AluOp.XOR)]
@@ -231,10 +279,33 @@ def phase_parity(device, lanes=(1, 3, 512),
                        .to(device) for k in g.inputs}
                 compare_stream(g, ins, errs)
                 n_cmp += 1
+        if not streamable:
+            continue
+        # the stream kernel's tile edges, and streams 4, 8 and 12 bytes
+        # past 16-byte alignment (every stream, or only the first)
+        edges = stream_edges(g)
+        for length in edges:
+            ins = {k: torch.from_numpy(full_range(rng, (length,)))
+                   .to(device) for k in g.inputs}
+            compare_stream(g, ins, errs)
+            n_cmp += 1
+        for off in (1, 2, 3):
+            for length in (edges[2], 3000):
+                for first_only in (False, True):
+                    ins = {k: torch.from_numpy(full_range(
+                        rng, (length + off,))).to(device)[
+                            off if i == 0 or not first_only else 0:][:length]
+                           for i, k in enumerate(g.inputs)}
+                    check(ins[g.inputs[0]].data_ptr() % 16 == 4 * off,
+                          "an unaligned slice came out aligned")
+                    compare_stream(g, ins, errs)
+                    n_cmp += 1
     torch.cuda.synchronize() if device.type == "cuda" else None
     print(f"[parity] {len(graphs)} DFGs, {n_cmp} kernel-vs-plain "
-          f"comparisons, lanes {list(lanes)}, lengths {list(lengths)}: "
-          f"bit-exact (max abs err {errs})")
+          f"comparisons, lanes {list(lanes)}, lengths {list(lengths)}; "
+          f"streams also at their tile's edges (relu: "
+          f"{list(stream_edges(graphs[1]))}) and at 4, 8 and 12 bytes past "
+          f"16-byte alignment: bit-exact (max abs err {errs})")
     return errs
 
 
@@ -372,16 +443,43 @@ def phase_main(device, gemm=(200, 220, 240), gesummv_n=250, per_class=256,
           "multi-shot axpby != numpy")
     print(f"[main] multi-shot axpby: {art.n_shots} shots, {t_ms:.3f} s")
 
-    # fabric_stream on relu
+    # fabric_stream on relu: the process's first call at each n (a fresh
+    # DFG: lowering, table upload, the output's first allocation and, at
+    # the first n, the kernel's first launch under CUDA's lazy loading),
+    # then warm calls of one DFG, then one call of another fresh DFG (its
+    # lowering and upload, nothing else new); each timed to its synchronise
+    def segments():
+        return torch.cuda.memory_stats(device).get(
+            "segment.all.allocated", 0) if device.type == "cuda" else 0
+
+    def timed(g, xs, want):
+        # checked on the device, so that the card is not left idle for a
+        # host-side comparison between timed calls
+        t0 = time.perf_counter()
+        out = fs.fabric_stream(g, {"x": xs})["out"]
+        sync()
+        dt = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(out, want),
+              f"fabric_stream relu n={xs.numel()} != max(x, 0)")
+        return dt
+
     for n in stream_sizes:
         xs = torch.from_numpy(full_range(rng, n)).to(device)
-        t0 = time.perf_counter()
-        out = fs.fabric_stream(K.relu(), {"x": xs})["out"]
+        want = torch.from_numpy(np.maximum(xs.cpu().numpy(), 0)).to(device)
         sync()
-        dt = time.perf_counter() - t0
-        check(torch.equal(out.cpu(), torch.clamp(xs.cpu(), min=0)),
-              f"fabric_stream relu n={n} != max(x, 0)")
-        print(f"[main] fabric_stream relu n={n}: {dt * 1e3:.3f} ms wall")
+        before = (fs.lowerings, fs.table_uploads, segments())
+        g = K.relu()
+        first = timed(g, xs, want)
+        news = [a - b for a, b in zip((fs.lowerings, fs.table_uploads,
+                                       segments()), before)]
+        warm = [timed(g, xs, want) for _ in range(7)]
+        fresh = timed(K.relu(), xs, want)
+        print(f"[main] fabric_stream relu n={n}: first call {first:.3f} ms "
+              f"wall (+{news[0]} lowering, +{news[1]} table upload, "
+              f"+{news[2]} device segments); warm median "
+              f"{float(np.median(warm)):.4f} ms, range {min(warm):.4f}-"
+              f"{max(warm):.4f} ms over {len(warm)} calls; a fresh DFG's "
+              f"call {fresh:.3f} ms")
 
     launches = {"fabric_reduce_lanes": fr.launches,
                 "fabric_stream": fs.launches}
@@ -630,10 +728,10 @@ def elementwise_ops(g):
                if n.kind in (D.ALU, D.CMP, D.MUX, D.BRANCH, D.MERGE))
 
 
-def phase_times(device, gemm=(200, 220, 240), per_class=256, length=4096,
-                stream_n=1 << 24):
+def phase_times(device, gemm=(200, 220, 240), per_class=256, length=4096):
     import numpy as np
     import torch
+    from repro_torch import bench_kernels
     from repro_torch.core import kernels_lib as K
     from repro_torch.kernels import fabric_reduce as fr
     from repro_torch.kernels import fabric_stream as fs
@@ -662,30 +760,45 @@ def phase_times(device, gemm=(200, 220, 240), per_class=256, length=4096,
                NI * -(-NJ // 3), NK)
     lanes_case("fabric_reduce_lanes fft grid", K.fft_butterfly(), per_class,
                length)
-    g = K.relu()
-    xs = {"x": torch.from_numpy(full_range(rng, stream_n)).to(device)}
-    k, p = fs.stream_kernel(g, xs), fs.stream_plain(g, xs)
-    err = max_err(k["out"], p["out"])
-    check(err == 0, "fabric_stream: kernel != plain at main-path shape")
-    ms = time_ms(lambda: fs.stream_kernel(g, xs))
-    plain_ms = time_ms(lambda: fs.stream_plain(g, xs), reps=5)
-    # torch.relu is one PyTorch call computing the relu DFG: max(x, 0)
-    check(torch.equal(torch.relu(xs["x"]), k["out"]),
-          "torch.relu != fabric_stream relu")
-    library_ms = time_ms(lambda: torch.relu(xs["x"]))
-    b_ms, b_by = bound(4 * stream_n, 4 * stream_n,
-                       stream_n * elementwise_ops(g))
-    rows[f"fabric_stream relu n={stream_n}"] = dict(
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        max_abs_err=err, library_ms=library_ms)
+    # fabric_stream: over one input set (the loop kept from earlier
+    # slices, whose data the card's 50 MB L2 partly holds from launch to
+    # launch) and over a rotation of input and output sets too large for it
+    stream_loops = {}
+    for name, g, n, library in bench_kernels.stream_cases():
+        sets = [{k: torch.from_numpy(full_range(rng, n)).to(device)
+                 for k in g.inputs} for _ in range(bench_kernels.ROTATE)]
+        k, p = fs.stream_kernel(g, sets[0]), fs.stream_plain(g, sets[0])
+        err = max(max_err(k[o], p[o]) for o in p)
+        check(err == 0, f"fabric_stream {name}: kernel != plain at n={n}")
+        if library is not None:
+            check(torch.equal(library(sets[0]), k[g.outputs[0]]),
+                  f"fabric_stream {name}: library call != kernel")
+        plain_ms = time_ms(lambda: fs.stream_plain(g, sets[0]), reps=5)
+        b_ms, b_by = bound(4 * n * len(g.inputs), 4 * n * len(p),
+                           n * elementwise_ops(g))
+        kernel = lambda x, g=g: fs.stream_kernel(g, x)     # noqa: E731
+        loops = {"one set": lambda fn, x=sets[0]: lambda: fn(x),
+                 f"{len(sets)} sets rotated":
+                     lambda fn, sets=sets: bench_kernels.rotation(fn, sets)}
+        for loop, wrap in loops.items():
+            label = f"fabric_stream {name} n={n}, {loop}"
+            fns = (wrap(kernel), wrap(library) if library else None)
+            # two rounds first: every output buffer allocated before timing
+            warm = 2 * len(sets)
+            rows[label] = dict(
+                ms=time_ms(fns[0], warm=warm), plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                library_ms=time_ms(fns[1], warm=warm) if library else None)
+            stream_loops[label] = fns
+        del k, p
     for label, r in rows.items():
         lib = r.get("library_ms")
         print(f"[times] {label}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), share of bound "
               f"{r['bound_ms'] / r['ms']:.3f}, library_ms: "
-              + (f"{lib:.4f} (torch.relu; kernel / library "
-                 f"{r['ms'] / lib:.3f})" if lib else "none"))
+              + (f"{lib:.4f} (kernel / library {r['ms'] / lib:.3f})"
+                 if lib else "none"))
 
     # device time per launch from the profiler: the event times above
     # include the wrapper's host work whenever it outlasts the kernel
@@ -698,21 +811,24 @@ def phase_times(device, gemm=(200, 220, 240), per_class=256, length=4096,
         ins = {k: torch.from_numpy(full_range(rng, (n_lanes, n))).to(device)
                for k in gg.inputs}
         grids[label] = (lambda gg=gg, ins=ins: fr.reduce_lanes(gg, ins))
-    grids[f"relu n={stream_n}"] = lambda: fs.stream_kernel(g, xs)
-    grids[f"torch.relu n={stream_n}"] = lambda: torch.relu(xs["x"])
+    for label, (kernel, library) in stream_loops.items():
+        grids[label] = kernel
+        if library is not None:
+            grids[f"{label}: library call"] = library
     for label, fn in grids.items():
         fn()
         prof = profile_run(lambda: [fn() for _ in range(reps)])
-        per = {n: us / reps / 1e3 for n, us in prof["by_name"].items()}
-        print(f"[profile] {label}: device ms per launch "
-              f"{ {n: round(v, 5) for n, v in per.items()} or 'not measured'}")
+        print(f"[profile] {label}: device ms per launch (launches recorded "
+              f"of {reps}) {per_launch(prof) or 'not measured'}")
     return rows
 
 
 def profile_run(fn):
     """Run ``fn`` under ``torch.profiler``; return the wall time, the time
-    the device was busy (union of kernel and copy intervals) and the
-    device time per kernel name."""
+    the device was busy (union of kernel and copy intervals), the device
+    time per kernel name and the launches recorded per name (in a long
+    process the profiler may record fewer launches than were made, so a
+    time per launch divides by this count, never by the calls made)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -722,13 +838,14 @@ def profile_run(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans, by_name = [], {}
+    spans, by_name, count = [], {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             spans.append((e.time_range.start, e.time_range.end))
             name = e.name.replace("(anonymous namespace)::", "")
             name = name.removeprefix("void ").split("(")[0].strip()
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+            count[name] = count.get(name, 0) + 1
     busy, end = 0.0, None
     for s, t in sorted(spans):
         if end is None or s > end:
@@ -737,7 +854,14 @@ def profile_run(fn):
         elif t > end:
             busy += t - end
             end = t
-    return {"wall_s": wall, "busy_s": busy / 1e6, "by_name": by_name}
+    return {"wall_s": wall, "busy_s": busy / 1e6, "by_name": by_name,
+            "count": count}
+
+
+def per_launch(prof):
+    """Device ms per launch by kernel name, and the launches recorded."""
+    return {n: (round(us / prof["count"][n] / 1e3, 5), prof["count"][n])
+            for n, us in prof["by_name"].items()}
 
 
 def phase_profile(device, gemm=(200, 220, 240)):
@@ -1072,14 +1196,15 @@ def phase_dense_times(ins):
         library_ms = time_ms(library)
         kernel()
         prof = profile_run(lambda: [kernel() for _ in range(5)])
-        dev = {n: round(us / 5 / 1e3, 5) for n, us in prof["by_name"].items()}
+        dev = per_launch(prof)
         rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by, library_ms=library_ms)
         print(f"[dense-times] {label}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}), share of bound {b_ms / ms:.3f}, "
               f"kernel / library {ms / library_ms:.3f}; profiler device ms "
-              f"per launch {dev or 'not measured'}")
+              f"per launch (launches recorded of 5) "
+              f"{dev or 'not measured'}")
 
     # the two bfloat16 designs on the same inputs, in turns (old, new,
     # new, old), and the wgmma route with a bf16 result beside cuBLAS's
@@ -1403,8 +1528,8 @@ def main() -> int:
           f"{_build.library_path().name} in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    errs = phase_parity(device)
-    launches = phase_main(device)
+    launches = phase_main(device)       # first: its first calls are the
+    errs = phase_parity(device)         # process's first
     serve_launches = phase_serve(device)
     for path in serve_launches.values():
         launches["fabric_reduce_lanes"] += path["lane_kernel"]
@@ -1415,11 +1540,12 @@ def main() -> int:
     dense_launches, path_errs, ins = phase_dense_path(device)
     dense_rows = phase_dense_times(ins)
 
+    from repro_torch.bench_kernels import ROTATE
     main_rows = {"fabric_reduce_lanes": (
                      "fabric_reduce_lanes gemm mac3 grid",
                      "src/repro/kernels/fabric_reduce.py:183"),
                  "fabric_stream": (
-                     f"fabric_stream relu n={1 << 24}",
+                     f"fabric_stream relu n={1 << 24}, {ROTATE} sets rotated",
                      "src/repro/kernels/fabric_stream.py:86")}
     kernels = []
     for kname, (label, replaces) in main_rows.items():

@@ -1,4 +1,4 @@
-"""Times the float32 ``stream_matmul`` and the fabric lane grids on the card.
+"""Times the float32 ``stream_matmul`` and the fabric kernels on the card.
 
 Run on a machine with one NVIDIA card, from the repository root:
 
@@ -18,6 +18,18 @@ case, with inputs made from a seed:
   (``mac3``, 14,800 lanes of 240), gesummv MEDIUM (``mac2x``, 250 x 250)
   and the one-shot mix's ``fft_butterfly`` (256 x 4096); the bound is the
   bytes over 3.35 TB/s. Results must equal the plain version's bit for bit.
+- ``fabric_stream`` on relu and vadd at n = 2^24 beside ``torch.relu`` and
+  ``torch.add`` (int32, which wraps the same way), and on
+  ``fft_butterfly`` at n = 2^22 (4 streams in, 4 out, 18 table rows; no
+  library call computes it), and on a copy DFG (out = x) at 2^24 beside
+  ``clone``, which isolates the kernel's data movement from its
+  interpretation; the bound is the bytes over 3.35 TB/s.
+  Results must equal the plain version's, and the library call's, bit for
+  bit. Besides the loop over one input set, each is timed over a rotation
+  of ROTATE input sets (at least 512 MB with their outputs) whose outputs
+  stay alive until their set comes round again, so that no call finds its
+  data in the card's 50 MB L2; and by the host clock around one warm call
+  and its synchronisation (median and range of WALL_CALLS calls).
 
 Each case gives the time by CUDA events over 20 warm calls (wrapper
 included), the host's time to enqueue a call, and the device time per call
@@ -27,8 +39,10 @@ the card and its power limit.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -39,6 +53,8 @@ MM = (4096, 2304, 5760)
 MM_REL_TOL = 1e-5              # of max|C|, float32 at K = 2304
 SEED = 0
 REPS = 20
+ROTATE = 4                     # input and output sets of a rotated loop
+WALL_CALLS = 7
 
 
 def time_ms(fn, reps=REPS, warm=3):
@@ -60,7 +76,10 @@ def time_ms(fn, reps=REPS, warm=3):
 
 
 def device_ms(fn, reps=5):
-    """Device ms per call from torch.profiler, and its split by name."""
+    """Device ms per call from torch.profiler, and its split by name: each
+    name's time over the launches of it that the profiler recorded (in a
+    long process it may record fewer than were made), so a call that
+    launches each kernel once takes their sum."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -71,14 +90,104 @@ def device_ms(fn, reps=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    by_name = {}
+    total, count = {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             name = e.name.replace("(anonymous namespace)::", "")
             name = name.removeprefix("void ").split("(")[0].strip()
-            by_name[name] = (by_name.get(name, 0.0)
-                             + e.time_range.elapsed_us() / reps / 1e3)
+            total[name] = total.get(name, 0.0) + e.time_range.elapsed_us()
+            count[name] = count.get(name, 0) + 1
+    by_name = {n: us / count[n] / 1e3 for n, us in total.items()}
     return sum(by_name.values()) if by_name else None, by_name
+
+
+def rotation(fn, sets):
+    """A callable running ``fn`` on the next of ``sets`` in turn. Each
+    output stays alive until its set comes round again, so the outputs
+    rotate through len(sets) + 1 buffers as the inputs through len(sets)."""
+    keep = [None] * len(sets)
+    turn = itertools.count()
+
+    def call():
+        k = next(turn) % len(sets)
+        keep[k] = fn(sets[k])
+    return call
+
+
+def wall_ms(fn, calls=WALL_CALLS):
+    """(median, min, max) host ms of one warm call and its synchronise."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls), min(walls), max(walls)
+
+
+def copy_dfg():
+    """out = x: the kernel's data movement alone, beside ``clone``."""
+    from repro_torch.core.dfg import DFG
+    b = DFG.build("copy")
+    b.out("out", b.inp("x"))
+    return b.done()
+
+
+def stream_cases():
+    """(label, DFG, n, library call on the inputs or None)."""
+    import torch
+    from repro_torch.core import kernels_lib as K
+    return (("relu", K.relu(), 1 << 24, lambda x: torch.relu(x["x"])),
+            ("vadd", K.vadd(), 1 << 24,
+             lambda x: torch.add(x["x"], x["y"])),
+            ("fft_butterfly", K.fft_butterfly(), 1 << 22, None),
+            ("copy", copy_dfg(), 1 << 24, lambda x: x["x"].clone()))
+
+
+def bench_stream(src):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import fabric_stream as fs
+    rng = np.random.default_rng(SEED + 2)
+    ok, rows = True, []
+    for label, g, n, library in stream_cases():
+        sets = [{k: torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, n, dtype=np.int64).astype(np.int32)).cuda()
+            for k in g.inputs} for _ in range(ROTATE)]
+        got = fs.stream_kernel(g, sets[0])
+        want = fs.stream_plain(g, sets[0])
+        exact = all(torch.equal(got[o], want[o]) for o in want)
+        if library is not None:
+            exact = exact and torch.equal(library(sets[0]),
+                                          got[g.outputs[0]])
+        ok = ok and exact
+        n_io = len(g.inputs) + len(want)
+        n_bytes = 4 * n * n_io
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        kernel = lambda x: fs.stream_kernel(g, x)         # noqa: E731
+        row = {"src": src, "case": f"fabric_stream {label} n={n}",
+               "bound_ms": bound, "bound_by": "bytes",
+               "rotation_mb": ROTATE * n_bytes / 2 ** 20, "bit_exact": exact}
+        for who, fn in (("", kernel), ("library_", library)):
+            if fn is None:
+                continue
+            one = lambda fn=fn: fn(sets[0])               # noqa: E731
+            row[f"{who}ms"], row[f"{who}host_ms"] = time_ms(one)
+            row[f"{who}device_ms"], row[f"{who}by_name"] = device_ms(one)
+            rot = rotation(fn, sets)
+            # two rounds first: every output buffer allocated before timing
+            row[f"{who}rot_ms"], _ = time_ms(rot, warm=2 * len(sets))
+            row[f"{who}rot_device_ms"], row[f"{who}rot_by_name"] = \
+                device_ms(rot)
+            row[f"{who}wall_ms"] = wall_ms(one)
+        row["share"] = bound / (row["rot_device_ms"] or row["rot_ms"])
+        rows.append(row)
+        del sets, got, want
+        torch.cuda.empty_cache()
+    return ok, rows
 
 
 def bench_matmul(src):
@@ -163,14 +272,18 @@ def main(argv=None) -> int:
     ok_lanes, rows = bench_lanes(args.src)
     for row in rows:
         print(json.dumps(row), flush=True)
+    ok_stream, rows = bench_stream(args.src)
+    for row in rows:
+        print(json.dumps(row), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip() or smi.stderr.strip())
-    if not (ok_mm and ok_lanes):
+    ok = ok_mm and ok_lanes and ok_stream
+    if not ok:
         print("bench_kernels: a result disagreed with the plain version",
               file=sys.stderr)
-    return 0 if ok_mm and ok_lanes else 1
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -12,13 +12,19 @@
 // Both interpret the instruction table that the wrapper lowers from one shot
 // DFG, in topological order (kernels/fabric_stream.py::lower). One build
 // serves every DFG: no per-DFG code generation sits on the request path.
-// A block loads the table into shared memory; each thread keeps its wire
-// values in shared memory (slot-major, so neighbouring threads hit
-// neighbouring banks) and, where the table has a Merge, one validity bit per
-// wire in a 64-bit register per element. The opcode is the same for the
-// whole warp, so the switch does not diverge. Branch legs run speculatively
-// and Merge is a masked select, as in the reference. One copy of the
-// instruction step (step()) serves both kernels.
+// A block loads the table into shared memory once. Wire values live in
+// shared memory in one layout (Slots): wire slot s of thread t's vector q
+// (kW consecutive items) at (s * kV / kW + q) * kLThreads * kW + t * kW, so
+// a warp's vector accesses hit neighbouring banks. Where a block's threads
+// share one tile of kLThreads * kV consecutive elements (lane_kernel's flat
+// tiles, stream_kernel), vector q of thread t holds elements q * kLThreads
+// * kW + t * kW on, and each wire slot is one contiguous run of the tile in
+// element order. Where the table has a Merge, each item keeps one
+// validity bit per wire in a 64-bit register. The opcode is the same for
+// the whole block, so the switch does not diverge. Branch legs run
+// speculatively and Merge is a masked select, as in the reference. One copy
+// of the instruction step (step()) serves both kernels: each row is decoded
+// once and applied to all of a thread's kV items.
 //
 // Arithmetic is done in uint32_t: signed overflow is undefined in C++ while
 // the reference wraps mod 2^32. SHR is an arithmetic shift of int32_t, shift
@@ -48,9 +54,34 @@
 //   * Reductions are exact in any order: ADD, MUL, AND, OR and XOR are
 //     associative and commutative mod 2^32, and SUB folds as acc - sum(x).
 //
-// stream_kernel (one lane, no reductions: fabric_stream) keeps the first
-// design: one block per chunk of kChunk elements, each thread interpreting
-// the whole table once per element.
+// stream_kernel (one lane, no reductions) replaces the Pallas kernel
+// repro/kernels/fabric_stream.py::fabric_stream. Its bound is bytes: each
+// input stream is read once and each full-rate output written once, 8 bytes
+// an element for relu (one in, one out), against a few integer operations.
+// The design keeps device memory busy and decodes little:
+//   * Blocks are persistent: as many as fit on the SMs at once (never more
+//     than there are tiles), each loading the table once and walking its
+//     tiles of kLThreads * kV elements by a grid-stride loop.
+//   * Tiles in the Slots layout, so each input stream's tile lands in its
+//     slot as one 1-D bulk copy (cp.async.bulk, counted on an mbarrier,
+//     issued by one thread) where the tile is whole and every stream
+//     16-byte aligned; the ragged last tile and unaligned streams (a slice
+//     x[1:] is legal input) copy element by element with zero fill.
+//   * Two stages. Only the input slots are double-buffered: the block
+//     issues tile t+1's copies before it interprets tile t. Stage 1 has its
+//     own copy of the table, whose rows read input stream i from slot
+//     n_slots + i, so step() and the Slots layout serve both stages.
+//   * Each table row is decoded once for a thread's kV items; validity bits
+//     are kept only where the table has a Merge.
+//   * Outputs leave by 16-byte streaming stores (st.global.cs) where the
+//     streams are aligned, element by element elsewhere.
+//   * kV is chosen as for lane_kernel (8 items a thread, halved while the
+//     wires exceed kSlotBytes). Shared memory a block: the table twice
+//     (n_instr x 32 bytes each) + (n_slots + n_in) x kV x kLThreads x 4;
+//     for relu (4 rows, 3 slots, 1 input) at kV = 8: 256 bytes + 32 KB.
+//   Measured on an H100 (PERF.md): 16-byte cp.async copies, 3 or 4
+//   stages, an L2 evict-first hint on the copies, plain stores, one block a
+//   tile and contiguous tile runs a block were each no faster, or slower.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,12 +96,8 @@ constexpr int kMaxIO = 16;
 constexpr int kMaxRed = 16;
 constexpr int kInstrWords = 8;                // kind op dst a b c imm aux
 
-// stream_kernel
-constexpr int kThreads = 128;
-constexpr int kItems = 8;                     // elements per thread per chunk
-constexpr int kChunk = kThreads * kItems;     // elements per block
-
-// lane_kernel (kernels/fabric_reduce.py mirrors kWarpLane and kBlockLane)
+// lane_kernel and stream_kernel (kernels/fabric_reduce.py mirrors kWarpLane
+// and kBlockLane, kernels/fabric_stream.py kLThreads and kSlotBytes)
 constexpr int kLThreads = 256;
 constexpr int kLWarps = kLThreads / 32;
 constexpr int kLItems = 8;                    // elements per thread per tile
@@ -98,10 +125,10 @@ struct Params {
   int n_slots;
   int n_red;
   int mode;                    // lane_kernel: a Mode
-  int vec;                     // lane_kernel: 16-byte copies and stores
+  int vec;                     // 16-byte copies and stores
   long long length;            // elements per lane (flat: in the grid)
   long long n_lanes;
-  long long n_units;           // lane_kernel: tiles, lanes or lane slices
+  long long n_units;           // tiles, lanes or lane slices
   long long slices;            // kModeSplit: slices per lane
 };
 
@@ -374,34 +401,6 @@ __device__ __forceinline__ void step(const int32_t* ins,
 }
 
 // ---------------------------------------------------------------------------
-// stream_kernel: one lane, no reductions (fabric_stream)
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-stream_kernel(const int32_t* __restrict__ prog, const Params p) {
-  extern __shared__ __align__(16) int32_t smem[];
-  int32_t* sprog = smem;                                  // n_instr x 8
-  int32_t* sval = sprog + p.n_instr * kInstrWords;        // n_slots x kThreads
-  const int tid = threadIdx.x;
-  for (int i = tid; i < p.n_instr * kInstrWords; i += kThreads)
-    sprog[i] = prog[i];
-  __syncthreads();
-
-  const Slots<1, 1> sv{sval + tid, kThreads};
-  for (int j = 0; j < kItems; ++j) {
-    const long long idx = blockIdx.x * static_cast<long long>(kChunk) +
-                          j * kThreads + tid;
-    if (idx >= p.length) break;                   // ragged tail
-    uint64_t valid[1] = {0};
-    for (int k = 0; k < p.n_instr; ++k)
-      step(sprog + k * kInstrWords, sv, valid, true,
-           [&](int dst, int a) { *sv.at(dst, 0) = p.in[a][idx]; },
-           [](int, int, int32_t, int) {},
-           [&](int a, int o) { p.out[o][idx] = *sv.at(a, 0); });
-  }
-}
-
-// ---------------------------------------------------------------------------
 // lane_kernel: N lanes, reductions in one pass where a lane fits a block
 // ---------------------------------------------------------------------------
 
@@ -420,6 +419,16 @@ __device__ __forceinline__ void cp_async(int32_t* dst, const int32_t* src,
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's copies done but for the newest kPending groups
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // kW elements of src from element e, zero past n: one vector copy where
@@ -615,6 +624,213 @@ __global__ void fold_kernel(const int32_t* __restrict__ partials,
   red_out[t] = finish(op, p.red_init[r], s);
 }
 
+// ---------------------------------------------------------------------------
+// stream_kernel: one lane, no reductions (fabric_stream)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A copy that never
+// lands (a fault in this file) traps after about 2^31 polls, so the launch
+// fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == 0x80000000u) __trap();
+  }
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global src
+// to shared dst as one bulk copy, counted on bar
+__device__ __forceinline__ void bulk_load(int32_t* dst, const int32_t* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// kW consecutive int32 to global memory, streaming (evict first)
+template <int kW>
+__device__ __forceinline__ void store_stream(int32_t* p, const Items<kW>& r) {
+  if constexpr (kW == 4) {
+    __stcs(reinterpret_cast<int4*>(p),
+           make_int4(r.v[0], r.v[1], r.v[2], r.v[3]));
+  } else if constexpr (kW == 2) {
+    __stcs(reinterpret_cast<int2*>(p), make_int2(r.v[0], r.v[1]));
+  } else {
+    __stcs(p, r.v[0]);
+  }
+}
+
+// Each block loads the table twice: stage 0's as lowered, stage 1's with
+// every read of input stream i's slot moved to slot n_slots + i. It then
+// walks the tiles u = blockIdx.x, + gridDim.x, ..., issuing the next tile's
+// input copies into the other stage before it interprets this one. A whole
+// tile of 16-byte-aligned streams lands by one bulk copy a stream, issued
+// by thread 0 and counted on the stage's mbarrier; otherwise each thread
+// copies its own items by cp.async (zero past the end) and waits for its
+// own groups. At most 64 registers a thread, so that 4 blocks fit an SM:
+// on an H100 (PERF.md), unbounded (105 at kV = 8, 2 blocks) was 7% slower
+// on relu, and 48 (5 blocks) spilled and was 25% slower.
+template <int kV>
+__global__ void __launch_bounds__(kLThreads, 4)
+stream_kernel(const int32_t* __restrict__ prog, const Params p) {
+  constexpr int kW = kV < 4 ? kV : 4;           // items per vector
+  constexpr int kNQ = kV / kW;                  // vectors per pass
+  constexpr int kTileLen = kLThreads * kV;      // elements per tile
+  constexpr int kQStep = kLThreads * kW;        // elements between vectors
+  constexpr uint32_t kTileBytes = kTileLen * sizeof(int32_t);
+  __shared__ __align__(8) uint64_t full[2];     // a stage's bulk copies
+  __shared__ int in_of[kMaxSlots];              // slot -> input stream or -1
+  extern __shared__ __align__(16) int32_t ssmem[];
+  const int n_words = p.n_instr * kInstrWords;
+  int32_t* sprog = ssmem;                       // 2 x n_instr x 8
+  int32_t* sval = sprog + 2 * n_words;          // slots x tile
+
+  const int tid = threadIdx.x;
+  for (int s = tid; s < kMaxSlots; s += kLThreads) in_of[s] = -1;
+  if (tid == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const bool is_input = tid < p.n_instr && prog[tid * kInstrWords] == K_INPUT;
+  if (is_input)
+    in_of[prog[tid * kInstrWords + 2]] = prog[tid * kInstrWords + 3];
+  const int n_in = __syncthreads_count(is_input);
+  // the validity bits matter only to a Merge: keep them where there is one
+  const bool track = __syncthreads_or(
+      tid < p.n_instr && prog[tid * kInstrWords] == K_MERGE);
+  // stage 1's input slots need validity bits of their own where tracked: a
+  // table too wide for that runs with one stage
+  const int stages = !track || p.n_slots + n_in <= kMaxSlots ? 2 : 1;
+  for (int j = tid; j < stages * n_words; j += kLThreads) {
+    const int i = j % n_words, f = i % kInstrWords;
+    int w = prog[i];
+    const bool is_slot = f == 2 || f == 4 || f == 5 ||
+                         (f == 3 && prog[i - 3] != K_INPUT);
+    if (j >= n_words && is_slot && w >= 0 && in_of[w] >= 0)
+      w = p.n_slots + in_of[w];
+    sprog[j] = w;
+  }
+  __syncthreads();
+
+  const Slots<kW, kNQ> sv{sval + tid * kW, kLThreads * kW};
+  const int e0 = tid * kW;                      // this thread's first item
+  const long long n_tiles =                     // this block's tiles
+      blockIdx.x < p.n_units ? (p.n_units - 1 - blockIdx.x) / gridDim.x + 1
+                             : 0;
+  auto begin_of = [&](long long i) {
+    return (blockIdx.x + i * gridDim.x) * kTileLen;
+  };
+  auto len_of = [&](long long i) {
+    return static_cast<int>(
+        min(static_cast<long long>(kTileLen), p.length - begin_of(i)));
+  };
+  auto by_bulk = [&](int n) { return p.vec && n == kTileLen; };
+  // the block's i-th tile's inputs into stage i % stages
+  auto issue = [&](long long i) {
+    const int st = static_cast<int>(i % stages);
+    const int32_t* tab = sprog + st * n_words;
+    const long long begin = begin_of(i);
+    const int n = len_of(i);
+    if (by_bulk(n)) {
+      if (tid == 0) {
+        // the slots' last reads (generic proxy) before the copy (async)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_expect_tx(&full[st], n_in * kTileBytes);
+        for (int k = 0; k < p.n_instr; ++k) {
+          const int32_t* ins = tab + k * kInstrWords;
+          if (ins[0] == K_INPUT)
+            bulk_load(sval + ins[2] * kTileLen, p.in[ins[3]] + begin,
+                      kTileBytes, &full[st]);
+        }
+      }
+    } else {
+      for (int k = 0; k < p.n_instr; ++k) {
+        const int32_t* ins = tab + k * kInstrWords;
+        if (ins[0] != K_INPUT) continue;
+        const int32_t* src = p.in[ins[3]] + begin;
+#pragma unroll
+        for (int q = 0; q < kNQ; ++q)
+          fetch<kW>(sv.at(ins[2], q), src, e0 + q * kQStep, n, p.vec);
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (stages == 2 && n_tiles > 0) issue(0);
+  uint32_t parity = 0;                          // bit st: full[st]'s phase
+  for (long long i = 0; i < n_tiles; ++i) {
+    // the next tile (one stage: this one) into the stage read last
+    const long long next = i + stages - 1;
+    if (next < n_tiles) {
+      if (by_bulk(len_of(next))) __syncthreads();
+      issue(next);
+    }
+    const int st = static_cast<int>(i % stages);
+    const long long begin = begin_of(i);
+    const int n = len_of(i);
+    if (by_bulk(n)) {
+      mbar_wait(&full[st], (parity >> st) & 1u);
+      parity ^= 1u << st;
+    }
+    if (next > i && next < n_tiles)             // own copies but the next's
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    const int32_t* tab = sprog + st * n_words;
+    uint64_t valid[kV] = {};
+    for (int k = 0; k < p.n_instr; ++k)
+      step(tab + k * kInstrWords, sv, valid, track,
+           [](int, int) {},                     // inputs are in place
+           [](int, int, int32_t, int) {},       // no reductions
+           [&](int a, int o) {
+             int32_t* out = p.out[o] + begin;
+#pragma unroll
+             for (int q = 0; q < kNQ; ++q) {
+               const Items<kW> x = sv.get(a, q);
+               const int e = e0 + q * kQStep;
+               if (p.vec && e + kW <= n) {
+                 store_stream<kW>(out + e, x);
+               } else {
+#pragma unroll
+                 for (int c = 0; c < kW; ++c)
+                   if (e + c < n) __stcs(out + e + c, x.v[c]);
+               }
+             }
+           });
+  }
+}
+
 int check_sizes(int n_instr, int n_slots, int n_in, int n_out, int n_red) {
   if (n_instr < 1 || n_instr > kMaxInstr || n_slots < 0 ||
       n_slots > kMaxSlots || n_in < 0 || n_in > kMaxIO || n_out < 0 ||
@@ -656,36 +872,39 @@ size_t lane_smem(const Params& p, int kv) {
           static_cast<size_t>(p.n_red) * kLThreads);
 }
 
-// The blocks of lane_kernel<kV> that fit on the device at once with smem
-// bytes of shared memory each, remembered per (device, kV, smem): the
-// attribute and occupancy queries cost host time on every grid otherwise.
-template <int kV>
-cudaError_t resident_blocks(size_t smem, long long* out) {
-  struct Entry { int dev; size_t smem; long long blocks; };
+// The blocks of `kernel` (kLThreads threads) that fit on the device at once
+// with smem bytes of dynamic shared memory each, remembered per (device,
+// kernel, smem): the attribute and occupancy queries cost host time on
+// every launch otherwise. smem_max is the most any table takes.
+cudaError_t resident_blocks(const void* kernel, size_t smem_max, size_t smem,
+                            long long* out) {
+  struct Entry { int dev; const void* kernel; size_t smem; long long blocks; };
+  constexpr int kSeen = 128;
   static std::mutex mu;
-  static Entry seen[16];
+  static Entry seen[kSeen];
   static int n_seen = 0;
   int dev = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc != cudaSuccess) return rc;
   std::lock_guard<std::mutex> lock(mu);
   for (int i = 0; i < n_seen; ++i)
-    if (seen[i].dev == dev && seen[i].smem == smem) {
+    if (seen[i].dev == dev && seen[i].kernel == kernel &&
+        seen[i].smem == smem) {
       *out = seen[i].blocks;
       return cudaSuccess;
     }
   int n_sm = 0, per_sm = 0;
   rc = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (rc == cudaSuccess)
-    rc = cudaFuncSetAttribute(lane_kernel<kV>,
+    rc = cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(kLaneSmemMax));
+                              static_cast<int>(smem_max));
   if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, lane_kernel<kV>, kLThreads, smem);
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                       kLThreads, smem);
   if (rc != cudaSuccess) return rc;
   *out = static_cast<long long>(per_sm > 0 ? per_sm : 1) * n_sm;
-  if (n_seen < 16) seen[n_seen++] = {dev, smem, *out};
+  if (n_seen < kSeen) seen[n_seen++] = {dev, kernel, smem, *out};
   return cudaSuccess;
 }
 
@@ -695,7 +914,9 @@ int launch_lanes(const int32_t* prog, const Params& p, int32_t* red_out,
                  int32_t* partials, cudaStream_t s) {
   const size_t smem = lane_smem(p, kV);
   long long resident = 0;
-  const cudaError_t rc = resident_blocks<kV>(smem, &resident);
+  const cudaError_t rc = resident_blocks(
+      reinterpret_cast<const void*>(lane_kernel<kV>), kLaneSmemMax, smem,
+      &resident);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const long long per_block = p.mode == kModeWarp ? kLWarps : 1;
   long long blocks = (p.n_units + per_block - 1) / per_block;
@@ -703,6 +924,41 @@ int launch_lanes(const int32_t* prog, const Params& p, int32_t* red_out,
   lane_kernel<kV><<<static_cast<unsigned>(blocks), kLThreads, smem, s>>>(
       prog, p, red_out, partials);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the most any table takes: the table twice, the wires (at most
+// kSlotBytes) and a second stage of the inputs (at most as many bytes)
+constexpr size_t kStreamSmemMax =
+    sizeof(int32_t) * 2 * kMaxInstr * kInstrWords + 2 * kSlotBytes;
+
+// persistent blocks: as many as fit on the SMs at once, at most one a tile
+template <int kV>
+int launch_stream(const int32_t* prog, const Params& p, int n_in,
+                  cudaStream_t s) {
+  const size_t smem =
+      sizeof(int32_t) *
+      (2 * static_cast<size_t>(p.n_instr) * kInstrWords +
+       static_cast<size_t>(p.n_slots + n_in) * kV * kLThreads);
+  long long resident = 0;
+  const cudaError_t rc = resident_blocks(
+      reinterpret_cast<const void*>(stream_kernel<kV>), kStreamSmemMax, smem,
+      &resident);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const long long blocks = p.n_units < resident ? p.n_units : resident;
+  stream_kernel<kV><<<static_cast<unsigned>(blocks), kLThreads, smem, s>>>(
+      prog, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// items a thread holds per pass: 8 where a block's wires fit kSlotBytes,
+// halved until they do (kernels/fabric_stream.py::stream_geometry mirrors
+// it for the stream kernel)
+int items_per_thread(int n_slots) {
+  int kv = 8;
+  while (kv > 1 && static_cast<size_t>(n_slots) * kv * kLThreads *
+                           sizeof(int32_t) > kSlotBytes)
+    kv /= 2;
+  return kv;
 }
 
 }  // namespace
@@ -756,10 +1012,7 @@ int strela_fabric_reduce_lanes(const int32_t* prog, int n_instr, int n_slots,
       p.n_units = n_lanes * p.slices;
     }
   }
-  int kv = 8;                           // items a thread holds per pass
-  while (kv > 1 && static_cast<size_t>(n_slots) * kv * kLThreads *
-                           sizeof(int32_t) > kSlotBytes)
-    kv /= 2;
+  const int kv = items_per_thread(n_slots);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kv) {
     case 8: rc = launch_lanes<8>(prog, p, red_out, partials, s); break;
@@ -774,25 +1027,29 @@ int strela_fabric_reduce_lanes(const int32_t* prog, int n_instr, int n_slots,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One request, no reductions: the fabric_stream entry point.
+// One request, no reductions: the fabric_stream entry point. Returns the
+// CUDA error of the launch (0 on success).
 int strela_fabric_stream(const int32_t* prog, int n_instr, int n_slots,
                          const long long* in_ptrs, int n_in,
                          const long long* out_ptrs, int n_out,
                          long long length, void* stream) {
-  int rc = check_sizes(n_instr, n_slots, n_in, n_out, 0);
+  const int rc = check_sizes(n_instr, n_slots, n_in, n_out, 0);
   if (rc) return rc;
   if (length <= 0) return 0;
   bool aligned = true;
-  const Params p = make_params(n_instr, n_slots, in_ptrs, n_in, out_ptrs,
-                               n_out, 1, length, &aligned);
-  const long long blocks = (length + kChunk - 1) / kChunk;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(int32_t) *
-                      (static_cast<size_t>(n_instr) * kInstrWords +
-                       static_cast<size_t>(n_slots) * kThreads);
-  stream_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                  static_cast<cudaStream_t>(stream)>>>(prog, p);
-  return static_cast<int>(cudaGetLastError());
+  Params p = make_params(n_instr, n_slots, in_ptrs, n_in, out_ptrs, n_out,
+                         1, length, &aligned);
+  p.vec = aligned;
+  const int kv = items_per_thread(n_slots);
+  const long long tile = static_cast<long long>(kLThreads) * kv;
+  p.n_units = (length + tile - 1) / tile;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kv) {
+    case 8: return launch_stream<8>(prog, p, n_in, s);
+    case 4: return launch_stream<4>(prog, p, n_in, s);
+    case 2: return launch_stream<2>(prog, p, n_in, s);
+    default: return launch_stream<1>(prog, p, n_in, s);
+  }
 }
 
 }  // extern "C"

@@ -6,16 +6,19 @@ DFG evaluated over int32 streams in one fused pass, so each stream element
 makes a single round trip through device memory (the paper's
 no-scratchpad streaming argument).
 
-Kernel: ``fabric_kernel<false>`` in ``csrc/fabric.cu``, entry point
+Kernel: ``stream_kernel<kV>`` in ``csrc/fabric.cu``, entry point
 ``strela_fabric_stream``: one lane, no reductions. It interprets the
 instruction table that :func:`lower` builds from the DFG (shared with
-``fabric_reduce``), one thread per element.
+``fabric_reduce``). Persistent blocks walk tiles of ``256 * kV`` elements
+(:func:`stream_geometry`), copying the next tile's inputs into shared
+memory while they interpret this one, and decode each table row once for
+the ``kV`` items a thread holds.
 
 Bound on the H100: bytes. Each input stream is read once and each output
 written once, 4 bytes per element each, against a handful of integer
 operations per element; at 3.35 TB/s memory is the limit. The design keeps
 the whole DFG in one kernel so no intermediate wire ever reaches device
-memory.
+memory, and keeps a tile's copies in flight while it computes.
 
 Beside it, the plain PyTorch version (``ref.eval_dfg_elementwise``) runs
 for tensors on the CPU, and only there: a CUDA tensor launches the kernel
@@ -41,6 +44,8 @@ MAX_INSTR = 128
 MAX_IO = 16
 MAX_RED = 16
 INSTR_WORDS = 8            # kind op dst a b c imm aux
+THREADS = 256              # kLThreads: threads a block
+SLOT_BYTES = 64 * 1024     # kSlotBytes: a block's wire values at most
 
 K_INPUT, K_CONST, K_ALU, K_CMP, K_MUX, K_BRANCH, K_MERGE, K_RED, K_OUT = \
     range(9)
@@ -178,6 +183,17 @@ def lower(g: D.DFG) -> Program:
     return prog
 
 
+def stream_geometry(n_slots: int) -> tuple:
+    """(kV, tile): the items a thread holds and the elements a block tile
+    holds, for a table of ``n_slots`` wire slots; mirrors
+    ``items_per_thread`` in ``csrc/fabric.cu`` (8 items, halved while the
+    wires exceed SLOT_BYTES)."""
+    kv = 8
+    while kv > 1 and n_slots * kv * THREADS * 4 > SLOT_BYTES:
+        kv //= 2
+    return kv, THREADS * kv
+
+
 def pointers(tensors: List[torch.Tensor]) -> ctypes.Array:
     arr = (ctypes.c_longlong * MAX_IO)()
     for i, t in enumerate(tensors):
@@ -231,12 +247,20 @@ def stream_kernel(g: D.DFG, ins: Dict[str, torch.Tensor]
         return dict(zip(prog.full_names, outs))
     lib = _build.load()
     table = prog.device_table(dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.strela_fabric_stream(
+
+    def launch() -> int:
+        # the raw stream handle: torch.cuda.current_stream() builds a
+        # Stream object on every call
+        return lib.strela_fabric_stream(
             table.data_ptr(), len(prog.table), prog.n_slots,
             pointers(tensors), len(tensors), pointers(outs), len(outs),
-            length, stream)
+            length, torch._C._cuda_getCurrentRawStream(dev.index))
+
+    if dev.index == torch.cuda.current_device():
+        rc = launch()
+    else:
+        with torch.cuda.device(dev):
+            rc = launch()
     _build.check(lib, rc, f"{g.name}: fabric_stream")
     launches += 1
     return dict(zip(prog.full_names, outs))

@@ -98,6 +98,27 @@ def test_each_reduction_op_folds_like_plain(cuda, op):
         assert torch.equal(kr["s"], pr["s"]), (n_lanes, length)
 
 
+def _wide_dfg(merge):
+    """64 wire slots, the most the kernels hold: x, y and a chain of ALU
+    ops; where ``merge``, ending in a Branch/Merge on x > 0 (tracked
+    validity bits: the stream kernel runs such a table with one stage)."""
+    b = DFG.build("wide_merge" if merge else "wide")
+    x, y = b.inp("x"), b.inp("y")
+    w = x
+    ops = (AluOp.ADD, AluOp.XOR, AluOp.MUL, AluOp.SUB)
+    for i in range(56 if merge else 62):
+        w = b.alu(f"w{i}", ops[i % 4], w, y if i % 3 else None,
+                  const_b=None if i % 3 else 2 * i + 1)
+    if merge:
+        c = b.cmp("c", CmpOp.GTZ, x)
+        bw = b.branch("bw", w, c)
+        t = b.alu("t", AluOp.MUL, bw, const_b=3, a_port="t")
+        f = b.alu("f", AluOp.SHR, bw, const_b=2, a_port="f")
+        w = b.merge("m", t, f)
+    b.out("out", w)
+    return b.done()
+
+
 def test_fabric_stream_kernel_matches_plain(cuda):
     b = DFG.build("legs")
     x, y = b.inp("x"), b.inp("y")
@@ -107,16 +128,56 @@ def test_fabric_stream_kernel_matches_plain(cuda):
     f = b.alu("f", AluOp.SHR, bx, const_b=3, a_port="f")
     b.out("out", b.merge("m", t, f))
     graphs = [b.done(), K.relu(), K.fft_butterfly(), K.axpby(3, 5),
-              K.vadd(), K.outer_row2(2, -3, 5, 1)]
+              K.vadd(), K.outer_row2(2, -3, 5, 1), _wide_dfg(False),
+              _wide_dfg(True)]
+    assert [fs.lower(g).n_slots for g in graphs[-2:]] == [fs.MAX_SLOTS] * 2
+    # more tiles than the card can hold blocks at once (an SM holds at most
+    # 2048 threads), plus 3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    many = sms * (2048 // fs.THREADS) + 3
     rng = np.random.default_rng(1)
-    launches = fs.launches
+    launches, n_calls = fs.launches, 0
+
+    def check(g, ins, what):
+        nonlocal n_calls
+        k, p = fs.stream_kernel(g, ins), fs.stream_plain(g, ins)
+        n_calls += 1
+        for o in p:
+            assert torch.equal(k[o], p[o]), (g.name, what, o)
+
     for g in graphs:
-        for n in (1, 127, 1024, 3000, 1 << 20):
-            ins = {k: _full_range(rng, (n,), cuda) for k in g.inputs}
-            k, p = fs.stream_kernel(g, ins), fs.stream_plain(g, ins)
-            for o in p:
-                assert torch.equal(k[o], p[o]), (g.name, n, o)
-    assert fs.launches == launches + 5 * len(graphs)
+        _, tile = fs.stream_geometry(fs.lower(g).n_slots)
+        for n in (1, 127, 1024, 3000, 1 << 20, tile - 1, tile, tile + 1,
+                  many * tile + 1):
+            check(g, {k: _full_range(rng, (n,), cuda) for k in g.inputs}, n)
+        # streams 4, 8 and 12 bytes past 16-byte alignment: contiguous
+        # slices at offsets 1-3, of every stream or of the first only
+        for off in (1, 2, 3):
+            for first_only in (False, True):
+                n = tile + 1
+                ins = {k: _full_range(rng, (n + off,), cuda)[
+                    off if i == 0 or not first_only else 0:][:n]
+                    for i, k in enumerate(g.inputs)}
+                assert ins[g.inputs[0]].data_ptr() % 16 == 4 * off
+                check(g, ins, (off, first_only))
+    torch.cuda.synchronize()
+    assert fs.launches == launches + n_calls
+
+    # the wrapper launches on the current stream: inputs written and the
+    # kernel launched on a side stream are right once that stream is done
+    g = graphs[0]
+    src = {k: _full_range(rng, (1 << 20,), cuda) for k in g.inputs}
+    ins = {k: torch.empty_like(v) for k, v in src.items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for k in ins:
+            ins[k].copy_(src[k])
+        got = fs.stream_kernel(g, ins)
+    side.synchronize()
+    want = fs.stream_plain(g, src)
+    assert all(torch.equal(got[o], want[o]) for o in want)
+    assert fs.launches == launches + n_calls + 1
 
 
 def test_cuda_engine_serves_clients_through_the_kernel(cuda):

@@ -1,11 +1,13 @@
-"""The lane kernel's layout rule and the wrapper's caches
-(``repro_torch.kernels.fabric_reduce``), on the CPU.
+"""The lane and stream kernels' layout rules and the wrappers' caches
+(``repro_torch.kernels.fabric_reduce``, ``fabric_stream``), on the CPU.
 
 ``lane_layout`` mirrors how ``strela_fabric_reduce_lanes`` cuts a lane grid
 into units: the Python side sizes the partials and counts the fold launches
 from it, so its constants and branches are held here against
 ``csrc/fabric.cu`` itself, as ``tests/test_torch_routes.py`` holds the
-matmul's route rule. The caches: a DFG is lowered once and its instruction
+matmul's route rule. ``stream_geometry`` mirrors the items a thread holds
+and the tile a block walks in ``strela_fabric_stream``, which the tests on
+the card use to reach the tile's edges; it is held here the same way. The caches: a DFG is lowered once and its instruction
 table copied to a device once, however many grids run it.
 """
 import os
@@ -57,6 +59,48 @@ def test_layout_branches_match_the_cuda_source():
 ])
 def test_lane_layout(n_red, length, want):
     assert fr.lane_layout(n_red, length) == want
+
+
+@pytest.mark.parametrize("name,value", [("kLThreads", fs.THREADS),
+                                        ("kSlotBytes", fs.SLOT_BYTES)])
+def test_stream_constants_match_the_cuda_source(name, value):
+    m = re.search(rf"constexpr int {name} = ([\d *]+);", _source())
+    assert m is not None and eval(m[1]) == value     # "64 * 1024"
+
+
+def test_stream_geometry_matches_the_cuda_source():
+    src = " ".join(_source().split())
+    rule = src[src.index("int items_per_thread(int n_slots) {"):]
+    rule = rule[:rule.index("return kv; }")]
+    assert rule.endswith("int kv = 8; while (kv > 1 && "
+                         "static_cast<size_t>(n_slots) * kv * kLThreads * "
+                         "sizeof(int32_t) > kSlotBytes) kv /= 2; "), rule
+    entry = src[src.index("int strela_fabric_stream("):]
+    for mark in ("const int kv = items_per_thread(n_slots);",
+                 "const long long tile = static_cast<long long>(kLThreads) "
+                 "* kv;",
+                 "p.n_units = (length + tile - 1) / tile;"):
+        assert mark in entry, mark
+
+
+@pytest.mark.parametrize("n_slots,want", [
+    (1, (8, 2048)), (3, (8, 2048)), (8, (8, 2048)), (9, (4, 1024)),
+    (14, (4, 1024)), (16, (4, 1024)), (17, (2, 512)), (32, (2, 512)),
+    (33, (1, 256)), (64, (1, 256)),
+])
+def test_stream_geometry(n_slots, want):
+    assert fs.stream_geometry(n_slots) == want
+
+
+def test_stream_tables_of_the_timed_cases():
+    # relu and vadd: 3 slots, a 2048-element tile; fft_butterfly: 14 slots
+    # and 18 rows, a 1024-element tile
+    for g, rows, slots, tile in ((K.relu(), 4, 3, 2048),
+                                 (K.vadd(), 4, 3, 2048),
+                                 (K.fft_butterfly(), 18, 14, 1024)):
+        prog = fs.lower(g)
+        assert (len(prog.table), prog.n_slots) == (rows, slots), g.name
+        assert fs.stream_geometry(prog.n_slots)[1] == tile
 
 
 def _ins(g, n_lanes, length, seed=0):
