@@ -63,7 +63,22 @@ every output bit-exact against ``backend="sim"`` and the eager function,
 the multi-shot tally equal to sim's, the torch loop kernels refused with
 a ``CapabilityError`` naming their feature, then each kernel's trace+key,
 cold compile and warm call times and the device's idle share over 20 warm
-calls. It exits non-zero,
+calls; (12, after (11)) the model-layer mix of ``repro_torch.workloads``
+served on ``Engine(backend="cuda")``: (a) a virtual-clock soak at length
+4096 (seed 0, 256 requests at load 2.0 of the calibrated model-mix
+capacity, the registry's arrival weights), the SSM classes dropped by
+name, every answer bit-exact against its class's oracle and the executor,
+at least one preemption, both digests equal to the same soak on the CPU,
+and (b) a warm wall-clock ``Server`` answering 256 model requests, timed,
+then profiled for the device's idle share; (13) ``repro_torch.fleet``:
+three ``"cuda"`` fabrics over the 11 classes ``"cuda"`` serves (256
+requests at length 4096, ``f1`` scripted to die 40% through the
+arrivals), with no failed request, a drain, every request accounted for,
+both digests equal to the same fleet on the CPU and the results digest
+equal to one engine serving the same stream request by request; its wall
+time, launches and the device's idle share. Phases 5, 11, 12 and 13 set
+the counts to 0 before their runs and read them after, and allow no
+plain call, fold or failed lane grid there. It exits non-zero,
 printing no result line, when there is no CUDA device, when the port is
 missing, or when any phase fails. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -1490,6 +1505,264 @@ def phase_frontend(device):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the model-layer mix, repro_torch.serve on Engine(backend="cuda")
+# ---------------------------------------------------------------------------
+
+# the SSM recurrences need loop state on the fabric, which "cuda" lacks
+MODEL_SKIPS = {"ssm_scan": "loop-state",
+               "ssm_relax": "loop-state+recirculation"}
+
+
+def check_oracles(tickets, classes, label):
+    """Every served model-class answer bit-exact against its oracle."""
+    import numpy as np
+    from repro_torch.workloads import MODEL_CLASSES
+    by_name = {a.name: lb for lb, a in classes.items()}
+    for tk in tickets:
+        wc = MODEL_CLASSES[by_name[tk.artifact.name]]
+        for i, want in enumerate(wc.oracle(**tk.inputs)):
+            check(np.array_equal(np.ravel(tk.outputs[f"out{i}"]),
+                                 np.ravel(want)),
+                  f"{label}: request {tk.rid} ({wc.label}) out{i} != "
+                  f"its oracle")
+
+
+def idle_share_line(prof, what):
+    if not prof["by_name"]:
+        return (f"{what}: device idle share not measured (the profiler "
+                f"recorded no device activity)")
+    check(any("lane_kernel" in k for k in prof["by_name"]),
+          f"{what}: the profiler saw no lane kernel: {list(prof['by_name'])}")
+    top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:4]
+    return (f"{what}: wall {prof['wall_s']:.4f} s, device busy "
+            f"{prof['busy_s'] * 1e3:.4f} ms, device idle share "
+            f"{1 - prof['busy_s'] / prof['wall_s']:.5f}; device ms by name "
+            f"{({k: round(v / 1e3, 4) for k, v in top})}")
+
+
+def phase_model_serve(device, length=SERVE_LENGTH, n=SERVE_REQUESTS,
+                      load=SERVE_LOAD):
+    """(a) a virtual-clock soak of the model-layer mix on the card, held to
+    the classes' oracles and to the same soak on the CPU; (b) a warm
+    wall-clock ``Server`` answering one client's model requests, timed,
+    then profiled."""
+    import numpy as np
+    import torch
+    from repro_torch import bench_serve
+    from repro_torch.serve import (ServeConfig, make_labeled_requests,
+                                   request_inputs, serve_classes)
+    from repro_torch.workloads import model_weights
+    print(f"[model] card: {nvidia_smi()}")
+
+    # (a) the soak: seed 0, load 2.0 of the cuda model-mix capacity, with
+    # the registry's arrival weights
+    t0 = time.perf_counter()
+    mean_us = bench_serve.calibrate("cuda", length, device=device,
+                                    mix="model")
+    t_cal = time.perf_counter() - t0
+    skipped = {}
+    serve_classes(bench_serve.fresh_engine("cuda", device), length,
+                  mix="model", skipped=skipped)
+    check(skipped == MODEL_SKIPS, f"model mix skipped {skipped}, expected "
+                                  f"{MODEL_SKIPS}")
+    kw = dict(seed=SEED, n_requests=n, length=length, backend="cuda",
+              rate_per_us=load / mean_us, mix="model")
+    reset_fabric_counts()
+    t0 = time.perf_counter()
+    serve, rep = bench_serve.soak(device=device, **kw)
+    torch.cuda.synchronize()
+    t_soak = time.perf_counter() - t0
+    counts = fabric_counts()
+    st = serve.engine.stats
+    check_serve_path(counts, st, rep, "model soak")
+    check(serve.engine.device == device,
+          f"model soak engine on {serve.engine.device}")
+    check(rep["oracle_checked"] == rep["served"] > 0 and
+          rep["oracle_mismatches"] == 0,
+          f"model soak: {rep['oracle_mismatches']} of "
+          f"{rep['oracle_checked']} answers differ from their oracles "
+          f"({rep['served']} served)")
+    check(rep["preemptions"] >= 1, "model soak: no preemption of the "
+                                   "multi-shot swiglu_ms plan")
+    check_served(serve.served, "model soak")
+    _, cpu = bench_serve.soak(device="cpu", **kw)
+    for k in ("served", "rejected", "failed", "preemptions",
+              "oracle_checked", "trace_digest", "results_digest"):
+        check(rep[k] == cpu[k], f"model soak {k}: card {rep[k]} != cpu "
+                                f"{cpu[k]}")
+    lat = rep["latency"]
+    print(f"[model] (a) virtual-clock soak, model mix at length {length}, "
+          f"seed {SEED}, {n} requests at load {load} of the cuda capacity "
+          f"({mean_us:.4f} us a request, {kw['rate_per_us']:.6f} "
+          f"requests/us, calibrated in {t_cal:.3f} s); skipped {skipped}: "
+          f"served {rep['served']}, rejected {rep['rejected']}, failed "
+          f"{rep['failed']}, preemptions {rep['preemptions']}, batches "
+          f"{rep['batches']} {rep['close_reasons']}; virtual p50 "
+          f"{lat['p50_us']:.2f} us, p99 {lat['p99_us']:.2f} us; engine "
+          f"{st.requests} requests, {st.lane_batches} lane grids "
+          f"({st.lane_requests} lanes); kernels {counts}; host wall "
+          f"{t_soak:.3f} s; {rep['oracle_checked']} answers bit-exact "
+          f"against their oracles and the executor; trace "
+          f"{rep['trace_digest'][:16]} results {rep['results_digest'][:16]} "
+          f"== the cpu run's")
+
+    # (b) the wall-clock Server on a warm engine: one request per class
+    # first records each class's timing trace, then n model requests
+    eng = bench_serve.fresh_engine("cuda", device)
+    classes = serve_classes(eng, length, mix="model")
+    rng = np.random.default_rng(SEED + 12)
+    cfg = ServeConfig(queue_capacity=n)
+    first = [(0.0, label, request_inputs(classes[label], length, rng,
+                                         label=label))
+             for label in sorted(classes)]
+    _, first_tickets, first_wall = serve_session(eng, classes, first, cfg)
+    check_oracles(first_tickets, classes, "first model session")
+    reqs = make_labeled_requests(classes, np.zeros(n), length, rng,
+                                 weights=model_weights())
+    reset_fabric_counts()
+    srv, tickets, wall = serve_session(eng, classes, reqs, cfg)
+    torch.cuda.synchronize()
+    server_counts = fabric_counts()
+    wrep = srv.core.report()
+    check(wrep["served"] == n and wrep["rejected"] == 0,
+          f"model server answered {wrep['served']} of {n}: {wrep}")
+    check_serve_path(server_counts, eng.stats, wrep, "model server")
+    check_oracles(tickets, classes, "model server")
+    wlat = wrep["latency"]
+    units = wrep["batches"] + sum(ev[0] == "resume" for ev in srv.core.trace)
+    print(f"[model] (b) Server under WallClock, one client thread, on a "
+          f"warm engine (first session, one request per class: "
+          f"{first_wall:.4f} s): {n} model-mix requests at length {length}, "
+          f"{n} answered, bit-exact against their oracles; wall "
+          f"{wall:.4f} s, {n / wall:.1f} requests/s; wall latency p50 "
+          f"{wlat['p50_us']:.1f} us, p99 {wlat['p99_us']:.1f} us; batches "
+          f"{wrep['batches']} {wrep['close_reasons']}, preemptions "
+          f"{wrep['preemptions']}, {units} dispatch units (batches and "
+          f"resumes), {wall / units * 1e3:.3f} ms of wall a unit; kernels "
+          f"{server_counts}")
+    out = []
+    prof = profile_run(lambda: out.append(
+        serve_session(eng, classes, reqs, cfg)))
+    check(out[0][0].core.report()["served"] == n, "profiled model server")
+    check_oracles(out[0][1], classes, "profiled model server")
+    print("[model] (b) " + idle_share_line(prof, "profiled Server session"))
+    print(f"[model] card: {nvidia_smi()}")
+    return {"soak": counts, "server": server_counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the multi-fabric fleet, repro_torch.fleet on "cuda" fabrics
+# ---------------------------------------------------------------------------
+
+# every class a "cuda" fabric serves: the paper mix without div_loop and
+# the model mix without the SSM recurrences (a loop class makes an
+# all-"cuda" fleet refuse to start, by name)
+FLEET_CLASSES = ("relu", "vadd", "fft", "mac1", "axpby_ms", "attn_score",
+                 "ln_affine", "moe_gate", "silu_q", "softmax_den",
+                 "swiglu_ms")
+FLEET_FABRICS = 3
+FLEET_LOAD = 1.0        # offered load per fabric, in calibrated capacities
+FLEET_FAIL_AT = 0.4     # f1 dies this far through the expected arrivals
+
+
+def phase_fleet(device, length=SERVE_LENGTH, n=SERVE_REQUESTS):
+    """A three-fabric ``"cuda"`` fleet soak on the card with ``f1``
+    scripted to die part-way through the arrivals: accounting, the
+    executor and the oracles, both digests equal to the same fleet on the
+    CPU, and the results digest equal to one engine serving the same
+    stream request by request. Then its wall time and idle share."""
+    import numpy as np
+    import torch
+    from repro_torch import bench_serve
+    from repro_torch.engine import ArtifactCache
+    from repro_torch.fleet import fleet_soak, fleet_workload, homogeneous
+    from repro_torch.serve import serve_classes
+    from repro_torch.workloads import MODEL_CLASSES, model_weights
+    print(f"[fleet] card: {nvidia_smi()}")
+    mean_us = bench_serve.calibrate("cuda", length, device=device, mix="all")
+    rate = FLEET_FABRICS * FLEET_LOAD / mean_us
+    fail_us = round(FLEET_FAIL_AT * n / rate, 3)
+    weights = tuple(sorted((l, w) for l, w in model_weights().items()
+                           if l in FLEET_CLASSES))
+    cfg = homogeneous(FLEET_FABRICS, backend="cuda", length=length,
+                      n_requests=n, rate_per_us=rate, classes=FLEET_CLASSES,
+                      weights=weights, fail_at=(("f1", fail_us),))
+
+    def soak(dev):
+        return fleet_soak(SEED, cfg, cache=ArtifactCache(memory_only=True),
+                          device=dev)
+
+    reset_fabric_counts()
+    t0 = time.perf_counter()
+    fleet, rep = soak(device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fabric_counts()
+    check(all(w.engine.device == device for w in fleet.workers),
+          f"fleet engines on {[str(w.engine.device) for w in fleet.workers]}")
+    check(rep["failed"] == 0, f"fleet: {rep['failed']} failed")
+    check(rep["dead"] == ["f1"] and rep["drained"] > 0,
+          f"fleet: dead {rep['dead']}, drained {rep['drained']}")
+    check(rep["unroutable"] == 0 and rep["offered"] == n ==
+          rep["served"] + rep["rejected"] + rep["failed"],
+          f"fleet: requests lost: {rep}")
+    check(counts["plain"] == 0 and counts["fold_kernel"] == 0,
+          f"fleet: a plain version or a fold on the card's path: {counts}")
+    check(counts["lane_kernel"] > 0, f"fleet: no lane kernel: {counts}")
+    check(all(w.engine.stats.lane_batch_failures == 0
+              for w in fleet.workers), "fleet: a lane grid failed")
+    served = fleet.served_tickets()
+    check_served(served, "fleet")
+    model = [tk for tk in served if fleet._rid_label[tk.rid] in MODEL_CLASSES]
+    for tk in model:
+        wc = MODEL_CLASSES[fleet._rid_label[tk.rid]]
+        for i, want in enumerate(wc.oracle(**tk.inputs)):
+            check(np.array_equal(np.ravel(tk.outputs[f"out{i}"]),
+                                 np.ravel(want)),
+                  f"fleet: request {tk.rid} ({wc.label}) out{i} != oracle")
+    cpu_fleet, cpu = soak("cpu")
+    for k in ("served", "rejected", "drained", "steals", "trace_digest"):
+        check(rep[k] == cpu[k], f"fleet {k}: card {rep[k]} != cpu {cpu[k]}")
+    digest = fleet.results_digest()
+    check(digest == cpu_fleet.results_digest(),
+          "fleet results digest: card != cpu")
+
+    # the single-engine oracle: the same fleet_workload stream, one
+    # Engine.run a request on one engine on the card, outputs swapped in
+    oracle = bench_serve.fresh_engine("cuda", device)
+    arts = serve_classes(oracle, length, mix="all")
+    stream = fleet_workload(SEED, cfg)
+    for tk in served:
+        _, label, ins = stream[tk.rid]
+        check(label == fleet._rid_label[tk.rid], f"rid {tk.rid}: label")
+        tk.outputs = oracle.run(arts[label], ins)
+    check(fleet.results_digest() == digest,
+          "fleet results digest != the single-engine oracle's")
+    lat = rep["latency"]
+    busy = {w: round(f["utilization"], 4)
+            for w, f in rep["per_fabric"].items()}
+    print(f"[fleet] {FLEET_FABRICS} cuda fabrics, {len(FLEET_CLASSES)} "
+          f"classes at length {length}, seed {SEED}, {n} requests at "
+          f"{rate:.6f} requests/us ({FLEET_LOAD} of the calibrated "
+          f"{mean_us:.4f} us a request, per fabric), f1 dies at "
+          f"{fail_us} us: served {rep['served']}, rejected "
+          f"{rep['rejected']}, failed {rep['failed']}, steals "
+          f"{rep['steals']}, drained {rep['drained']}; virtual p50 "
+          f"{lat['p50_us']:.2f} us, p99 {lat['p99_us']:.2f} us; modelled "
+          f"utilization {busy}; placements {rep['placements']}; kernels "
+          f"{counts}; soak wall {wall:.3f} s (cost probes, place & route "
+          f"and first-shot cycle simulation included); {len(served)} "
+          f"answers bit-exact against the executor ({len(model)} also "
+          f"against their oracles); trace {rep['trace_digest'][:16]} and "
+          f"results {digest[:16]} == the cpu run's; results == the "
+          f"single-engine oracle's")
+    prof = profile_run(lambda: soak(device))
+    print("[fleet] " + idle_share_line(prof, "profiled fleet soak"))
+    print(f"[fleet] card: {nvidia_smi()}")
+    return counts
+
+
 def nvidia_smi() -> str:
     try:
         out = subprocess.run(
@@ -1534,6 +1807,9 @@ def main() -> int:
     for path in serve_launches.values():
         launches["fabric_reduce_lanes"] += path["lane_kernel"]
     launches["fabric_reduce_lanes"] += phase_frontend(device)["lane_kernel"]
+    for path in phase_model_serve(device).values():
+        launches["fabric_reduce_lanes"] += path["lane_kernel"]
+    launches["fabric_reduce_lanes"] += phase_fleet(device)["lane_kernel"]
     rows = phase_times(device)
     phase_profile(device)
     dense_errs = phase_dense_parity(device)

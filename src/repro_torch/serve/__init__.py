@@ -16,8 +16,10 @@ Two front ends over one deterministic state machine:
     wall clock (real always-on operation).
 
 On ``Engine(backend="cuda")`` every served batch runs through the CUDA
-lane kernel on the engine's device. The paper mix is served; the
-model-layer mix raises by name until the workloads are ported.
+lane kernel on the engine's device. Both mixes are served: the paper
+mix and the model-layer mix of ``repro_torch.workloads`` (``mix="model"``,
+or ``"all"`` for both); a class the backend cannot lower is dropped with
+a named reason.
 """
 from repro_torch.serve.clock import VirtualClock, WallClock
 from repro_torch.serve.health import LivenessProbe

@@ -15,13 +15,10 @@ Arrival processes:
 
 Workload construction: :func:`serve_classes` compiles a request-class mix
 on a caller's engine — the paper mix (short streaming kernels, a
-reduction, a multi-shot plan, an irregular loop); :func:`make_requests`
-assigns a seeded class choice + input streams to each arrival time. The
-reference's model-layer mix (``mix="model"``, the transformer/SSM/MoE
-classes of ``repro.workloads``) and ``mix="all"`` need the torch frontend
-and a port of the workloads, neither of which exists yet: every entry
-point that would reach them raises :class:`NotImplementedError` naming
-what is missing.
+reduction, a multi-shot plan, an irregular loop), the model-layer mix
+(``mix="model"``, the transformer/SSM/MoE classes of
+``repro_torch.workloads``), or both (``mix="all"``); :func:`make_requests`
+assigns a seeded class choice + input streams to each arrival time.
 
 Backend eligibility has ONE source of truth: every mix flows through
 :func:`mix_recipes` + :func:`recipe_skip_reason` (which defers to
@@ -38,18 +35,6 @@ import numpy as np
 
 from repro_torch.core import dfg as D
 from repro_torch.core import kernels_lib as K
-
-# the labels of the reference's model-layer mix (``repro.workloads``
-# ``MODEL_MIX``), known here so that they are refused by name
-MODEL_MIX: Tuple[str, ...] = (
-    "attn_score", "ln_affine", "moe_gate", "silu_q", "softmax_den",
-    "ssm_relax", "ssm_scan", "swiglu_ms")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs the model-layer workloads and the torch frontend, "
-        f"which repro_torch does not have yet; serve mix='paper'")
 
 
 def poisson_arrival_times(rng: np.random.Generator, n: int,
@@ -85,10 +70,10 @@ def class_recipes(length: int, include_loops: bool = True,
     """The standard serve workload mix as uncompiled recipes:
     ``{label: (dfg_builder, compile_kwargs)}``.
 
-    The indirection exists for the multi-fabric fleet (``repro.fleet`` in
-    the reference, not ported yet): each fabric worker compiles the same
-    recipes against its *own* geometry, and a recipe whose compile fails
-    on a small fabric (e.g. ``div_loop`` needs a 4x4) marks the class
+    The indirection exists for the multi-fabric fleet
+    (``repro_torch.fleet``): each fabric worker compiles the same recipes
+    against its *own* geometry, and a recipe whose compile fails on a
+    small fabric (e.g. ``div_loop`` needs a 4x4) marks the class
     infeasible there instead of killing the whole mix."""
     recipes: Dict[str, tuple] = {
         "relu": (K.relu, {}),
@@ -107,19 +92,31 @@ def mix_recipes(length: int, mix: str = "paper",
                 include_loops: bool = True,
                 include_multishot: bool = True) -> Dict[str, tuple]:
     """Uncompiled recipes of a named class mix — ``"paper"`` (the 6
-    standard classes above). The reference's ``"model"`` (the
-    transformer/SSM/MoE layer classes) and ``"all"`` (both) raise
-    :class:`NotImplementedError` by name until the workloads are ported.
+    standard classes above), ``"model"`` (the transformer/SSM/MoE layer
+    classes of ``repro_torch.workloads``), or ``"all"`` (both; the
+    namespace the fleet resolves arbitrary ``FleetConfig.classes``
+    against).
 
-    A recipe factory returns a ready :class:`~repro_torch.core.dfg.DFG`
-    (paper classes); in the reference it may also return a Python function
-    for the frontend to trace (model classes)."""
+    A recipe factory returns either a ready
+    :class:`~repro_torch.core.dfg.DFG` (paper classes) or a Python function
+    for ``repro_torch.frontend`` to trace (model classes) —
+    :func:`compile_recipe` dispatches on the result."""
     if mix == "paper":
         return class_recipes(length, include_loops=include_loops,
                              include_multishot=include_multishot)
-    if mix in ("model", "all"):
-        raise _not_ported(f"mix={mix!r} (model classes "
-                          f"{', '.join(MODEL_MIX)})")
+    from repro_torch.workloads import model_recipes
+    if mix == "model":
+        return model_recipes(length)
+    if mix == "all":
+        merged = class_recipes(length, include_loops=include_loops,
+                               include_multishot=include_multishot)
+        models = model_recipes(length)
+        clash = sorted(set(merged) & set(models))
+        if clash:
+            raise ValueError(f"model class labels collide with the paper "
+                             f"mix: {clash}")
+        merged.update(models)
+        return merged
     raise ValueError(f"unknown mix {mix!r}; expected 'paper', 'model' "
                      f"or 'all'")
 
@@ -127,8 +124,7 @@ def mix_recipes(length: int, mix: str = "paper",
 def compile_recipe(engine, label: str, length: int,
                    recipes: Dict[str, tuple]):
     """Compile one recipe on ``engine`` — a DFG-returning factory compiles
-    directly, a traced-function factory gets the stream ``length`` (and the
-    port's compiler refuses it by name until the torch frontend exists)."""
+    directly, a traced-function factory gets the stream ``length``."""
     fn, kw = recipes[label]
     obj = fn()
     if isinstance(obj, D.DFG):
@@ -156,8 +152,8 @@ def recipe_skip_reason(label: str, length: int, backend: str,
         fn, _ = recipes[label]
         obj = fn()
         if not isinstance(obj, D.DFG):
-            raise _not_ported(f"recipe {label!r} (a function to trace, not "
-                              f"a DFG)")
+            from repro_torch.frontend import trace
+            obj = trace(obj, length)
         _SKIP_MEMO[key] = backend_skip_reason(obj, length, backend)
     return _SKIP_MEMO[key]
 
@@ -194,8 +190,8 @@ def serve_classes(engine, length: int,
     short streaming kernels (relu/vadd/fft — the latency-sensitive class),
     a reduction (mac1), a multi-shot plan (axpby under ``pe_limit=1`` —
     the preemptible long request), and an irregular loop (div_loop,
-    data-dependent trip count). ``mix="model"`` and ``mix="all"`` raise
-    by name (see :func:`mix_recipes`).
+    data-dependent trip count). ``mix="model"`` compiles the
+    transformer/SSM/MoE layer classes of ``repro_torch.workloads`` instead.
 
     Classes the engine's backend cannot lower are dropped with a *named*
     reason (collected into ``skipped`` when given) via
@@ -220,9 +216,10 @@ def serve_classes(engine, length: int,
 def model_classes(engine, length: int,
                   skipped: Optional[Dict[str, str]] = None
                   ) -> Dict[str, object]:
-    """Compile the model-layer workload mix on ``engine`` — the
-    realistic-traffic sibling of :func:`serve_classes`. Raises
-    :class:`NotImplementedError` by name until the workloads are ported."""
+    """Compile the model-layer workload mix (``repro_torch.workloads``) on
+    ``engine`` — the realistic-traffic sibling of :func:`serve_classes`.
+    Backend-ineligible classes are dropped with named reasons into
+    ``skipped`` (e.g. the SSM recurrences on ``"cuda"``)."""
     return serve_classes(engine, length, mix="model", skipped=skipped)
 
 
@@ -230,15 +227,19 @@ def request_inputs(artifact, length: int, rng: np.random.Generator,
                    label: Optional[str] = None) -> Dict[str, np.ndarray]:
     """Seeded input streams for one request.
 
-    A model-layer class (``label`` in :data:`MODEL_MIX`) would draw from
-    its registered per-stream ranges; until the workloads are ported it
-    raises by name. Every other label takes the generic convention
+    A model-layer class (``label`` in the ``repro_torch.workloads``
+    registry) draws from its registered per-stream ranges — fixed-point
+    kernels need operands inside their Q-format envelope for the
+    int32-exact oracle contract. Otherwise the generic convention applies
     (recirculating kernels get the positive operand range the loop
-    semantics require), drawing from ``rng`` exactly as the reference
-    does, so the same seed gives the same request stream in both
-    packages."""
-    if label in MODEL_MIX:
-        raise _not_ported(f"request_inputs for model class {label!r}")
+    semantics require). Either way ``rng`` is consumed exactly as the
+    reference consumes it, so the same seed gives the same request stream
+    in both packages."""
+    if label is not None:
+        from repro_torch.workloads import workload_input_gen
+        gen = workload_input_gen(label)
+        if gen is not None:
+            return gen(length, rng)
     g = artifact.dfg
     lo, hi = (1, 100) if g.has_recirculation() else (-64, 64)
     return {name: rng.integers(lo, hi, length).astype(np.int32)

@@ -458,3 +458,58 @@ def test_offload_cuda_matches_sim_on_the_card(cuda, name, fn, n_in):
         np.testing.assert_array_equal(g, w)
     if kc.last.n_shots > 1:
         assert kc.last.tally == ks.last.tally
+
+
+def test_cuda_model_mix_soak_matches_the_cpu_run(cuda):
+    """A virtual-clock soak of the model-layer mix on the card: the SSM
+    classes dropped by name, every batch and shot through the lane kernel
+    (no fold, no plain version), every response equal to its oracle, and
+    digests equal to the same soak on the CPU."""
+    from repro_torch import bench_serve as pb
+    length = 512
+    mean_us = pb.calibrate("cuda", length, device="cpu", mix="model")
+    kw = dict(seed=0, n_requests=48, length=length, backend="cuda",
+              rate_per_us=2.0 / mean_us, mix="model")
+    launches, plain, folds = fr.launches, fr.plain_calls, fr.fold_launches
+    serve, rep = pb.soak(**kw)
+    torch.cuda.synchronize()
+    assert serve.engine.device.type == "cuda"
+    assert fr.launches > launches and fr.plain_calls == plain
+    assert fr.fold_launches == folds
+    assert serve.engine.stats.lane_batch_failures == 0
+    assert rep["failed"] == 0 and rep["served"] > 0
+    assert rep["oracle_checked"] == rep["served"]
+    assert rep["oracle_mismatches"] == 0
+    assert not {tk.artifact.name for tk in serve.served} & {"ssm_scan",
+                                                           "ssm_relax"}
+    _, cpu = pb.soak(device="cpu", **kw)
+    for k in ("served", "rejected", "preemptions", "trace_digest",
+              "results_digest"):
+        assert rep[k] == cpu[k], k
+
+
+def test_cuda_fleet_matches_the_cpu_run(cuda):
+    """Two ``"cuda"`` fabrics on the card, one failing mid-soak, over
+    paper and model classes: the lane kernel launched and its plain
+    version never, and the report and digests equal to the same fleet on
+    the CPU."""
+    from repro_torch.engine import ArtifactCache
+    from repro_torch.fleet import fleet_soak, homogeneous
+    cfg = homogeneous(2, backend="cuda", length=512, n_requests=40,
+                      rate_per_us=0.05,
+                      classes=("relu", "mac1", "attn_score", "moe_gate",
+                               "swiglu_ms"),
+                      fail_at=(("f1", 300.0),))
+    launches, plain = fr.launches, fr.plain_calls
+    fleet, rep = fleet_soak(3, cfg, cache=ArtifactCache(memory_only=True))
+    torch.cuda.synchronize()
+    assert all(w.engine.device.type == "cuda" for w in fleet.workers)
+    assert fr.launches > launches and fr.plain_calls == plain
+    assert rep["failed"] == 0 and rep["dead"] == ["f1"]
+    assert rep["offered"] == rep["served"] + rep["rejected"]
+    cpu_fleet, cpu = fleet_soak(3, cfg, cache=ArtifactCache(memory_only=True),
+                                device="cpu")
+    for k in ("served", "rejected", "drained", "steals", "latency",
+              "trace_digest"):
+        assert rep[k] == cpu[k], k
+    assert fleet.results_digest() == cpu_fleet.results_digest()

@@ -29,6 +29,11 @@ def _port_modules():
 def test_port_imports_neither_jax_nor_the_reference():
     mods = _port_modules()
     assert "repro_torch.kernels.fabric_reduce" in mods
+    # named, so that dropping either subpackage fails here
+    for m in ("repro_torch.workloads", "repro_torch.fleet"):
+        assert m in mods, m
+        mods.remove(m)
+    mods = ["repro_torch.workloads", "repro_torch.fleet"] + mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -652,38 +652,42 @@ def test_report_steady_window_bounds_the_service_span():
 
 
 # ---------------------------------------------------------------------------
-# the model-layer mix is not ported: refused by name, nothing imported
+# the model-layer mix: served, and what cannot be served refused by name
 # ---------------------------------------------------------------------------
 
-def test_model_mix_and_model_labels_raise_by_name():
-    """``mix="model"``/``"all"`` and a model label in ``request_inputs``
-    raise ``NotImplementedError`` naming what is missing, before any
-    import is tried; a paper label still takes the generic streams."""
+def test_model_mix_and_model_labels_raise_by_name(monkeypatch):
+    """``mix="model"``/``"all"`` compile the model-layer classes; an
+    unknown mix, a label collision and a traced recipe the frontend cannot
+    lower each raise naming what is wrong; a model label draws its
+    registered streams and a paper label the generic ones."""
+    from repro_torch.frontend import UnsupportedPrimitiveError
     from repro_torch.serve import load, mix_recipes, model_classes
+    from repro_torch.workloads import MODEL_CLASSES, MODEL_MIX, registry
     engine = _engine()
     relu = engine.compile(K.relu())
-    before = set(sys.modules)
-    for mix in ("model", "all"):
-        with pytest.raises(NotImplementedError,
-                           match=f"mix='{mix}'.*workloads"):
-            mix_recipes(LENGTH, mix)
-        with pytest.raises(NotImplementedError, match=f"mix='{mix}'"):
-            serve_classes(engine, LENGTH, mix=mix)
-    with pytest.raises(NotImplementedError, match="mix='model'"):
-        model_classes(engine, LENGTH)
-    for label in load.MODEL_MIX:
-        rng = np.random.default_rng(0)
-        with pytest.raises(NotImplementedError,
-                           match=f"model class '{label}'"):
-            request_inputs(relu, LENGTH, rng, label=label)
-        assert rng.integers(1 << 30) == \
-            np.random.default_rng(0).integers(1 << 30), "rng consumed"
-    with pytest.raises(NotImplementedError, match="'traced'.*not a DFG"):
-        load.recipe_skip_reason("traced", LENGTH, "cuda",
-                                {"traced": (lambda: (lambda x: x), {})})
-    with pytest.raises(ValueError, match="unknown mix"):
+    assert sorted(mix_recipes(LENGTH, "model")) == list(MODEL_MIX)
+    assert set(mix_recipes(LENGTH, "all")) == \
+        set(mix_recipes(LENGTH, "paper")) | set(MODEL_MIX)
+    assert sorted(model_classes(engine, LENGTH)) == list(MODEL_MIX)
+    with pytest.raises(ValueError, match="unknown mix 'paper\\+model'"):
         mix_recipes(LENGTH, "paper+model")
-    assert set(sys.modules) == before, sorted(set(sys.modules) - before)
+    with monkeypatch.context() as m:
+        m.setitem(registry.MODEL_CLASSES, "vadd",
+                  registry.MODEL_CLASSES["ln_affine"])
+        with pytest.raises(ValueError, match=r"collide.*\['vadd'\]"):
+            mix_recipes(LENGTH, "all")
+    with pytest.raises(UnsupportedPrimitiveError, match="sort"):
+        load.recipe_skip_reason("traced", LENGTH, "cuda",
+                                {"traced": (lambda: (lambda x: x.sort()[0]),
+                                            {})})
+    for label in MODEL_MIX:
+        got = request_inputs(relu, LENGTH, np.random.default_rng(0),
+                             label=label)
+        want = MODEL_CLASSES[label].gen_inputs(LENGTH,
+                                               np.random.default_rng(0))
+        assert list(got) == list(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
     want = request_inputs(relu, LENGTH, np.random.default_rng(1))
     got = request_inputs(relu, LENGTH, np.random.default_rng(1),
                          label="relu")

@@ -125,7 +125,9 @@ def test_cuda_skips_exactly_what_pallas_skips(length):
 
 
 def test_model_mix_labels_match_reference_registry():
-    assert pload.MODEL_MIX == REF_MODEL_MIX
+    from repro_torch.workloads import MODEL_MIX
+    assert MODEL_MIX == REF_MODEL_MIX
+    assert sorted(pload.mix_recipes(64, "model")) == list(REF_MODEL_MIX)
 
 
 def test_request_streams_match_reference():
