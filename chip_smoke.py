@@ -76,7 +76,18 @@ requests at length 4096, ``f1`` scripted to die 40% through the
 arrivals), with no failed request, a drain, every request accounted for,
 both digests equal to the same fleet on the CPU and the results digest
 equal to one engine serving the same stream request by request; its wall
-time, launches and the device's idle share. Phases 5, 11, 12 and 13 set
+time, launches and the device's idle share; (14) the LM serving path,
+``repro_torch.launch.serve_lm`` on minicpm-2b: (a) the flash kernel
+against its plain version at the model's attention shapes (144 heads of
+64, one query against 1, 17 and 49 keys, and sq = sk = 1024), (b) the
+model at full width cut to 2 layers, its prefill and decode logits on the
+card within the reference's decode tolerance of the same parameters on
+the CPU, (c) the full 40-layer model serving batch 4 x (32 + 16) tokens
+through ``serve_lm.main``, with exactly one flash launch per layer and
+step and no plain call, its tokens in the vocabulary and its logits
+finite, timed, and (d) the device's idle share over 8 profiled decode
+steps and the flash kernel's time at the decode shape and at 1024 beside
+its plain version, its bound and SDPA. Phases 5, 11, 12, 13 and 14 set
 the counts to 0 before their runs and read them after, and allow no
 plain call, fold or failed lane grid there. It exits non-zero,
 printing no result line, when there is no CUDA device, when the port is
@@ -1763,6 +1774,185 @@ def phase_fleet(device, length=SERVE_LENGTH, n=SERVE_REQUESTS):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the LM serving path, repro_torch.launch.serve_lm on the card
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "minicpm-2b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 32, 16      # serve_lm's defaults
+# (sq, sk) of the flash kernel on that path: one query against 1..48
+# cached keys while serving (49 is the caches' length), sq = sk for a
+# prefill
+LM_FLASH_SHAPES = ((1, 1), (1, 17), (1, 49), (1024, 1024))
+LM_TIMED = ((1, 49), (1024, 1024))
+# the reference's decode tolerance (tests/test_models.py:73-75): the same
+# bfloat16 model on the card and on the CPU sums in other orders
+LM_TOL = 3e-2
+LM_PROFILED_STEPS = 8
+
+
+def phase_lm(device):
+    """(a) the flash kernel at minicpm-2b's attention shapes against its
+    plain version; (b) minicpm-2b at full width cut to 2 layers, on the
+    card and on the CPU from the same parameters; (c) the full 40-layer
+    model through ``serve_lm.main`` with the flash counts read around it;
+    (d) the device's idle share over profiled decode steps, and the flash
+    kernel's time at the decode shape and at sq = sk = 1024 beside its
+    plain version, its bound and SDPA on the same inputs."""
+    import copy
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+    cfg = get_arch(LM_ARCH)
+    h, d = LM_BATCH * cfg.n_heads, cfg.hd
+    rng = np.random.default_rng(SEED + 14)
+    print(f"[lm] card: {nvidia_smi()}")
+
+    # (a) the kernel at the model's shapes
+    cases, err = {}, 0.0
+    for sq, sk in LM_FLASH_SHAPES:
+        q = normal(rng, (h, sq, d), device)
+        k, v = (normal(rng, (h, sk, d), device) for _ in range(2))
+        e = close(fa.attention_kernel(q, k, v, True),
+                  fa.attention_plain(q, k, v, True), 3e-5, 3e-5,
+                  f"flash_attention h={h} sq={sq} sk={sk} d={d}")
+        cases[sq, sk], err = (q, k, v), max(err, e)
+    print(f"[lm] (a) flash_kernel against its plain version on the card at "
+          f"h={h}, d={d}, causal, (sq, sk) in {LM_FLASH_SHAPES}: max abs "
+          f"err {err} (limit 3e-5)")
+
+    # (b) full width, 2 layers: the card against the CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    api2 = build_model(cfg2)
+    cpu_params = api2.init_params(torch.Generator().manual_seed(SEED))
+    runs = {}
+    prompt = rng.integers(0, cfg.vocab, (LM_BATCH, 8)).astype(np.int32)
+    for label, params in (("cpu", cpu_params),
+                          ("card", copy.deepcopy(cpu_params).to(device))):
+        toks = torch.from_numpy(prompt).to(params.embed.device)
+        with torch.inference_mode():
+            logits, state = api2.prefill(params, {"tokens": toks[:, :4],
+                                                  "max_len": 8})
+            runs[label] = [logits] + [
+                api2.decode_step(params, state, toks[:, t:t + 1], t)[0]
+                for t in range(4, 8)]
+    check(all(x.device.type == device.type for x in runs["card"]),
+          "the 2-layer model's logits are not on the card")
+    errs = [close(g.cpu(), c, LM_TOL, LM_TOL,
+                  f"{LM_ARCH} 2 layers, step {i}: card != CPU")
+            for i, (g, c) in enumerate(zip(runs["card"], runs["cpu"]))]
+    print(f"[lm] (b) {LM_ARCH} at full width cut to 2 layers ({cfg.dtype}): "
+          f"prefill of 4 tokens and 4 decode steps on the card against the "
+          f"CPU from the same parameters: max abs err per step {errs} "
+          f"(limit {LM_TOL} + {LM_TOL} |logit|)")
+    del cpu_params, runs
+    torch.cuda.empty_cache()
+
+    # (c) the full model through serve_lm.main: every count at 0 just
+    # before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.plain_calls = 0
+    t0 = time.perf_counter()
+    res = serve_lm.main(["--arch", LM_ARCH, "--batch", str(LM_BATCH),
+                         "--prompt-len", str(LM_PROMPT), "--gen",
+                         str(LM_GEN), "--seed", str(SEED),
+                         "--device", str(device)])
+    wall = time.perf_counter() - t0
+    launches, plain = fa.launches, fa.plain_calls
+    tokens, logits = res["tokens"], res["logits"]
+    want = cfg.n_layers * (LM_PROMPT + LM_GEN)
+    check(tokens.shape == (LM_BATCH, LM_GEN) and tokens.min() >= 0
+          and tokens.max() < cfg.vocab, f"serve_lm tokens out of the "
+          f"vocab or misshapen: {tokens.shape}")
+    check(logits.device.type == device.type and logits.shape == (
+        LM_BATCH, cfg.vocab_padded) and bool(torch.isfinite(
+            logits[:, :cfg.vocab].float()).all()),
+          "serve_lm's last logits are not finite on the card")
+    check(launches == want and plain == 0,
+          f"serve_lm: flash launches {launches} (want {cfg.n_layers} "
+          f"layers x {LM_PROMPT + LM_GEN} steps = {want}), plain calls "
+          f"{plain} (want 0)")
+    n_params = sum(p.numel() for p in res["params"].parameters())
+    print(f"[lm] (c) serve_lm.main --arch {LM_ARCH} ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads x {d}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab} padded to {cfg.vocab_padded}; "
+          f"{n_params} parameters in {cfg.dtype}), batch {LM_BATCH}, prompt "
+          f"{LM_PROMPT}, gen {LM_GEN}, seed {SEED}: prefill "
+          f"{res['prefill_s']:.4f} s ({res['prefill_s'] / LM_PROMPT * 1e3:.3f}"
+          f" ms/step), decode {res['ms_per_token']:.4f} ms/token/batch; "
+          f"call wall {wall:.3f} s with the weights' init; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; flash "
+          f"launches {launches}, plain calls {plain}; row 0 "
+          f"{tokens[0].tolist()}")
+
+    # (d) the device's idle share over decode steps at the last positions
+    # (they rewrite positions 40..47 of the caches)
+    api, params, state = res["api"], res["params"], res["state"]
+    cur = torch.argmax(logits, -1)[:, None]
+    first = LM_PROMPT + LM_GEN - LM_PROFILED_STEPS
+
+    def steps():
+        with torch.inference_mode():
+            for i in range(LM_PROFILED_STEPS):
+                api.decode_step(params, state, cur, first + i)
+    steps()
+    prof = profile_run(steps)
+    if prof["by_name"]:
+        check(any("flash_kernel" in n for n in prof["by_name"]),
+              f"the profiler saw no flash kernel: {list(prof['by_name'])}")
+        top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:6]
+        print(f"[lm] (d) {LM_PROFILED_STEPS} profiled decode steps: wall "
+              f"{prof['wall_s']:.4f} s "
+              f"({prof['wall_s'] / LM_PROFILED_STEPS * 1e3:.3f} ms/step), "
+              f"device busy {prof['busy_s'] * 1e3:.4f} ms, device idle "
+              f"share {1 - prof['busy_s'] / prof['wall_s']:.5f}; device ms "
+              f"by name {({n: round(v / 1e3, 4) for n, v in top})}; "
+              f"launches recorded {sum(prof['count'].values())}")
+    else:
+        print("[lm] (d) device idle share not measured (the profiler "
+              "recorded no device activity)")
+    del res, api, params, state, logits
+    torch.cuda.empty_cache()
+
+    rows = {}
+    for sq, sk in LM_TIMED:
+        q, k, v = cases[sq, sk]
+        # SDPA's is_causal aligns the mask to the first key; with one
+        # query the end-aligned mask hides nothing, so it runs unmasked
+        library = lambda q=q, k=k, v=v, c=sq == sk: (  # noqa: E731
+            F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                           is_causal=c)[0])
+        e_lib = close(library(), fa.attention_plain(q, k, v, True), 1e-4,
+                      1e-4, f"SDPA at sq={sq} sk={sk} is another function")
+        pairs = h * sum(min(sk, sk - sq + i + 1) for i in range(sq))
+        b_ms, b_by = dense_bound(4 * h * d * (2 * sq + 2 * sk), 4 * d * pairs,
+                                 FP32_FLOP_PER_S)
+        kernel = lambda q=q, k=k, v=v: fa.attention_kernel(  # noqa: E731
+            q, k, v, True)
+        ms = time_ms(kernel)
+        plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, True),
+                           reps=5, warm=1)
+        library_ms = time_ms(library)
+        kernel()
+        dev = per_launch(profile_run(lambda: [kernel() for _ in range(5)]))
+        rows[sq, sk] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=library_ms)
+        print(f"[lm-times] flash_attention causal f32 h={h} sq={sq} sk={sk} "
+              f"d={d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+              f"{library_ms:.4f} ms (max abs err against plain {e_lib}), "
+              f"bound {b_ms:.5f} ms ({b_by}), share of bound "
+              f"{b_ms / ms:.3f}, kernel / SDPA {ms / library_ms:.3f}; "
+              f"profiler device ms per launch (launches recorded of 5) "
+              f"{dev or 'not measured'}")
+    print(f"[lm] card: {nvidia_smi()}")
+    decode = rows[LM_TIMED[0]]
+    return dict(decode, launches=launches, max_abs_err=err)
+
+
 def nvidia_smi() -> str:
     try:
         out = subprocess.run(
@@ -1815,6 +2005,8 @@ def main() -> int:
     dense_errs = phase_dense_parity(device)
     dense_launches, path_errs, ins = phase_dense_path(device)
     dense_rows = phase_dense_times(ins)
+    del ins
+    lm_row = phase_lm(device)
 
     from repro_torch.bench_kernels import ROTATE
     main_rows = {"fabric_reduce_lanes": (
@@ -1852,6 +2044,14 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    kernels.append({
+        "name": "flash_attention lm decode", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:68",
+        "launches": lm_row["launches"],
+        "max_abs_err": lm_row["max_abs_err"], "ms": lm_row["ms"],
+        "plain_ms": lm_row["plain_ms"], "bound_ms": lm_row["bound_ms"],
+        "bound_by": lm_row["bound_by"], "library_ms": lm_row["library_ms"]})
     print(nvidia_smi())                  # name, power limit: a line alone
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

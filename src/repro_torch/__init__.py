@@ -12,12 +12,25 @@ port module names the reference module it is held against:
                           and the multi-shot partitioner
   repro_torch.engine    — compile -> artifact -> ``Engine``; backends
                           ``"sim"`` and ``"cuda"``
+  repro_torch.serve     — the always-on kernel serving loop (virtual and
+                          wall clocks, admission, preemption)
+  repro_torch.runtime   — liveness: heartbeats and the health monitor
+  repro_torch.workloads — model-layer compute as served request classes
+  repro_torch.fleet     — N fabrics behind one router, with fault-drain
   repro_torch.kernels   — hand-written CUDA kernels for Hopper
                           (``csrc/*.cu``: the fabric interpreter,
                           stream_matmul, stream_conv2d, flash_attention),
                           their plain PyTorch versions, and the ``ops``
                           entry point
-  repro_torch.convert   — reference DFGs and inputs into the port's types
+  repro_torch.configs   — the architecture registry (``ArchConfig``, the
+                          ten LM configs, the STRELA SoC)
+  repro_torch.models    — the dense LM family (layers, transformer,
+                          ``build_model``), its attention on the flash
+                          kernel
+  repro_torch.launch    — ``serve_lm``: prefill and greedy decode with KV
+                          caches
+  repro_torch.convert   — reference DFGs, inputs and LM parameters into
+                          the port's types
 
 The port imports ``torch``, never ``jax`` and nothing of ``repro``.
 """

@@ -1,4 +1,4 @@
-"""Carry DFGs and inputs across from the reference package.
+"""Carry DFGs, inputs and LM parameters across from the reference package.
 
 The port's counterpart of loading weights: a reference ``repro.core.dfg.DFG``
 (a ``kernels_lib`` kernel, a conformance-corpus case, a traced graph) is
@@ -7,11 +7,18 @@ Nothing here imports ``repro``: the reference graph is duck-typed, and each
 op is mapped by its enum *name*, so the two packages' enums never mix.
 
 Inputs need no conversion: both packages take numpy int32 streams.
+
+LM parameters arrive as the reference's parameter tree with numpy leaves
+(``jax.device_get``; bfloat16 leaves are ``ml_dtypes.bfloat16`` arrays).
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from repro_torch.core import dfg as D
 from repro_torch.core.isa import AluOp, CmpOp
+from repro_torch.models.transformer import Transformer
 
 
 def _op(kind: str, op):
@@ -36,3 +43,28 @@ def dfg_from_reference(g) -> D.DFG:
     out.validate()
     return out
 
+
+def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    # through float32, which holds every bfloat16 value exactly
+    return torch.from_numpy(np.array(a, np.float32)).to(device=device,
+                                                          dtype=dtype)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_reference(tree, cfg, device="cuda"):
+    """Rebuild a reference dense-transformer parameter tree (the output of
+    ``repro.models.api.build_model(cfg).init_params``) as the port's
+    ``Transformer``: the leading-L layer stacks are unstacked into one
+    block each, every leaf cast to ``cfg``'s dtype on ``device``."""
+    dt = cfg.torch_dtype
+    out = {k: _tensor(v, dt, device) for k, v in tree.items()
+           if k != "layers"}
+    out["layers"] = [_map(tree["layers"], lambda a, i=i: _tensor(a[i], dt,
+                                                                  device))
+                     for i in range(cfg.n_layers)]
+    return Transformer(cfg, out)

@@ -108,9 +108,9 @@ class EngineStats:
         ``<prefix>*`` gauges (no-op when obs is disabled).
 
         The default prefix keeps the single-engine metric names; a fleet
-        (``repro.fleet`` in the reference, not ported yet) publishes each
-        fabric worker's stats under ``fleet.<fabric>.engine.`` so N engines
-        never collide on one gauge."""
+        (``repro_torch.fleet``) publishes each fabric worker's stats under
+        ``fleet.<fabric>.engine.`` so N engines never collide on one
+        gauge."""
         registry = registry if registry is not None else obs.registry()
         if registry is None:
             return

@@ -1,0 +1,76 @@
+"""Unified model API: one bundle per architecture family (counterpart of
+``repro.models.api``; the dense family so far).
+
+For a dense arch:
+  * ``init_params(generator)``                    (on the generator's device)
+  * ``loss(params, batch)``                       (training forward)
+  * ``prefill(params, batch)``                    (build decode state)
+  * ``decode_step(params, state, tokens, len)``   (one new token, KV cache)
+
+Batch layout: ``{tokens (B, S), targets (B, S)}`` integer tensors, and for
+``prefill`` an optional ``max_len``. ``cache_len`` is a Python int. The
+reference's ``input_specs``/``state_specs`` serve its multi-pod dry run
+and come with ``launch/dryrun``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer
+from repro_torch.models.layers import mask_padded_vocab, xent_loss
+
+# the families still to port, each with the reference module it needs
+PENDING = {"moe": "models/moe.py", "vlm": "the patch embeddings",
+           "ssm": "models/ssm.py", "hybrid": "models/hybrid.py",
+           "audio": "models/encdec.py"}
+
+
+@dataclasses.dataclass
+class ModelAPI:
+    cfg: ArchConfig
+    init_params: Callable                # (generator) -> params
+    loss: Callable                       # (params, batch) -> (loss, aux)
+    prefill: Callable                    # (params, batch) -> (logits, state)
+    decode_step: Callable                # (params, state, tokens, cache_len)
+
+
+def build_model(cfg: ArchConfig) -> ModelAPI:
+    if cfg.family == "dense":
+        return _build_transformer(cfg)
+    if cfg.family in PENDING:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the {cfg.family} builder "
+            f"({PENDING[cfg.family]}) {transformer.PENDING}")
+    raise ValueError(cfg.family)
+
+
+def _build_transformer(cfg: ArchConfig) -> ModelAPI:
+    def loss(params, batch):
+        logits, _, aux = transformer.forward(params, cfg, batch["tokens"])
+        return xent_loss(logits, batch["targets"], cfg.vocab) + aux, aux
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        """The last position's logits, *unmasked* as in the reference, and
+        the caches (``max_len`` long, default the prompt's length)."""
+        B, S = batch["tokens"].shape
+        caches = transformer.init_caches(cfg, B, batch.get("max_len", S),
+                                         device=params.embed.device)
+        logits, caches, _ = transformer.forward(
+            params, cfg, batch["tokens"], caches=caches, cache_len=0)
+        return logits[:, -1], caches
+
+    @torch.no_grad()
+    def decode_step(params, state, tokens, cache_len: int):
+        """Logits of the last new token with the padded vocab masked, and
+        the caches (updated in place)."""
+        logits, state, _ = transformer.forward(
+            params, cfg, tokens, caches=state, cache_len=cache_len)
+        return mask_padded_vocab(logits[:, -1], cfg.vocab), state
+
+    return ModelAPI(cfg, lambda gen: transformer.init_params(gen, cfg),
+                    loss, prefill, decode_step)

@@ -513,3 +513,52 @@ def test_cuda_fleet_matches_the_cpu_run(cuda):
               "trace_digest"):
         assert rep[k] == cpu[k], k
     assert fleet.results_digest() == cpu_fleet.results_digest()
+
+
+# the LM serving path (chip_smoke.py phase 14): minicpm-2b serves batch 4,
+# so attention runs 4 x 36 = 144 heads at d = 64, one query against the
+# 1..48 cached keys while decoding and sq = sk for a prefill
+@pytest.mark.parametrize("sq,sk", [(1, 1), (1, 17), (1, 49), (1024, 1024)])
+def test_flash_attention_at_the_lm_shapes(cuda, sq, sk):
+    rng = np.random.default_rng(sq * sk)
+    q = _normal(rng, (144, sq, 64), cuda)
+    k, v = (_normal(rng, (144, sk, 64), cuda) for _ in range(2))
+    got = fa.attention_kernel(q, k, v, True)
+    want = fa.attention_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+
+
+def test_serve_lm_at_full_width_launches_flash_per_layer_and_step(cuda):
+    """minicpm-2b at full width, cut to 2 layers, serving batch 4 x (32 +
+    16) tokens on the card: one flash launch per layer and decode step and
+    no plain call; the tokens in the vocab, the logits finite, and the
+    first step's logits within the reference's decode tolerance of the
+    same parameters on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model, transformer
+    cfg = dataclasses.replace(get_arch("minicpm-2b"), n_layers=2)
+    api = build_model(cfg)
+    params = api.init_params(torch.Generator().manual_seed(0))
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 32)).astype(np.int32))
+    cpu_logits, _ = api.decode_step(
+        params, transformer.init_caches(cfg, 4, 49, device="cpu"),
+        prompt[:, :1], 0)
+    params, prompt = params.to(cuda), prompt.to(cuda)
+    first, _ = api.decode_step(
+        params, transformer.init_caches(cfg, 4, 49, device=cuda),
+        prompt[:, :1], 0)
+    torch.testing.assert_close(first.cpu().float(), cpu_logits.float(),
+                               atol=3e-2, rtol=3e-2)
+    launches, plain = fa.launches, fa.plain_calls
+    with torch.inference_mode():
+        res = serve_lm.generate(api, params, prompt, 16)
+    assert fa.launches - launches == 2 * (32 + 16)
+    assert fa.plain_calls == plain
+    assert res["tokens"].shape == (4, 16)
+    assert res["tokens"].min() >= 0 and res["tokens"].max() < cfg.vocab
+    assert res["logits"].device.type == "cuda"
+    assert bool(torch.isfinite(res["logits"].float()).all())

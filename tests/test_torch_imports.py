@@ -29,11 +29,14 @@ def _port_modules():
 def test_port_imports_neither_jax_nor_the_reference():
     mods = _port_modules()
     assert "repro_torch.kernels.fabric_reduce" in mods
-    # named, so that dropping either subpackage fails here
-    for m in ("repro_torch.workloads", "repro_torch.fleet"):
+    # named, so that dropping any of these subpackages fails here
+    named = ["repro_torch.workloads", "repro_torch.fleet",
+             "repro_torch.configs", "repro_torch.models",
+             "repro_torch.launch.serve_lm"]
+    for m in named:
         assert m in mods, m
         mods.remove(m)
-    mods = ["repro_torch.workloads", "repro_torch.fleet"] + mods
+    mods = named + mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

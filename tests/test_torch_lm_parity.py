@@ -1,0 +1,213 @@
+"""The port's dense LM (``repro_torch.models``) against the JAX reference
+(``repro.models``) on the CPU, from the reference's own parameters
+(``api.init_params(PRNGKey(0))``, carried over by
+``repro_torch.convert.lm_params_from_reference``) and the same numpy
+tokens: ``transformer.forward``, ``api.loss``, ``api.prefill`` and
+``api.decode_step`` on the reduced dense archs, in float32 and bfloat16,
+with ``attention_impl`` "full" and "chunked" (a chunk below the sequence,
+so the reference's chunked branch runs; the port takes one path).
+
+Tolerances: float32 logits within 2e-4 and the loss within 1e-5
+relative; prefill and decode attend over the KV caches, which are
+bfloat16 in both packages whatever the config's dtype, so a float32
+k or v that rounds the other way there moves the logits: 3e-2 (the
+reference's own decode tolerance, ``tests/test_models.py:73-75``), as
+for everything in bfloat16. Then one test per reference quirk the port
+keeps."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_arch as ref_arch
+from repro.models import transformer as RT
+from repro.models.api import build_model as ref_build
+from repro_torch.configs.base import get_arch
+from repro_torch.convert import lm_params_from_reference
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.api import build_model
+
+DENSE = ["minicpm-2b", "qwen1.5-4b", "yi-9b", "internlm2-20b"]
+B, S, MAX_LEN, STEPS = 2, 16, 20, 3
+CHUNK = 8                      # below S: the reference's chunked branch runs
+LOOSE = dict(atol=3e-2, rtol=3e-2)
+TOL = {("float32", "forward"): dict(atol=2e-4, rtol=2e-4),
+       ("float32", "loss"): dict(atol=0.0, rtol=1e-5)}
+
+
+def _pair(arch, **kw):
+    """The reference's and the port's reduced config, with ``kw``."""
+    return (dataclasses.replace(ref_arch(arch).reduced(), **kw),
+            dataclasses.replace(get_arch(arch).reduced(), **kw))
+
+
+def _params(rcfg, pcfg):
+    rp = ref_build(rcfg).init_params(jax.random.PRNGKey(0))
+    return rp, lm_params_from_reference(jax.device_get(rp), pcfg, "cpu")
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _run(arch, dtype, impl):
+    rcfg, pcfg = _pair(arch, dtype=dtype, attention_impl=impl,
+                       attention_chunk=CHUNK)
+    rapi, papi = ref_build(rcfg), build_model(pcfg)
+    rp, pp = _params(rcfg, pcfg)
+    rng = np.random.default_rng(len(arch))
+    toks = rng.integers(0, rcfg.vocab, (B, S + STEPS)).astype(np.int32)
+    prompt, tgt = toks[:, :S], rng.integers(0, rcfg.vocab, (B, S))
+    tgt = tgt.astype(np.int32)
+    out = {}
+    with torch.no_grad():
+        out["forward"] = (RT.forward(rp, rcfg, tokens=jnp.asarray(prompt))[0],
+                          T.forward(pp, pcfg, torch.from_numpy(prompt))[0])
+        out["loss"] = (
+            rapi.loss(rp, {"tokens": jnp.asarray(prompt),
+                           "targets": jnp.asarray(tgt)})[0],
+            papi.loss(pp, {"tokens": torch.from_numpy(prompt),
+                           "targets": torch.from_numpy(tgt)})[0])
+    rl, rs = rapi.prefill(rp, {"tokens": jnp.asarray(prompt),
+                               "max_len": MAX_LEN})
+    pl, ps = papi.prefill(pp, {"tokens": torch.from_numpy(prompt),
+                               "max_len": MAX_LEN})
+    out["prefill"] = (rl, pl)
+    decode = jax.jit(rapi.decode_step)
+    rsteps, psteps = [], []
+    for t in range(S, S + STEPS):
+        tok = toks[:, t:t + 1]
+        rl, rs = decode(rp, rs, jnp.asarray(tok), jnp.asarray(t, jnp.int32))
+        pl, ps = papi.decode_step(pp, ps, torch.from_numpy(tok), t)
+        rsteps.append(rl)
+        psteps.append(pl)
+    out["decode"] = (jnp.stack(rsteps, 1), torch.stack(psteps, 1))
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs():
+    done = {}
+
+    def get(arch, dtype, impl):
+        if (arch, dtype, impl) not in done:
+            done[arch, dtype, impl] = _run(arch, dtype, impl)
+        return done[arch, dtype, impl]
+    return get
+
+
+@pytest.mark.parametrize("what", ["forward", "loss", "prefill", "decode"])
+@pytest.mark.parametrize("impl", ["full", "chunked"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_port_matches_the_reference(runs, arch, dtype, impl, what):
+    ref, got = runs(arch, dtype, impl)[what]
+    assert tuple(got.shape) == tuple(ref.shape)
+    assert got.dtype == (torch.bfloat16 if dtype == "bfloat16"
+                         and what != "loss" else torch.float32)
+    np.testing.assert_allclose(_f32(got), _f32(ref),
+                               **TOL.get((dtype, what), LOOSE))
+
+
+def test_decode_matches_the_full_forward():
+    """The port's own cache check, as ``tests/test_models.py:53`` makes it
+    for the reference: decoding token by token equals the causal forward."""
+    cfg = get_arch("yi-9b").reduced()
+    api = build_model(cfg)
+    params = api.init_params(torch.Generator().manual_seed(1))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 12)).astype(np.int32))
+    with torch.no_grad():
+        full = T.forward(params, cfg, toks)[0]
+    state = T.init_caches(cfg, 2, 14, device="cpu")
+    got = []
+    for t in range(12):
+        logits, state = api.decode_step(params, state, toks[:, t:t + 1], t)
+        got.append(logits)
+    np.testing.assert_allclose(_f32(torch.stack(got, 1)), _f32(full), **LOOSE)
+
+
+# ---------------------------------------------------------------------------
+# the reference's quirks, kept
+# ---------------------------------------------------------------------------
+
+def test_bf16_cache_in_a_float32_config():
+    """``init_caches`` defaults to bfloat16 and nothing passes a dtype, so
+    a float32 model attends over bf16-rounded k and v. With those caches
+    the port meets the reference to float32 rounding; with float32 caches
+    it would not."""
+    rcfg, pcfg = _pair("minicpm-2b", dtype="float32")
+    rp, pp = _params(rcfg, pcfg)
+    toks = np.random.default_rng(0).integers(0, rcfg.vocab, (2, 8))
+    toks = toks.astype(np.int32)
+    ref, _ = ref_build(rcfg).prefill(rp, {"tokens": jnp.asarray(toks),
+                                          "max_len": 12})
+    assert T.init_caches(pcfg, 2, 12, device="cpu")[0].dtype == torch.bfloat16
+    got, state = build_model(pcfg).prefill(pp, {"tokens": torch.from_numpy(
+        toks), "max_len": 12})
+    assert state[0].dtype == state[1].dtype == torch.bfloat16
+    assert got.dtype == torch.float32
+    f32_caches = T.init_caches(pcfg, 2, 12, dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        wide = T.forward(pp, pcfg, torch.from_numpy(toks), f32_caches)[0]
+    err = np.abs(_f32(got) - _f32(ref)).max()
+    err_wide = np.abs(_f32(wide[:, -1]) - _f32(ref)).max()
+    assert err < 1e-5 and err_wide > 1e-4, (err, err_wide)
+
+
+def test_kv_heads_are_repeated_not_tiled():
+    """``jnp.repeat(k, group, axis=2)``: each kv head ``group`` times in a
+    row, as ``repeat_interleave`` gives and ``Tensor.repeat`` does not."""
+    x = np.arange(2 * 3 * 2 * 4, dtype=np.float32).reshape(2, 3, 2, 4)
+    got = L.repeat_kv(torch.from_numpy(x), 2).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jnp.repeat(x, 2, axis=2)))
+    assert not np.array_equal(got, np.tile(x, (1, 1, 2, 1)))
+    cfg = get_arch("yi-9b").reduced()
+    assert cfg.n_heads // cfg.n_kv_heads == 2     # the parity runs' GQA case
+
+
+def test_minicpm_scales_its_tied_embedding():
+    """``x * sqrt(d_model)`` after the lookup, only for tied embeddings and
+    an ``arch_id`` starting with "minicpm": the same weights under another
+    name give other logits, and the port follows the reference in both."""
+    rcfg, pcfg = _pair("minicpm-2b", dtype="float32")
+    tree = jax.device_get(ref_build(rcfg).init_params(jax.random.PRNGKey(0)))
+    toks = np.random.default_rng(2).integers(0, rcfg.vocab, (2, 6))
+    toks = toks.astype(np.int32)
+    logits = {}
+    for name in ("minicpm-2b", "llama-like"):
+        rc = dataclasses.replace(rcfg, arch_id=name)
+        pc = dataclasses.replace(pcfg, arch_id=name)
+        pp = lm_params_from_reference(tree, pc, "cpu")
+        ref = RT.forward(tree, rc, tokens=jnp.asarray(toks))[0]
+        with torch.no_grad():
+            got = T.forward(pp, pc, torch.from_numpy(toks))[0]
+        np.testing.assert_allclose(_f32(got), _f32(ref), atol=2e-4,
+                                   rtol=2e-4)
+        logits[name] = _f32(got)
+    assert np.abs(logits["minicpm-2b"] - logits["llama-like"]).max() > 0.1
+
+
+def test_prefill_logits_are_unmasked():
+    """``prefill`` returns ``logits[:, -1]`` with the padded vocab columns
+    as they are; ``decode_step`` masks them to -1e30."""
+    rcfg, pcfg = _pair("yi-9b", dtype="float32", vocab=250)
+    assert pcfg.vocab_padded == 256
+    rp, pp = _params(rcfg, pcfg)
+    toks = np.random.default_rng(3).integers(0, 250, (2, 5)).astype(np.int32)
+    ref, _ = ref_build(rcfg).prefill(rp, {"tokens": jnp.asarray(toks)})
+    api = build_model(pcfg)
+    got, state = api.prefill(pp, {"tokens": torch.from_numpy(toks),
+                                  "max_len": 6})
+    pad = _f32(got)[:, 250:]
+    assert np.all(np.isfinite(pad)) and np.all(np.abs(pad) < 1e3)
+    np.testing.assert_allclose(pad, _f32(ref)[:, 250:], **LOOSE)
+    dec, _ = api.decode_step(pp, state, torch.from_numpy(toks[:, :1]), 5)
+    assert np.all(_f32(dec)[:, 250:] <= -1e29)
+    assert np.all(_f32(dec)[:, :250] > -1e29)
