@@ -87,9 +87,27 @@ through ``serve_lm.main``, with exactly one flash launch per layer and
 step and no plain call, its tokens in the vocabulary and its logits
 finite, timed, and (d) the device's idle share over 8 profiled decode
 steps and the flash kernel's time at the decode shape and at 1024 beside
-its plain version, its bound and SDPA. Phases 5, 11, 12, 13 and 14 set
-the counts to 0 before their runs and read them after, and allow no
-plain call, fold or failed lane grid there. It exits non-zero,
+its plain version, its bound and SDPA; (15) the MoE and vlm LM paths
+(``repro_torch.models.moe``): (a) the MoE layer at granite-moe-3b-a800m's
+widths (D 1536, F 512, 40 experts top-8, bf16) on the card against the
+CPU at 4 and 128 tokens (C = 1 and 32): the same routing, outputs within
+the decode tolerance, two card runs bit-identical, no host sync under
+sync-debug "error", the share of routed pairs dropped; (b) granite at full
+width cut to 2 layers, decode steps on the card against the CPU from the
+same parameters, each batch row compared up to its first routing flip
+(read with ``route`` by a forward pre-hook), a flip accepted only where
+the CPU's top-k margin is under 1e-4; (c) the full 32-layer granite
+through ``serve_lm.main`` with exactly one flash launch per layer and
+step and no plain call; (d) 8 profiled decode steps: idle share, kernel
+launches a layer split into its attention and MoE parts, the top device
+operations, and the host syncs of one step under sync-debug "warn";
+(e) internvl2-76b (``api.prefill`` of 256 patches + 32 tokens, flash at
+d = 128, sq = sk = 288) and llama4-scout-17b-a16e (4 decode steps) at
+full width cut to 2 layers; and the flash kernel at granite's decode
+shape and internvl2's prefill shape against its plain version, timed
+beside it, its bound and SDPA. Phases 5, 11, 12, 13, 14 and 15 set the
+counts to 0 before their runs and read them after, and allow no plain
+call, fold or failed lane grid there. It exits non-zero,
 printing no result line, when there is no CUDA device, when the port is
 missing, or when any phase fails. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -849,12 +867,18 @@ def phase_times(device, gemm=(200, 220, 240), per_class=256, length=4096):
     return rows
 
 
+# the record_function ranges that phase 15 (d) opens around each layer
+# and its MoE part
+RANGES = ("strela_layer", "strela_moe")
+
+
 def profile_run(fn):
     """Run ``fn`` under ``torch.profiler``; return the wall time, the time
     the device was busy (union of kernel and copy intervals), the device
     time per kernel name and the launches recorded per name (in a long
     process the profiler may record fewer launches than were made, so a
-    time per launch divides by this count, never by the calls made)."""
+    time per launch divides by this count, never by the calls made), and
+    the profiler's events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -864,9 +888,12 @@ def profile_run(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    events = prof.events()
     spans, by_name, count = [], {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+    for e in events:
+        # a record_function range shows on the device's timeline too
+        if e.device_type == DeviceType.CUDA and not (
+                getattr(e, "is_user_annotation", False) or e.name in RANGES):
             spans.append((e.time_range.start, e.time_range.end))
             name = e.name.replace("(anonymous namespace)::", "")
             name = name.removeprefix("void ").split("(")[0].strip()
@@ -881,7 +908,7 @@ def profile_run(fn):
             busy += t - end
             end = t
     return {"wall_s": wall, "busy_s": busy / 1e6, "by_name": by_name,
-            "count": count}
+            "count": count, "events": events}
 
 
 def per_launch(prof):
@@ -1791,6 +1818,42 @@ LM_TOL = 3e-2
 LM_PROFILED_STEPS = 8
 
 
+def time_flash(q, k, v, tag):
+    """The flash kernel's events time on (q, k, v), causal, beside its
+    plain version's, SDPA's on the same inputs (checked to compute the
+    same function) and the bound; the profiler's device time per launch."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    h, sq, d = q.shape
+    sk = k.shape[1]
+    # SDPA's is_causal aligns the mask to the first key; with one
+    # query the end-aligned mask hides nothing, so it runs unmasked
+    library = lambda c=sq == sk: (  # noqa: E731
+        F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                       is_causal=c)[0])
+    e_lib = close(library(), fa.attention_plain(q, k, v, True), 1e-4,
+                  1e-4, f"SDPA at sq={sq} sk={sk} is another function")
+    pairs = h * sum(min(sk, sk - sq + i + 1) for i in range(sq))
+    b_ms, b_by = dense_bound(4 * h * d * (2 * sq + 2 * sk), 4 * d * pairs,
+                             FP32_FLOP_PER_S)
+    kernel = lambda: fa.attention_kernel(q, k, v, True)  # noqa: E731
+    ms = time_ms(kernel)
+    plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, True),
+                       reps=5, warm=1)
+    library_ms = time_ms(library)
+    kernel()
+    dev = per_launch(profile_run(lambda: [kernel() for _ in range(5)]))
+    print(f"[{tag}] flash_attention causal f32 h={h} sq={sq} sk={sk} "
+          f"d={d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+          f"{library_ms:.4f} ms (max abs err against plain {e_lib}), "
+          f"bound {b_ms:.5f} ms ({b_by}), share of bound "
+          f"{b_ms / ms:.3f}, kernel / SDPA {ms / library_ms:.3f}; "
+          f"profiler device ms per launch (launches recorded of 5) "
+          f"{dev or 'not measured'}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
+
+
 def phase_lm(device):
     """(a) the flash kernel at minicpm-2b's attention shapes against its
     plain version; (b) minicpm-2b at full width cut to 2 layers, on the
@@ -1802,7 +1865,6 @@ def phase_lm(device):
     import copy
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve_lm
@@ -1918,39 +1980,426 @@ def phase_lm(device):
     del res, api, params, state, logits
     torch.cuda.empty_cache()
 
-    rows = {}
-    for sq, sk in LM_TIMED:
-        q, k, v = cases[sq, sk]
-        # SDPA's is_causal aligns the mask to the first key; with one
-        # query the end-aligned mask hides nothing, so it runs unmasked
-        library = lambda q=q, k=k, v=v, c=sq == sk: (  # noqa: E731
-            F.scaled_dot_product_attention(q[None], k[None], v[None],
-                                           is_causal=c)[0])
-        e_lib = close(library(), fa.attention_plain(q, k, v, True), 1e-4,
-                      1e-4, f"SDPA at sq={sq} sk={sk} is another function")
-        pairs = h * sum(min(sk, sk - sq + i + 1) for i in range(sq))
-        b_ms, b_by = dense_bound(4 * h * d * (2 * sq + 2 * sk), 4 * d * pairs,
-                                 FP32_FLOP_PER_S)
-        kernel = lambda q=q, k=k, v=v: fa.attention_kernel(  # noqa: E731
-            q, k, v, True)
-        ms = time_ms(kernel)
-        plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, True),
-                           reps=5, warm=1)
-        library_ms = time_ms(library)
-        kernel()
-        dev = per_launch(profile_run(lambda: [kernel() for _ in range(5)]))
-        rows[sq, sk] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=library_ms)
-        print(f"[lm-times] flash_attention causal f32 h={h} sq={sq} sk={sk} "
-              f"d={d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-              f"{library_ms:.4f} ms (max abs err against plain {e_lib}), "
-              f"bound {b_ms:.5f} ms ({b_by}), share of bound "
-              f"{b_ms / ms:.3f}, kernel / SDPA {ms / library_ms:.3f}; "
-              f"profiler device ms per launch (launches recorded of 5) "
-              f"{dev or 'not measured'}")
+    rows = {(sq, sk): time_flash(*cases[sq, sk], "lm-times")
+            for sq, sk in LM_TIMED}
     print(f"[lm] card: {nvidia_smi()}")
     decode = rows[LM_TIMED[0]]
     return dict(decode, launches=launches, max_abs_err=err)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the MoE and vlm LM paths (repro_torch.models.moe) on the card
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-3b-a800m"
+# the MoE layer's tokens per call: granite's decode at batch 4 (C = 1) and
+# a 128-token prefill (C = 32)
+MOE_TOKENS = (4, 128)
+# card and CPU may route a token apart only where the CPU's k-th and
+# (k+1)-th probabilities nearly tie
+MOE_FLIP_MARGIN = 1e-4
+MOE_PROMPT, MOE_DECODE = 8, 4            # (b): decode steps on 2 layers
+VLM_ARCH, VLM_BATCH, VLM_TEXT = "internvl2-76b", 2, 32
+SCOUT_ARCH, SCOUT_BATCH, SCOUT_STEPS = "llama4-scout-17b-a16e", 4, 4
+
+
+def moved(tree, device):
+    return {k: moved(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def capture_routing(params, record):
+    """A forward pre-hook on each layer's MoE module: ``route`` on the
+    layer's input, kept on the host as (layer, probs, gate_idx)."""
+    from repro_torch.models import moe as M
+    for i, block in enumerate(params.layers):
+        def hook(mod, args, i=i):
+            probs, _, idx = M.route(mod, mod.spec, args[0])
+            record.append((i, probs.cpu(), idx.cpu()))
+        block.moe.register_forward_pre_hook(hook)
+
+
+def first_flips(cpu_rec, card_rec, n_rows, k):
+    """Walk the routing of both runs call by call (steps, then layers).
+    A row whose chosen experts differ is where the runs part: that row and
+    every later one (the capacity's positions run by token) are not
+    compared from that step on. Returns each row's first step apart (None
+    where never) and the flips with the CPU's top-k margin."""
+    apart, flips = [None] * n_rows, []
+    n_layers = 1 + max(rec[0] for rec in cpu_rec)
+    for call, ((layer, probs, ci), (_, _, gi)) in enumerate(
+            zip(cpu_rec, card_rec)):
+        step = call // n_layers
+        # a row's routing in this call depends on its own input only, so
+        # every row not yet apart is checked before any is set apart
+        flipped = [b for b in range(n_rows) if apart[b] is None
+                   and not same_experts(ci[b], gi[b])]
+        for b in flipped:
+            top = probs[b].sort(descending=True).values
+            flips.append((step, layer, b, float(top[k - 1] - top[k])))
+        for r in range(min(flipped, default=n_rows), n_rows):
+            if apart[r] is None:
+                apart[r] = step
+    return apart, flips
+
+
+def same_experts(a, b):
+    """One token's chosen experts, as sets: an order swap inside the top-k
+    changes nothing downstream."""
+    import torch
+    return torch.equal(a.sort().values, b.sort().values)
+
+
+def launches_in(events, names):
+    """Kernel launches (runtime calls named ``*LaunchKernel*``) made
+    inside each ``record_function`` range of ``names`` and in all."""
+    import bisect
+    from torch.autograd import DeviceType
+    spans = {n: [] for n in names}
+    calls = []
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name in spans:
+            spans[e.name].append((e.time_range.start, e.time_range.end))
+        elif "LaunchKernel" in e.name:
+            calls.append(e.time_range.start)
+    counts = {}
+    for n, ranges in spans.items():
+        ranges.sort()
+        starts = [a for a, _ in ranges]
+        counts[n] = sum(1 for t in calls
+                        if (i := bisect.bisect_right(starts, t) - 1) >= 0
+                        and t <= ranges[i][1])
+    counts["all"] = len(calls)
+    return counts
+
+
+def mark_ranges(params):
+    """``record_function`` ranges around each layer and each MoE layer,
+    opened and closed by forward hooks."""
+    import torch
+    open_ranges = []
+
+    def enter(name):
+        def pre(mod, args):
+            rf = torch.profiler.record_function(name)
+            rf.__enter__()
+            open_ranges.append(rf)
+        return pre
+
+    def leave(mod, args, out):
+        open_ranges.pop().__exit__(None, None, None)
+    handles = []
+    for block in params.layers:
+        for mod, name in zip((block, block.moe), RANGES):
+            handles.append(mod.register_forward_pre_hook(enter(name)))
+            handles.append(mod.register_forward_hook(leave))
+    return handles
+
+
+def phase_moe(device):
+    """(a) the MoE layer at granite's widths, card against CPU; (b) granite
+    at full width cut to 2 layers, card against CPU up to each row's first
+    routing flip; (c) the full 32-layer granite through ``serve_lm.main``
+    with the flash counts read around it; (d) a profile of 8 decode steps
+    with the launches a layer split into attention and MoE, and the host
+    syncs of one step; (e) internvl2-76b's prefill and llama4-scout's
+    decode at full width cut to 2 layers; the flash kernel's times at
+    granite's decode shape and internvl2's prefill shape."""
+    import copy
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    cfg = get_arch(MOE_ARCH)
+    spec, k = cfg.moe, cfg.moe.top_k
+    print(f"[moe] card: {nvidia_smi()}")
+
+    # (a) the layer at granite's widths
+    p = M.moe_init(torch.Generator().manual_seed(SEED), cfg.d_model,
+                   cfg.d_ff, spec, torch.bfloat16)
+    pc = moved(p, device)
+    gen = torch.Generator().manual_seed(SEED + 15)
+    for n in MOE_TOKENS:
+        x = torch.randn(4, n // 4, cfg.d_model, generator=gen)
+        x = x.to(torch.bfloat16)
+        want, want_aux = M.moe_apply(p, spec, cfg.d_ff, x)
+        _, _, want_idx = M.route(p, spec, x)
+        xc = x.to(device)
+        out, aux = M.moe_apply(pc, spec, cfg.d_ff, xc)
+        again, again_aux = M.moe_apply(pc, spec, cfg.d_ff, xc)
+        _, _, idx = M.route(pc, spec, xc)
+        check(torch.equal(idx.cpu(), want_idx),
+              f"moe_apply at N={n}: the card routes otherwise than the CPU")
+        check(torch.equal(out, again) and torch.equal(aux, again_aux),
+              f"moe_apply at N={n}: two card runs differ")
+        err = close(out.cpu(), want, LM_TOL, LM_TOL,
+                    f"moe_apply at N={n}: card != CPU")
+        close(aux.cpu()[None], want_aux[None], 0.0, 1e-5,
+              f"moe_apply at N={n}: aux card != CPU")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            quiet, _ = M.moe_apply(pc, spec, cfg.d_ff, xc)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(torch.equal(quiet, out), f"moe_apply at N={n}: the run under "
+              f"sync-debug differs")
+        C = M.capacity(spec, n)
+        _, keep = M.dispatch_slots(want_idx, spec.n_experts, C)
+        print(f"[moe] (a) moe_apply at {MOE_ARCH}'s widths (D {cfg.d_model}, "
+              f"F {cfg.d_ff}, {spec.n_experts} experts top-{k}, bf16), "
+              f"N={n} (C={C}): routing equal to the CPU's, max abs err "
+              f"{err} (limit {LM_TOL} + {LM_TOL} |x|), two card runs "
+              f"bit-identical, no sync under sync-debug \"error\"; routed "
+              f"pairs dropped {int((~keep).sum())} of {keep.numel()} "
+              f"(share {float((~keep).float().mean()):.4f})")
+    del p, pc
+
+    # (b) full width, 2 layers: the card against the CPU up to each row's
+    # first routing flip
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    api2 = build_model(cfg2)
+    cpu_params = api2.init_params(torch.Generator().manual_seed(SEED))
+    card_params = copy.deepcopy(cpu_params).to(device)
+    rng = np.random.default_rng(SEED + 15)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        LM_BATCH, MOE_PROMPT)).astype(np.int32))
+    runs, recs, fed = {}, {}, []
+    for label, params in (("cpu", cpu_params), ("card", card_params)):
+        recs[label] = []
+        capture_routing(params, recs[label])
+        dev = params.embed.device
+        state = T.init_caches(cfg2, LM_BATCH, MOE_PROMPT + MOE_DECODE,
+                              device=dev)
+        logits, steps = None, []
+        with torch.inference_mode():
+            for t in range(MOE_PROMPT + MOE_DECODE):
+                if t < MOE_PROMPT:
+                    tok = prompt[:, t:t + 1]
+                elif label == "cpu":
+                    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+                    fed.append(tok)
+                else:
+                    tok = fed[t - MOE_PROMPT]
+                logits, state = api2.decode_step(params, state, tok.to(dev),
+                                                 t)
+                steps.append(logits)
+        runs[label] = steps
+    check(all(x.device.type == device.type for x in runs["card"]),
+          "the 2-layer MoE model's logits are not on the card")
+    apart, flips = first_flips(recs["cpu"], recs["card"], LM_BATCH, k)
+    for step, layer, row, margin in flips:
+        check(margin < MOE_FLIP_MARGIN,
+              f"{MOE_ARCH} 2 layers: row {row} routes apart at step {step} "
+              f"layer {layer} where the CPU's top-{k} margin is {margin} "
+              f"(a flip is accepted under {MOE_FLIP_MARGIN})")
+    errs, compared = [], 0
+    for t, (g, c) in enumerate(zip(runs["card"], runs["cpu"])):
+        rows = [b for b in range(LM_BATCH) if apart[b] is None or
+                t < apart[b]]
+        compared += len(rows)
+        if rows:
+            errs.append(close(g.cpu()[rows], c[rows], LM_TOL, LM_TOL,
+                              f"{MOE_ARCH} 2 layers, step {t}: card != "
+                              f"CPU"))
+    check(compared > 0, f"{MOE_ARCH} 2 layers: no row left to compare")
+    print(f"[moe] (b) {MOE_ARCH} at full width cut to 2 layers "
+          f"({cfg.dtype}): {MOE_PROMPT} prompt and {MOE_DECODE} greedy "
+          f"decode steps on the card against the CPU from the same "
+          f"parameters; routing flips {len(flips)} (step, layer, row, CPU "
+          f"top-{k} margin: {flips}; accepted under {MOE_FLIP_MARGIN}); "
+          f"rows x steps compared {compared} of "
+          f"{LM_BATCH * (MOE_PROMPT + MOE_DECODE)}; max abs err per step "
+          f"{errs} (limit {LM_TOL} + {LM_TOL} |logit|)")
+    del cpu_params, card_params, runs, recs
+    torch.cuda.empty_cache()
+
+    # (c) the full model through serve_lm.main: every count at 0 just
+    # before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.plain_calls = 0
+    t0 = time.perf_counter()
+    res = serve_lm.main(["--arch", MOE_ARCH, "--batch", str(LM_BATCH),
+                         "--prompt-len", str(LM_PROMPT), "--gen",
+                         str(LM_GEN), "--seed", str(SEED),
+                         "--device", str(device)])
+    wall = time.perf_counter() - t0
+    launches, plain = fa.launches, fa.plain_calls
+    tokens, logits = res["tokens"], res["logits"]
+    want = cfg.n_layers * (LM_PROMPT + LM_GEN)
+    check(tokens.shape == (LM_BATCH, LM_GEN) and tokens.min() >= 0
+          and tokens.max() < cfg.vocab, f"serve_lm {MOE_ARCH} tokens out of "
+          f"the vocab or misshapen: {tokens.shape}")
+    check(logits.device.type == device.type and bool(torch.isfinite(
+        logits[:, :cfg.vocab].float()).all()),
+          f"serve_lm {MOE_ARCH}'s last logits are not finite on the card")
+    check(launches == want and plain == 0,
+          f"serve_lm {MOE_ARCH}: flash launches {launches} (want "
+          f"{cfg.n_layers} layers x {LM_PROMPT + LM_GEN} steps = {want}), "
+          f"plain calls {plain} (want 0)")
+    n_params = sum(q.numel() for q in res["params"].parameters())
+    print(f"[moe] (c) serve_lm.main --arch {MOE_ARCH} ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads x {cfg.hd} "
+          f"(kv {cfg.n_kv_heads}), {spec.n_experts} experts top-{k} of "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to "
+          f"{cfg.vocab_padded}; {n_params} parameters in {cfg.dtype}, "
+          f"routers float32), batch {LM_BATCH}, prompt {LM_PROMPT}, gen "
+          f"{LM_GEN}, seed {SEED}: prefill {res['prefill_s']:.4f} s "
+          f"({res['prefill_s'] / LM_PROMPT * 1e3:.3f} ms/step), decode "
+          f"{res['ms_per_token']:.4f} ms/token/batch; call wall "
+          f"{wall:.3f} s with the weights' init; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; flash "
+          f"launches {launches}, plain calls {plain}; row 0 "
+          f"{tokens[0].tolist()}")
+
+    # (d) a profile of decode steps at the last positions (they rewrite
+    # positions 40..47 of the caches), launches split by layer part
+    api, params, state = res["api"], res["params"], res["state"]
+    cur = torch.argmax(logits, -1)[:, None]
+    first = LM_PROMPT + LM_GEN - LM_PROFILED_STEPS
+
+    def steps():
+        with torch.inference_mode():
+            for i in range(LM_PROFILED_STEPS):
+                api.decode_step(params, state, cur, first + i)
+    steps()
+    prof = profile_run(steps)
+    handles = mark_ranges(params)
+    try:
+        split = launches_in(profile_run(steps)["events"], RANGES)
+    finally:
+        for h in handles:
+            h.remove()
+    per_layer = LM_PROFILED_STEPS * cfg.n_layers
+    if prof["by_name"]:
+        top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:8]
+        print(f"[moe] (d) {LM_PROFILED_STEPS} profiled decode steps: wall "
+              f"{prof['wall_s']:.4f} s "
+              f"({prof['wall_s'] / LM_PROFILED_STEPS * 1e3:.3f} ms/step), "
+              f"device busy {prof['busy_s'] * 1e3:.4f} ms, device idle "
+              f"share {1 - prof['busy_s'] / prof['wall_s']:.5f}; device ms "
+              f"by name {({n: round(v / 1e3, 4) for n, v in top})}; kernels "
+              f"recorded {sum(prof['count'].values())}")
+    else:
+        print("[moe] (d) device idle share not measured (the profiler "
+              "recorded no device activity)")
+    attn = split["strela_layer"] - split["strela_moe"]
+    outside = split["all"] - split["strela_layer"]
+    print(f"[moe] (d) kernel launches (host calls, a second profiled run "
+          f"with a range around each layer and its MoE part) per step "
+          f"{split['all'] / LM_PROFILED_STEPS:.1f}; per layer "
+          f"{split['strela_layer'] / per_layer:.2f}: attention part "
+          f"{attn / per_layer:.2f}, MoE part "
+          f"{split['strela_moe'] / per_layer:.2f}; outside the layers "
+          f"{outside / LM_PROFILED_STEPS:.1f} per step")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with torch.inference_mode():
+                api.decode_step(params, state, cur, first)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message)]
+    print(f"[moe] (d) host syncs in one decode step under sync-debug "
+          f"\"warn\": {len(syncs)} {syncs[:3]}")
+    del res, api, params, state, logits, prof
+    torch.cuda.empty_cache()
+
+    # (e) the other two families at full width, cut to 2 layers (the
+    # whole models need about 141 and 216 GB in bf16)
+    vcfg = dataclasses.replace(get_arch(VLM_ARCH), n_layers=2)
+    vapi = build_model(vcfg)
+    vparams = vapi.init_params(torch.Generator(device).manual_seed(SEED))
+    pgen = torch.Generator(device).manual_seed(SEED + 15)
+    patches = (torch.randn(VLM_BATCH, vcfg.n_patches, vcfg.d_model,
+                           generator=pgen, device=device) * 0.02)
+    vtoks = torch.from_numpy(rng.integers(0, vcfg.vocab, (
+        VLM_BATCH, VLM_TEXT)).astype(np.int32)).to(device)
+    fa.launches = fa.plain_calls = 0
+    vlogits, vstate = vapi.prefill(vparams, {
+        "tokens": vtoks, "patches": patches.to(vcfg.torch_dtype)})
+    torch.cuda.synchronize()
+    v_launches, v_plain = fa.launches, fa.plain_calls
+    total = vcfg.n_patches + VLM_TEXT
+    check(v_launches == vcfg.n_layers and v_plain == 0,
+          f"{VLM_ARCH} prefill: flash launches {v_launches} (want "
+          f"{vcfg.n_layers}), plain calls {v_plain}")
+    check(tuple(vlogits.shape) == (VLM_BATCH, vcfg.vocab_padded) and bool(
+        torch.isfinite(vlogits.float()).all()) and vstate[0].shape[2] ==
+          total, f"{VLM_ARCH} prefill: logits not finite or misshapen")
+    print(f"[moe] (e) {VLM_ARCH} at full width cut to 2 layers (d_model "
+          f"{vcfg.d_model}, {vcfg.n_heads} heads x {vcfg.hd}, d_ff "
+          f"{vcfg.d_ff}): api.prefill of {vcfg.n_patches} seeded patches + "
+          f"{VLM_TEXT} tokens at batch {VLM_BATCH}: flash launches "
+          f"{v_launches} (sq = sk = {total}, d = {vcfg.hd}), plain calls "
+          f"{v_plain}; logits finite, |max| "
+          f"{float(vlogits.float().abs().max()):.4f}")
+    del vparams, vstate, vlogits, patches
+    torch.cuda.empty_cache()
+
+    scfg = dataclasses.replace(get_arch(SCOUT_ARCH), n_layers=2)
+    sapi = build_model(scfg)
+    sparams = sapi.init_params(torch.Generator(device).manual_seed(SEED))
+    state = T.init_caches(scfg, SCOUT_BATCH, SCOUT_STEPS, device=device)
+    tok = torch.from_numpy(rng.integers(0, scfg.vocab, (
+        SCOUT_BATCH, 1)).astype(np.int32)).to(device)
+    fa.launches = fa.plain_calls = 0
+    out = []
+    with torch.inference_mode():
+        for t in range(SCOUT_STEPS):
+            slog, state = sapi.decode_step(sparams, state, tok, t)
+            tok = torch.argmax(slog, -1)[:, None]
+            out.append(tok[:, 0].cpu())
+    s_launches, s_plain = fa.launches, fa.plain_calls
+    stoks = torch.stack(out, 1)
+    check(s_launches == scfg.n_layers * SCOUT_STEPS and s_plain == 0,
+          f"{SCOUT_ARCH} decode: flash launches {s_launches} (want "
+          f"{scfg.n_layers * SCOUT_STEPS}), plain calls {s_plain}")
+    check(bool(torch.isfinite(slog[:, :scfg.vocab].float()).all()) and
+          int(stoks.min()) >= 0 and int(stoks.max()) < scfg.vocab,
+          f"{SCOUT_ARCH} decode: logits not finite or tokens out of the "
+          f"vocab")
+    print(f"[moe] (e) {SCOUT_ARCH} at full width cut to 2 layers (d_model "
+          f"{scfg.d_model}, {scfg.n_heads} heads x {scfg.hd}, "
+          f"{scfg.moe.n_experts} experts top-{scfg.moe.top_k} with a shared "
+          f"expert of d_ff {scfg.d_ff}): {SCOUT_STEPS} decode steps at "
+          f"batch {SCOUT_BATCH}: flash launches {s_launches}, plain calls "
+          f"{s_plain}; logits finite; tokens {stoks.tolist()}")
+    del sparams, state, slog
+    torch.cuda.empty_cache()
+
+    # the flash kernel at the two new shapes: against its plain version,
+    # then timed
+    frng = np.random.default_rng(SEED + 15)
+    shapes = {"flash_attention lm moe decode": (
+                  LM_BATCH * cfg.n_heads, 1, LM_PROMPT + LM_GEN, cfg.hd),
+              "flash_attention vlm prefill d128": (
+                  VLM_BATCH * vcfg.n_heads, total, total, vcfg.hd)}
+    rows = {}
+    for name, (h, sq, sk, d) in shapes.items():
+        q = normal(frng, (h, sq, d), device)
+        kk, vv = (normal(frng, (h, sk, d), device) for _ in range(2))
+        e = close(fa.attention_kernel(q, kk, vv, True),
+                  fa.attention_plain(q, kk, vv, True), 3e-5, 3e-5,
+                  f"flash_attention h={h} sq={sq} sk={sk} d={d}")
+        print(f"[moe] flash_kernel against its plain version at h={h}, "
+              f"sq={sq}, sk={sk}, d={d}, causal: max abs err {e} (limit "
+              f"3e-5)")
+        rows[name] = dict(time_flash(q, kk, vv, "moe-times"), max_abs_err=e,
+                          launches=launches if "moe" in name
+                          else v_launches)
+    print(f"[moe] card: {nvidia_smi()}")
+    return rows
 
 
 def nvidia_smi() -> str:
@@ -2007,6 +2456,7 @@ def main() -> int:
     dense_rows = phase_dense_times(ins)
     del ins
     lm_row = phase_lm(device)
+    moe_rows = phase_moe(device)
 
     from repro_torch.bench_kernels import ROTATE
     main_rows = {"fabric_reduce_lanes": (
@@ -2052,6 +2502,15 @@ def main() -> int:
         "max_abs_err": lm_row["max_abs_err"], "ms": lm_row["ms"],
         "plain_ms": lm_row["plain_ms"], "bound_ms": lm_row["bound_ms"],
         "bound_by": lm_row["bound_by"], "library_ms": lm_row["library_ms"]})
+    for kname, r in moe_rows.items():
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:68",
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     print(nvidia_smi())                  # name, power limit: a line alone
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -24,9 +24,9 @@ port module names the reference module it is held against:
                           entry point
   repro_torch.configs   — the architecture registry (``ArchConfig``, the
                           ten LM configs, the STRELA SoC)
-  repro_torch.models    — the dense LM family (layers, transformer,
-                          ``build_model``), its attention on the flash
-                          kernel
+  repro_torch.models    — the dense, MoE and vlm LM families (layers,
+                          the MoE layer, transformer, ``build_model``),
+                          their attention on the flash kernel
   repro_torch.launch    — ``serve_lm``: prefill and greedy decode with KV
                           caches
   repro_torch.convert   — reference DFGs, inputs and LM parameters into

@@ -44,8 +44,15 @@ def dfg_from_reference(g) -> D.DFG:
     return out
 
 
-def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
-    # through float32, which holds every bfloat16 value exactly
+# the reference's leaf dtypes, by name (bfloat16 leaves are
+# ``ml_dtypes.bfloat16`` arrays)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy leaf in its own dtype, through float32, which holds every
+    bfloat16 value exactly."""
+    dtype = DTYPES[np.asarray(a).dtype.name]
     return torch.from_numpy(np.array(a, np.float32)).to(device=device,
                                                           dtype=dtype)
 
@@ -57,14 +64,14 @@ def _map(tree, fn):
 
 
 def lm_params_from_reference(tree, cfg, device="cuda"):
-    """Rebuild a reference dense-transformer parameter tree (the output of
-    ``repro.models.api.build_model(cfg).init_params``) as the port's
-    ``Transformer``: the leading-L layer stacks are unstacked into one
-    block each, every leaf cast to ``cfg``'s dtype on ``device``."""
-    dt = cfg.torch_dtype
-    out = {k: _tensor(v, dt, device) for k, v in tree.items()
-           if k != "layers"}
-    out["layers"] = [_map(tree["layers"], lambda a, i=i: _tensor(a[i], dt,
+    """Rebuild a reference dense / MoE / vlm transformer parameter tree
+    (the output of ``repro.models.api.build_model(cfg).init_params``) as
+    the port's ``Transformer`` on ``device``: the leading-L layer stacks
+    (the MoE subtree and its shared expert among them) are unstacked into
+    one block each, and every leaf keeps the reference leaf's dtype, so a
+    MoE router stays float32 in a bfloat16 model."""
+    out = {k: _tensor(v, device) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [_map(tree["layers"], lambda a, i=i: _tensor(a[i],
                                                                   device))
                      for i in range(cfg.n_layers)]
     return Transformer(cfg, out)

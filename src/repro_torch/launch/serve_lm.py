@@ -1,11 +1,13 @@
 """LM serving launch driver: prefill + greedy decode with KV caches
-(counterpart of ``repro.launch.serve_lm``; the dense family so far).
+(counterpart of ``repro.launch.serve_lm``; the dense, moe and vlm
+families so far, a vlm on tokens only as in the reference).
 
 Not to be confused with ``repro_torch.serve`` (the always-on CGRA kernel
 serving engine): this module batch-serves *language models*. It runs on
 the card unless ``--device cpu`` is passed:
 
   python -m repro_torch.launch.serve_lm --arch minicpm-2b
+  python -m repro_torch.launch.serve_lm --arch granite-moe-3b-a800m
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch minicpm-2b \\
       --reduced --device cpu
 """

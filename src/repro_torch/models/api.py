@@ -1,16 +1,18 @@
 """Unified model API: one bundle per architecture family (counterpart of
-``repro.models.api``; the dense family so far).
+``repro.models.api``; the dense, moe and vlm families so far).
 
-For a dense arch:
+For each of them:
   * ``init_params(generator)``                    (on the generator's device)
   * ``loss(params, batch)``                       (training forward)
   * ``prefill(params, batch)``                    (build decode state)
   * ``decode_step(params, state, tokens, len)``   (one new token, KV cache)
 
-Batch layout: ``{tokens (B, S), targets (B, S)}`` integer tensors, and for
-``prefill`` an optional ``max_len``. ``cache_len`` is a Python int. The
-reference's ``input_specs``/``state_specs`` serve its multi-pod dry run
-and come with ``launch/dryrun``.
+Batch layout: ``{tokens (B, S), targets (B, S)}`` integer tensors, a vlm's
+``patches (B, P, D)`` beside them (its ``targets`` cover the text only),
+and for ``prefill`` an optional ``max_len``. ``cache_len`` is a Python
+int; ``decode_step`` takes tokens only. The reference's
+``input_specs``/``state_specs`` serve its multi-pod dry run and come with
+``launch/dryrun``.
 """
 from __future__ import annotations
 
@@ -24,8 +26,7 @@ from repro_torch.models import transformer
 from repro_torch.models.layers import mask_padded_vocab, xent_loss
 
 # the families still to port, each with the reference module it needs
-PENDING = {"moe": "models/moe.py", "vlm": "the patch embeddings",
-           "ssm": "models/ssm.py", "hybrid": "models/hybrid.py",
+PENDING = {"ssm": "models/ssm.py", "hybrid": "models/hybrid.py",
            "audio": "models/encdec.py"}
 
 
@@ -39,7 +40,7 @@ class ModelAPI:
 
 
 def build_model(cfg: ArchConfig) -> ModelAPI:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         return _build_transformer(cfg)
     if cfg.family in PENDING:
         raise NotImplementedError(
@@ -49,19 +50,25 @@ def build_model(cfg: ArchConfig) -> ModelAPI:
 
 
 def _build_transformer(cfg: ArchConfig) -> ModelAPI:
+    Pn = cfg.n_patches if cfg.family == "vlm" else 0
+
     def loss(params, batch):
-        logits, _, aux = transformer.forward(params, cfg, batch["tokens"])
-        return xent_loss(logits, batch["targets"], cfg.vocab) + aux, aux
+        logits, _, aux = transformer.forward(
+            params, cfg, batch["tokens"], embeds=batch.get("patches"))
+        txt = logits[:, Pn:, :]
+        return xent_loss(txt, batch["targets"], cfg.vocab) + aux, aux
 
     @torch.no_grad()
     def prefill(params, batch):
         """The last position's logits, *unmasked* as in the reference, and
-        the caches (``max_len`` long, default the prompt's length)."""
+        the caches (``max_len`` long, default the prompt's length with a
+        vlm's patches)."""
         B, S = batch["tokens"].shape
-        caches = transformer.init_caches(cfg, B, batch.get("max_len", S),
-                                         device=params.embed.device)
+        caches = transformer.init_caches(
+            cfg, B, batch.get("max_len", S + Pn), device=params.embed.device)
         logits, caches, _ = transformer.forward(
-            params, cfg, batch["tokens"], caches=caches, cache_len=0)
+            params, cfg, batch["tokens"], caches=caches, cache_len=0,
+            embeds=batch.get("patches"))
         return logits[:, -1], caches
 
     @torch.no_grad()

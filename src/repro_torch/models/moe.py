@@ -1,0 +1,150 @@
+"""Mixture-of-Experts layer with capacity-based sort dispatch (counterpart
+of ``repro.models.moe``).
+
+Top-k routing -> sort by expert -> capacity-bounded dispatch into an
+``(E, C, D)`` tensor -> stacked-expert products -> weighted combine, with
+the reference's load-balancing aux loss (Shazeer et al.). Pairs past an
+expert's capacity are dropped. The numerics follow the reference line by
+line:
+
+  * the router is a float32 leaf even in a bfloat16 model, and the logits,
+    softmax and aux loss are float32 (TF32 stays off, PyTorch's default);
+  * top-k as ``lax.top_k``: descending, ties to the lower expert index (a
+    stable descending sort; ``torch.topk`` promises no tie order);
+  * ``C = max(int(capacity_factor * N * k / E), 1)`` for the ``N`` tokens
+    of *this call*, so the output depends on the batch: a MoE model's
+    decode does not equal its full forward;
+  * the expert products run in ``x``'s dtype, ``silu`` in float32 rounded
+    back before the up product, as in ``layers.mlp``;
+  * the combine rounds the gate weights to ``x``'s dtype before the
+    product and adds each token's contributions left to right in ``x``'s
+    dtype in ascending expert order: the order of the reference's
+    scatter-add over expert-sorted updates;
+  * the shared expert is ``layers.mlp`` with ``MlpCfg(D, d_ff)`` (SwiGLU,
+    whatever the config's activation) on the same normed input.
+
+Two deliberate differences, neither visible in the result: dropped pairs
+go to a spare slot ``C`` of an ``(E, C + 1, D)`` buffer that is cut away
+(the reference adds zeros at slot 0, which a non-accumulating write would
+turn into an overwrite of the kept token), and the combine adds in a
+``(N, k)`` layout without atomics, so two runs on the card give the same
+bits. Nothing here reads a value back to the host.
+
+``impl``: without a mesh the reference runs this global path for both
+"gspmd" and "shard_map"; so does the port (the expert-parallel path waits
+for ``runtime/partition``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MoESpec
+from repro_torch.models import layers as L
+
+F32 = torch.float32
+IMPLS = ("gspmd", "shard_map")
+
+
+def moe_init(gen: torch.Generator, d_model: int, d_ff: int, spec: MoESpec,
+             dtype: torch.dtype = torch.bfloat16) -> Dict:
+    E = spec.n_experts
+    scale = (2.0 / (d_model + d_ff)) ** 0.5
+    p = {"router": L._normal(gen, (d_model, E), 0.02, F32),
+         "w_experts_gate": L._normal(gen, (E, d_model, d_ff), scale, dtype),
+         "w_experts_up": L._normal(gen, (E, d_model, d_ff), scale, dtype),
+         "w_experts_down": L._normal(gen, (E, d_ff, d_model), scale, dtype)}
+    if spec.shared_expert:
+        p["shared"] = L.mlp_init(gen, L.MlpCfg(d_model, d_ff), dtype)
+    return p
+
+
+def capacity(spec: MoESpec, n_tokens: int) -> int:
+    """Slots per expert, in Python floats in the reference's order."""
+    return max(int(spec.capacity_factor * n_tokens * spec.top_k
+                   / spec.n_experts), 1)
+
+
+def route(p: Dict, spec: MoESpec, x: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (..., D) -> probs (N, E) float32, gate_vals (N, k) float32
+    renormalised, gate_idx (N, k) int64, best first."""
+    xf = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax(xf.to(F32) @ p["router"], dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[:, :spec.top_k], idx[:, :spec.top_k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def dispatch_slots(gate_idx: torch.Tensor, n_experts: int, cap: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each routed pair's slot in its expert, in ``gate_idx``'s (N, k)
+    layout: its position in the expert's run after a stable sort by expert
+    (so by token within an expert), or ``cap`` where that position is
+    past the capacity. Returns (slot, keep)."""
+    flat_e = gate_idx.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    se = flat_e[order]
+    counts = torch.zeros(n_experts, dtype=torch.int64, device=flat_e.device)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    pos_sorted = torch.arange(flat_e.numel(), device=flat_e.device) \
+        - starts[se]
+    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+    keep = (pos < cap).view(gate_idx.shape)
+    slot = torch.where(keep, pos.view(gate_idx.shape), cap)
+    return slot, keep
+
+
+def combine(rows: torch.Tensor, gate_vals: torch.Tensor,
+            gate_idx: torch.Tensor) -> torch.Tensor:
+    """rows (N, k, D) expert outputs (zero for dropped pairs) -> (N, D):
+    each row times its gate weight rounded to the rows' dtype, summed left
+    to right in the rows' dtype in ascending expert order."""
+    contrib = rows * gate_vals.to(rows.dtype)[..., None]
+    asc = torch.argsort(gate_idx, dim=1)   # a token's experts are distinct
+    contrib = torch.gather(contrib, 1, asc[..., None].expand_as(contrib))
+    out = contrib[:, 0]
+    for j in range(1, contrib.shape[1]):
+        out = out + contrib[:, j]
+    return out
+
+
+def moe_apply(p: Dict, spec: MoESpec, d_ff: int, x: torch.Tensor,
+              impl: str = "gspmd") -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out in x's dtype, float32 aux loss)."""
+    if impl not in IMPLS:
+        raise ValueError(f"moe_apply: impl must be one of {IMPLS}, got "
+                         f"{impl!r}")
+    B, S, D = x.shape
+    N = B * S
+    E, k = spec.n_experts, spec.top_k
+    xf = x.reshape(N, D)
+    probs, gate_vals, gate_idx = route(p, spec, x)
+
+    # aux load-balance loss: E * mean(density_e * mean_prob_e)
+    density = F.one_hot(gate_idx, E).sum(1).to(F32).mean(0)
+    aux = spec.aux_coef * E * torch.mean(density * probs.mean(0))
+
+    # ---- sort-based capacity dispatch, dropped pairs to spare slot C ----
+    C = capacity(spec, N)
+    slot, _ = dispatch_slots(gate_idx, E, C)
+    dispatch = torch.zeros(E, C + 1, D, dtype=x.dtype, device=x.device)
+    dispatch[gate_idx, slot] = xf[:, None, :].expand(N, k, D)
+    dispatch = dispatch[:, :C]
+
+    h_g = torch.bmm(dispatch, p["w_experts_gate"])
+    h_u = torch.bmm(dispatch, p["w_experts_up"])
+    h = F.silu(h_g.to(F32)).to(x.dtype) * h_u
+    eout = torch.bmm(h, p["w_experts_down"])            # (E, C, D)
+
+    # ---- combine: the spare slot reads zeros ----
+    eout = F.pad(eout, (0, 0, 0, 1))
+    out = combine(eout[gate_idx, slot], gate_vals, gate_idx).view(B, S, D)
+    if "shared" in p:
+        out = out + L.mlp(p["shared"], L.MlpCfg(D, d_ff), x)
+    return out, aux

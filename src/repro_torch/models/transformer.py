@@ -1,13 +1,16 @@
-"""The dense decoder-only transformer (llama family) as ``nn.Module``s
-(counterpart of ``repro.models.transformer``, dense family only).
+"""The dense / MoE decoder-only transformer (llama family) as
+``nn.Module``s (counterpart of ``repro.models.transformer``).
 
-Covers minicpm-2b, internlm2-20b, qwen1.5-4b and yi-9b. The reference
-stacks its layers under ``lax.scan`` with a leading L axis; here each layer
-is a :class:`Block` and the forward loops over them. Its parameters keep
-the reference's tree layout and names (``layers.<i>.attn.wq``, ...), so
-``repro_torch.convert.lm_params_from_reference`` carries a reference tree
-across by unstacking the L axis. ``remat`` (activation checkpointing)
-has no effect: the port runs no backward pass yet.
+Covers minicpm-2b, internlm2-20b, qwen1.5-4b, yi-9b (dense), llama4-scout
+and granite (MoE through ``moe.py``) and internvl2-76b (vlm: patch
+embeddings prepended to the token embeddings; the vision encoder is
+stubbed, as in the reference). The reference stacks its layers under
+``lax.scan`` with a leading L axis; here each layer is a :class:`Block`
+and the forward loops over them. Its parameters keep the reference's
+tree layout and names (``layers.<i>.attn.wq``, ``layers.<i>.moe.router``,
+...), so ``repro_torch.convert.lm_params_from_reference`` carries a
+reference tree across by unstacking the L axis. ``remat`` (activation
+checkpointing) has no effect: the port runs no backward pass yet.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_apply, moe_init
 
 Caches = Tuple[torch.Tensor, torch.Tensor]
 
@@ -33,14 +37,34 @@ def _mlp_cfg(cfg: ArchConfig) -> L.MlpCfg:
     return L.MlpCfg(cfg.d_model, cfg.d_ff, cfg.activation)
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.arch_id}: the MoE layer "
-                                  f"(models/moe.py) {PENDING}")
+class MoE(nn.Module):
+    """A layer's MoE parameters (the reference's ``moe`` subtree: the
+    router, ``w_experts_*`` and, with a shared expert, ``shared``) as a
+    module that reads like that dict; calling it runs ``moe_apply`` on
+    them, so a forward hook sees the layer's input. Each leaf keeps its
+    dtype: the router stays float32 in a bfloat16 model."""
+
+    def __init__(self, cfg: ArchConfig, tree: Dict):
+        super().__init__()
+        self.spec, self.d_ff, self.impl = cfg.moe, cfg.d_ff, cfg.moe_impl
+        for k, v in tree.items():
+            setattr(self, k, nn.ParameterDict(v) if isinstance(v, dict)
+                    else nn.Parameter(v))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return moe_apply(self, self.spec, self.d_ff, x, impl=self.impl)
 
 
 class Block(nn.Module):
-    """One pre-norm layer: attention and MLP, each on a scaled residual."""
+    """One pre-norm layer: attention, then the MLP or the MoE layer, each
+    on a scaled residual."""
 
     def __init__(self, cfg: ArchConfig, tree: Dict):
         super().__init__()
@@ -49,17 +73,27 @@ class Block(nn.Module):
         self.ln1 = nn.Parameter(tree["ln1"])
         self.ln2 = nn.Parameter(tree["ln2"])
         self.attn = nn.ParameterDict(tree["attn"])
-        self.mlp = nn.ParameterDict(tree["mlp"])
+        if cfg.moe is not None:
+            self.moe = MoE(cfg, tree["moe"])
+        else:
+            self.mlp = nn.ParameterDict(tree["mlp"])
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Caches] = None, cache_len: int = 0
-                ) -> Tuple[torch.Tensor, Optional[Caches]]:
+                ) -> Tuple[torch.Tensor, Optional[Caches],
+                           Optional[torch.Tensor]]:
+        """Returns (x, cache, aux): aux is the MoE layer's float32 loss,
+        None for a dense layer."""
         h, new_cache = L.attention(self.attn, self.attn_cfg,
                                    L.rmsnorm(x, self.ln1), positions, cache,
                                    cache_len)
         x = x + L.scale_by(h, self.residual_scale)
-        h = L.mlp(self.mlp, self.mlp_cfg, L.rmsnorm(x, self.ln2))
-        return x + L.scale_by(h, self.residual_scale), new_cache
+        aux = None
+        if hasattr(self, "moe"):
+            h, aux = self.moe(L.rmsnorm(x, self.ln2))
+        else:
+            h = L.mlp(self.mlp, self.mlp_cfg, L.rmsnorm(x, self.ln2))
+        return x + L.scale_by(h, self.residual_scale), new_cache, aux
 
 
 class Transformer(nn.Module):
@@ -69,7 +103,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ArchConfig, tree: Dict):
         super().__init__()
-        _check_dense(cfg)
         if len(tree["layers"]) != cfg.n_layers:
             raise ValueError(f"{cfg.arch_id}: {len(tree['layers'])} layers "
                              f"given, the config has {cfg.n_layers}")
@@ -80,27 +113,40 @@ class Transformer(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings
                         else nn.Parameter(tree["lm_head"]))
 
-    def forward(self, tokens: torch.Tensor,
-                caches: Optional[Caches] = None, cache_len: int = 0
+    def forward(self, tokens: Optional[torch.Tensor] = None,
+                caches: Optional[Caches] = None, cache_len: int = 0,
+                embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
-        """Returns (logits, caches, aux_loss). ``caches`` are the stacked
-        (L, B, S_max, n_kv, hd) pair, updated in place at ``cache_len``."""
+        """Returns (logits, caches, aux_loss). tokens (B, S) and/or embeds
+        (B, P, D): a vlm prepends its patch embeddings, cast to the
+        activations' dtype; with no tokens, x is ``embeds`` as given.
+        ``caches`` are the stacked (L, B, S_max, n_kv, hd) pair, updated in
+        place at ``cache_len``. aux sums the MoE layers' losses in
+        float32."""
         cfg = self.cfg
-        x = self.embed[tokens.long()]
-        # minicpm scales its tied embedding (the reference's rule, by name)
-        if cfg.tie_embeddings and cfg.arch_id.startswith("minicpm"):
-            x = L.scale_by(x, cfg.d_model ** 0.5)
+        if tokens is not None:
+            x = self.embed[tokens.long()]
+            # minicpm scales its tied embedding (the reference's rule, by
+            # name)
+            if cfg.tie_embeddings and cfg.arch_id.startswith("minicpm"):
+                x = L.scale_by(x, cfg.d_model ** 0.5)
+            if embeds is not None:
+                x = torch.cat([embeds.to(x.dtype), x], dim=1)
+        else:
+            x = embeds
         B, S, _ = x.shape
         positions = (cache_len + torch.arange(S, device=x.device,
                                               dtype=torch.int32))
         positions = positions[None, :].expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, block in enumerate(self.layers):
             layer_cache = None if caches is None else (caches[0][i],
                                                        caches[1][i])
-            x, _ = block(x, positions, layer_cache, cache_len)
+            x, _, a = block(x, positions, layer_cache, cache_len)
+            if a is not None:
+                aux = aux + a
         x = L.rmsnorm(x, self.final_norm)
         logits = x @ (self.embed.T if self.lm_head is None else self.lm_head)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return logits, caches, aux
 
 
@@ -111,12 +157,15 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Transformer:
     dt = cfg.torch_dtype
     ones = lambda: torch.ones(cfg.d_model, dtype=dt,     # noqa: E731
                               device=gen.device)
-    _check_dense(cfg)
-    layers: List[Dict] = [
-        {"ln1": ones(), "ln2": ones(),
-         "attn": L.attn_init(gen, _attn_cfg(cfg), dt),
-         "mlp": L.mlp_init(gen, _mlp_cfg(cfg), dt)}
-        for _ in range(cfg.n_layers)]
+    layers: List[Dict] = []
+    for _ in range(cfg.n_layers):
+        lp = {"ln1": ones(), "ln2": ones(),
+              "attn": L.attn_init(gen, _attn_cfg(cfg), dt)}
+        if cfg.moe is not None:
+            lp["moe"] = moe_init(gen, cfg.d_model, cfg.d_ff, cfg.moe, dt)
+        else:
+            lp["mlp"] = L.mlp_init(gen, _mlp_cfg(cfg), dt)
+        layers.append(lp)
     tree = {"embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model, dt),
             "final_norm": ones(), "layers": layers}
     if not cfg.tie_embeddings:
@@ -125,14 +174,16 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Transformer:
 
 
 def forward(params: Transformer, cfg: ArchConfig,
-            tokens: torch.Tensor, caches: Optional[Caches] = None,
-            cache_len: int = 0
+            tokens: Optional[torch.Tensor] = None,
+            caches: Optional[Caches] = None, cache_len: int = 0,
+            embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
-    """The reference's ``forward(params, cfg, tokens, caches, cache_len)``."""
+    """The reference's ``forward(params, cfg, tokens, embeds, caches,
+    cache_len)``; ``embeds`` comes last here."""
     if params.cfg != cfg:
         raise ValueError(f"forward: the parameters were built for "
                          f"{params.cfg.arch_id}, not this config")
-    return params(tokens, caches, cache_len)
+    return params(tokens, caches, cache_len, embeds)
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,

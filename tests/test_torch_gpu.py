@@ -562,3 +562,104 @@ def test_serve_lm_at_full_width_launches_flash_per_layer_and_step(cuda):
     assert res["tokens"].min() >= 0 and res["tokens"].max() < cfg.vocab
     assert res["logits"].device.type == "cuda"
     assert bool(torch.isfinite(res["logits"].float()).all())
+
+
+# the MoE layer at granite-moe-3b-a800m's widths (chip_smoke.py phase 15):
+# D 1536, F 512, 40 experts top-8, bf16 parameters from seed 0; batch 4 at
+# decode (N = 4, C = 1) and a 128-token prefill (N = 128, C = 32)
+def _granite_moe():
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as M
+    cfg = get_arch("granite-moe-3b-a800m")
+    p = M.moe_init(torch.Generator().manual_seed(0), cfg.d_model, cfg.d_ff,
+                   cfg.moe, torch.bfloat16)
+    return cfg, p
+
+
+def _moved(p, device):
+    return {k: _moved(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in p.items()}
+
+
+def _moe_input(cfg, n, seed=0):
+    x = torch.randn(4, n // 4, cfg.d_model,
+                    generator=torch.Generator().manual_seed(seed))
+    return x.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("n", [4, 128])
+def test_moe_apply_on_the_card_matches_the_cpu(cuda, n):
+    """Card run against a CPU run on the same parameters and input: the
+    same experts chosen, outputs within the LM tolerance (3e-2), the aux
+    loss within float32 rounding."""
+    from repro_torch.models import moe as M
+    cfg, p = _granite_moe()
+    x = _moe_input(cfg, n)
+    cpu_out, cpu_aux = M.moe_apply(p, cfg.moe, cfg.d_ff, x)
+    _, _, cpu_idx = M.route(p, cfg.moe, x)
+    pc, xc = _moved(p, cuda), x.to(cuda)
+    out, aux = M.moe_apply(pc, cfg.moe, cfg.d_ff, xc)
+    _, _, idx = M.route(pc, cfg.moe, xc)
+    assert torch.equal(idx.cpu(), cpu_idx)
+    assert out.device.type == "cuda" and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.cpu().float(), cpu_out.float(),
+                               atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(aux.cpu(), cpu_aux, atol=0, rtol=1e-5)
+
+
+def test_moe_apply_on_the_card_is_bit_identical_across_runs(cuda):
+    """No float atomics: two card runs give the same bits (a CPU run
+    alike), at both token counts."""
+    from repro_torch.models import moe as M
+    cfg, p = _granite_moe()
+    pc = _moved(p, cuda)
+    for n in (4, 128):
+        x = _moe_input(cfg, n, seed=n)
+        for params, xs in ((pc, x.to(cuda)), (p, x)):
+            a = M.moe_apply(params, cfg.moe, cfg.d_ff, xs)
+            b = M.moe_apply(params, cfg.moe, cfg.d_ff, xs)
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_moe_apply_makes_no_host_sync_on_the_card(cuda):
+    """``moe_apply`` under ``set_sync_debug_mode("error")`` on the card
+    (any operation that waits for the device raises), then its result
+    against a CPU run."""
+    from repro_torch.models import moe as M
+    cfg, p = _granite_moe()
+    x = _moe_input(cfg, 4)
+    pc, xc = _moved(p, cuda), x.to(cuda)
+    M.moe_apply(pc, cfg.moe, cfg.d_ff, xc)          # warm: allocations
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, _ = M.moe_apply(pc, cfg.moe, cfg.d_ff, xc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.testing.assert_close(out.cpu().float(),
+                               M.moe_apply(p, cfg.moe, cfg.d_ff, x)[0].float(),
+                               atol=3e-2, rtol=3e-2)
+
+
+def test_serve_lm_moe_at_full_width_launches_flash_per_layer_and_step(cuda):
+    """granite-moe-3b-a800m at full width, cut to 2 layers, serving batch
+    4 x (32 + 16) tokens on the card: one flash launch per layer and
+    step, no plain call, tokens in the vocab, finite logits."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m"), n_layers=2)
+    api = build_model(cfg)
+    params = api.init_params(torch.Generator(cuda).manual_seed(0))
+    assert params.layers[0].moe.router.dtype == torch.float32
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 32)).astype(np.int32)).to(cuda)
+    launches, plain = fa.launches, fa.plain_calls
+    with torch.inference_mode():
+        res = serve_lm.generate(api, params, prompt, 16)
+    assert fa.launches - launches == 2 * (32 + 16)
+    assert fa.plain_calls == plain
+    assert res["tokens"].shape == (4, 16)
+    assert res["tokens"].min() >= 0 and res["tokens"].max() < cfg.vocab
+    assert bool(torch.isfinite(res["logits"][:, :cfg.vocab].float()).all())

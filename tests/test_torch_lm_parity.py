@@ -1,11 +1,20 @@
-"""The port's dense LM (``repro_torch.models``) against the JAX reference
+"""The port's LM (``repro_torch.models``) against the JAX reference
 (``repro.models``) on the CPU, from the reference's own parameters
 (``api.init_params(PRNGKey(0))``, carried over by
 ``repro_torch.convert.lm_params_from_reference``) and the same numpy
 tokens: ``transformer.forward``, ``api.loss``, ``api.prefill`` and
-``api.decode_step`` on the reduced dense archs, in float32 and bfloat16,
-with ``attention_impl`` "full" and "chunked" (a chunk below the sequence,
-so the reference's chunked branch runs; the port takes one path).
+``api.decode_step`` on the reduced dense, moe and vlm archs, in float32
+and bfloat16, with ``attention_impl`` "full" and "chunked" (a chunk below
+the sequence, so the reference's chunked branch runs; the port takes one
+path). The vlm's forward, loss and prefill take patch embeddings drawn
+from a seeded normal at scale 0.02, so that they show in the result.
+
+The MoE archs' reference runs op by op (``jax.disable_jit``), as the
+port does: jitted, XLA fuses a layer's bfloat16 elementwise chain and
+rounds it once, which moves a router input by a bfloat16 ulp and, at a
+near tie of the k-th and (k+1)-th probabilities, sends a token to another
+expert (a different function, not a rounding error). Op by op the two
+packages route alike, and the MoE archs' decode steps drop pairs (C = 1).
 
 Tolerances: float32 logits within 2e-4 and the loss within 1e-5
 relative; prefill and decode attend over the KV caches, which are
@@ -14,6 +23,7 @@ k or v that rounds the other way there moves the logits: 3e-2 (the
 reference's own decode tolerance, ``tests/test_models.py:73-75``), as
 for everything in bfloat16. Then one test per reference quirk the port
 keeps."""
+import contextlib
 import dataclasses
 
 import jax
@@ -32,6 +42,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.api import build_model
 
 DENSE = ["minicpm-2b", "qwen1.5-4b", "yi-9b", "internlm2-20b"]
+MOE = ["granite-moe-3b-a800m", "llama4-scout-17b-a16e"]
+VLM = ["internvl2-76b"]
 B, S, MAX_LEN, STEPS = 2, 16, 20, 3
 CHUNK = 8                      # below S: the reference's chunked branch runs
 LOOSE = dict(atol=3e-2, rtol=3e-2)
@@ -56,6 +68,18 @@ def _f32(x):
     return np.asarray(x, np.float32)
 
 
+def _patches(rcfg, seed):
+    """A vlm's stub patch embeddings (the reference's tests pass zeros):
+    a seeded normal at 0.02, in the config's dtype."""
+    if rcfg.family != "vlm":
+        return {}, {}
+    x = np.random.default_rng(seed).standard_normal(
+        (B, rcfg.n_patches, rcfg.d_model)) * 0.02
+    x = np.array(jnp.asarray(x, rcfg.jdtype).astype(jnp.float32))
+    return ({"patches": jnp.asarray(x, rcfg.jdtype)},
+            {"patches": torch.from_numpy(x).to(getattr(torch, rcfg.dtype))})
+
+
 def _run(arch, dtype, impl):
     rcfg, pcfg = _pair(arch, dtype=dtype, attention_impl=impl,
                        attention_chunk=CHUNK)
@@ -65,29 +89,37 @@ def _run(arch, dtype, impl):
     toks = rng.integers(0, rcfg.vocab, (B, S + STEPS)).astype(np.int32)
     prompt, tgt = toks[:, :S], rng.integers(0, rcfg.vocab, (B, S))
     tgt = tgt.astype(np.int32)
+    rpat, ppat = _patches(rcfg, len(arch))
+    Pn = rcfg.n_patches if rpat else 0
     out = {}
-    with torch.no_grad():
-        out["forward"] = (RT.forward(rp, rcfg, tokens=jnp.asarray(prompt))[0],
-                          T.forward(pp, pcfg, torch.from_numpy(prompt))[0])
+    with contextlib.ExitStack() as ref_mode, torch.no_grad():
+        if rcfg.family == "moe":
+            ref_mode.enter_context(jax.disable_jit())
+        out["forward"] = (
+            RT.forward(rp, rcfg, tokens=jnp.asarray(prompt),
+                       embeds=rpat.get("patches"))[0],
+            T.forward(pp, pcfg, torch.from_numpy(prompt),
+                      embeds=ppat.get("patches"))[0])
         out["loss"] = (
             rapi.loss(rp, {"tokens": jnp.asarray(prompt),
-                           "targets": jnp.asarray(tgt)})[0],
+                           "targets": jnp.asarray(tgt), **rpat})[0],
             papi.loss(pp, {"tokens": torch.from_numpy(prompt),
-                           "targets": torch.from_numpy(tgt)})[0])
-    rl, rs = rapi.prefill(rp, {"tokens": jnp.asarray(prompt),
-                               "max_len": MAX_LEN})
-    pl, ps = papi.prefill(pp, {"tokens": torch.from_numpy(prompt),
-                               "max_len": MAX_LEN})
-    out["prefill"] = (rl, pl)
-    decode = jax.jit(rapi.decode_step)
-    rsteps, psteps = [], []
-    for t in range(S, S + STEPS):
-        tok = toks[:, t:t + 1]
-        rl, rs = decode(rp, rs, jnp.asarray(tok), jnp.asarray(t, jnp.int32))
-        pl, ps = papi.decode_step(pp, ps, torch.from_numpy(tok), t)
-        rsteps.append(rl)
-        psteps.append(pl)
-    out["decode"] = (jnp.stack(rsteps, 1), torch.stack(psteps, 1))
+                           "targets": torch.from_numpy(tgt), **ppat})[0])
+        rl, rs = rapi.prefill(rp, {"tokens": jnp.asarray(prompt),
+                                   "max_len": MAX_LEN + Pn, **rpat})
+        pl, ps = papi.prefill(pp, {"tokens": torch.from_numpy(prompt),
+                                   "max_len": MAX_LEN + Pn, **ppat})
+        out["prefill"] = (rl, pl)
+        decode = jax.jit(rapi.decode_step)
+        rsteps, psteps = [], []
+        for t in range(S, S + STEPS):
+            tok = toks[:, t:t + 1]
+            rl, rs = decode(rp, rs, jnp.asarray(tok),
+                            jnp.asarray(Pn + t, jnp.int32))
+            pl, ps = papi.decode_step(pp, ps, torch.from_numpy(tok), Pn + t)
+            rsteps.append(rl)
+            psteps.append(pl)
+        out["decode"] = (jnp.stack(rsteps, 1), torch.stack(psteps, 1))
     return out
 
 
@@ -105,7 +137,7 @@ def runs():
 @pytest.mark.parametrize("what", ["forward", "loss", "prefill", "decode"])
 @pytest.mark.parametrize("impl", ["full", "chunked"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE + VLM)
 def test_port_matches_the_reference(runs, arch, dtype, impl, what):
     ref, got = runs(arch, dtype, impl)[what]
     assert tuple(got.shape) == tuple(ref.shape)

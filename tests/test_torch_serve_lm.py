@@ -1,7 +1,8 @@
 """``repro_torch.launch.serve_lm`` against ``repro.launch.serve_lm`` on the
 CPU: from the reference's own parameters in float32, the port's greedy
 tokens equal the reference loop's (whose first row's sample the
-reference ``main`` itself prints); and the port's ``main`` runs here with
+reference ``main`` itself prints) for dense, moe and vlm archs (a vlm is
+served on tokens only, as the reference serves it); and the port's ``main`` runs here with
 ``--device cpu``, through the flash kernel's plain version once per layer
 and step, and refuses the card where there is none."""
 import ast
@@ -49,7 +50,8 @@ def _reference_generate(api, params, tokens, gen):
     return np.stack(out, 1)
 
 
-@pytest.mark.parametrize("arch", ["minicpm-2b", "yi-9b"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "yi-9b",
+                                  "granite-moe-3b-a800m", "internvl2-76b"])
 def test_greedy_tokens_equal_the_reference(arch, monkeypatch, capsys):
     f32 = lambda a: dataclasses.replace(ref_arch(a), dtype="float32")  # noqa
     rcfg = f32(arch).reduced()
