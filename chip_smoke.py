@@ -105,9 +105,29 @@ operations, and the host syncs of one step under sync-debug "warn";
 d = 128, sq = sk = 288) and llama4-scout-17b-a16e (4 decode steps) at
 full width cut to 2 layers; and the flash kernel at granite's decode
 shape and internvl2's prefill shape against its plain version, timed
-beside it, its bound and SDPA. Phases 5, 11, 12, 13, 14 and 15 set the
-counts to 0 before their runs and read them after, and allow no plain
-call, fold or failed lane grid there. It exits non-zero,
+beside it, its bound and SDPA; (16) the Mamba-2 SSD layer and the Zamba-2
+hybrid (``repro_torch.models.ssm``, ``hybrid``): (a) the SSD layer at
+mamba2-1.3b's and zamba2-2.7b's widths in float32 and bf16, chunked at
+S = 256 and 512 and 4 decode steps from the carried state, on the card
+against the CPU within the LM tolerance, two card runs bit-identical, no
+host sync under sync-debug "error"; (b) both models at full width cut to
+2 and 6 layers (one shared-block site) through ``serve_lm.generate``
+and (e) their ``api.prefill`` at S = 256 (the chunked form on the card),
+the same weights in float32 and bf16: float32 on the card against the
+CPU within the LM tolerance (each row up to its first greedy flip, a
+flip accepted only within twice the tolerance of the CPU's top logit),
+and bf16, whose rounding differs between the card's and the CPU's GEMMs
+and adds up over layers, no farther from the float32 CPU run than twice
+the CPU's own bf16 run;
+(c) the full 48-layer mamba2-1.3b (no flash launch) and 54-layer
+zamba2-2.7b (exactly 9 sites x 48 steps = 432 flash launches, no plain
+call) through ``serve_lm.main``, timed; (d) 8 profiled decode steps of
+each: idle share, launches a step split by ranges into SSD layers and
+shared-block calls, no host sync; (f) the flash kernel at zamba2's
+decode shape (128 heads, sq = 1, sk = 49, d = 80) against its plain
+version, timed beside it, its bound and SDPA. Phases 5, 11, 12, 13, 14,
+15 and 16 set the counts to 0 before their runs and read them after, and
+allow no plain call, fold or failed lane grid there. It exits non-zero,
 printing no result line, when there is no CUDA device, when the port is
 missing, or when any phase fails. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -868,8 +888,10 @@ def phase_times(device, gemm=(200, 220, 240), per_class=256, length=4096):
 
 
 # the record_function ranges that phase 15 (d) opens around each layer
-# and its MoE part
+# and its MoE part, and phase 16 (d) around each SSD layer and each call
+# of the shared block
 RANGES = ("strela_layer", "strela_moe")
+SSM_RANGES = ("strela_ssd", "strela_shared")
 
 
 def profile_run(fn):
@@ -893,7 +915,8 @@ def profile_run(fn):
     for e in events:
         # a record_function range shows on the device's timeline too
         if e.device_type == DeviceType.CUDA and not (
-                getattr(e, "is_user_annotation", False) or e.name in RANGES):
+                getattr(e, "is_user_annotation", False)
+                or e.name in RANGES + SSM_RANGES):
             spans.append((e.time_range.start, e.time_range.end))
             name = e.name.replace("(anonymous namespace)::", "")
             name = name.removeprefix("void ").split("(")[0].strip()
@@ -2075,9 +2098,9 @@ def launches_in(events, names):
     return counts
 
 
-def mark_ranges(params):
-    """``record_function`` ranges around each layer and each MoE layer,
-    opened and closed by forward hooks."""
+def mark_ranges(pairs):
+    """``record_function`` ranges around each call of each module of the
+    (module, range name) ``pairs``, opened and closed by forward hooks."""
     import torch
     open_ranges = []
 
@@ -2091,10 +2114,9 @@ def mark_ranges(params):
     def leave(mod, args, out):
         open_ranges.pop().__exit__(None, None, None)
     handles = []
-    for block in params.layers:
-        for mod, name in zip((block, block.moe), RANGES):
-            handles.append(mod.register_forward_pre_hook(enter(name)))
-            handles.append(mod.register_forward_hook(leave))
+    for mod, name in pairs:
+        handles.append(mod.register_forward_pre_hook(enter(name)))
+        handles.append(mod.register_forward_hook(leave))
     return handles
 
 
@@ -2271,7 +2293,8 @@ def phase_moe(device):
                 api.decode_step(params, state, cur, first + i)
     steps()
     prof = profile_run(steps)
-    handles = mark_ranges(params)
+    handles = mark_ranges([pair for block in params.layers
+                           for pair in zip((block, block.moe), RANGES)])
     try:
         split = launches_in(profile_run(steps)["events"], RANGES)
     finally:
@@ -2402,6 +2425,379 @@ def phase_moe(device):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the Mamba-2 SSD layer and the Zamba-2 hybrid on the card
+# ---------------------------------------------------------------------------
+
+SSM_ARCH, HYBRID_ARCH = "mamba2-1.3b", "zamba2-2.7b"
+SSD_SEQS = (256, 512)            # one and two chunks of the full 256
+SSD_BATCH, SSD_DECODE = 2, 4     # (a): decode steps from the carried state
+# (b), (e): depth cut to 2 SSD layers and to 6, which is one site of the
+# shared block
+SSM_CUTS = {SSM_ARCH: 2, HYBRID_ARCH: 6}
+SSM_PROMPT, SSM_GEN = 8, 4       # (b): through serve_lm.generate
+PREFILL_SEQ, PREFILL_BATCH = 256, 2     # (e): api.prefill, one chunk
+
+
+def recording(api, out):
+    """``api`` whose ``decode_step`` also appends each step's logits to
+    ``out``."""
+    def step(params, state, tokens, cache_len):
+        logits, state = api.decode_step(params, state, tokens, cache_len)
+        out.append(logits)
+        return logits, state
+    return dataclasses.replace(api, decode_step=step)
+
+
+def ssd_layer_case(cfg, dtype, device):
+    """One SSD layer at ``cfg``'s widths in ``dtype``: the chunked form at
+    each of ``SSD_SEQS`` and ``SSD_DECODE`` decode steps from the carried
+    state, on the card against the CPU from the same parameters and
+    inputs; two card runs bit-identical; no host sync under sync-debug
+    "error". Returns the max abs errors (chunked, decode)."""
+    import torch
+    from repro_torch.models import ssm as S
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    p = S.ssm_init(torch.Generator().manual_seed(SEED), cfg, cfg.torch_dtype)
+    pc = {k: v.to(device) for k, v in p.items()}
+    gen = torch.Generator().manual_seed(SEED + 16)
+    n = max(SSD_SEQS)
+    x = torch.randn(SSD_BATCH, n + SSD_DECODE, cfg.d_model, generator=gen)
+    x = x.to(cfg.torch_dtype)
+    xc = x.to(device)
+    tag = f"{cfg.arch_id} SSD layer {dtype}"
+    chunk_err = 0.0
+    with torch.inference_mode():
+        for seq in SSD_SEQS:
+            want, wst = S.ssm_forward(p, cfg, x[:, :seq])
+            got, gst = S.ssm_forward(pc, cfg, xc[:, :seq])
+            again, rst = S.ssm_forward(pc, cfg, xc[:, :seq])
+            check(torch.equal(got, again) and torch.equal(gst[1], rst[1]),
+                  f"{tag} S={seq}: two card runs differ")
+            chunk_err = max(chunk_err, close(
+                got.cpu(), want, LM_TOL, LM_TOL, f"{tag} S={seq}: card != "
+                f"CPU"), close(gst[1].cpu(), wst[1], LM_TOL, LM_TOL,
+                               f"{tag} S={seq}: final state card != CPU"))
+        wst = tuple(t.clone() for t in wst)
+        gst = tuple(t.clone() for t in gst)
+        rst = tuple(t.clone() for t in gst)
+        dec_err = 0.0
+        for t in range(n, n + SSD_DECODE):
+            want, wst = S.ssm_forward(p, cfg, x[:, t:t + 1], wst)
+            got, gst = S.ssm_forward(pc, cfg, xc[:, t:t + 1], gst)
+            again, rst = S.ssm_forward(pc, cfg, xc[:, t:t + 1], rst)
+            check(torch.equal(got, again) and torch.equal(gst[1], rst[1]),
+                  f"{tag} decode step {t}: two card runs differ")
+            dec_err = max(dec_err, close(got.cpu(), want, LM_TOL, LM_TOL,
+                                         f"{tag} decode step {t}: card != "
+                                         f"CPU"))
+        close(gst[1].cpu(), wst[1], LM_TOL, LM_TOL,
+              f"{tag}: decode state card != CPU")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            S.ssm_forward(pc, cfg, xc[:, :SSD_SEQS[0]])
+            S.ssm_forward(pc, cfg, xc[:, n:n + 1], gst)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return chunk_err, dec_err
+
+
+def cut_depth_case(arch, n_layers, device, rng):
+    """(b) ``arch`` at full width cut to ``n_layers`` through
+    ``serve_lm.generate`` and (e) its ``api.prefill``, card against CPU.
+    bf16 rounding differs between the card's and the CPU's GEMMs and adds
+    up over layers, so the float32 model (the bf16 weights upcast) is held
+    to the LM tolerance, and each bf16 run to its distance from that
+    float32 model on the CPU: the card's no more than twice the CPU's
+    own."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+    from repro_torch.models import hybrid as H
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    sites = H.n_shared_sites(cfg) if cfg.family == "hybrid" else 0
+    api, api32 = build_model(cfg), build_model(cfg32)
+    bf = api.init_params(torch.Generator().manual_seed(SEED))
+    f32 = copy.deepcopy(bf).float()
+    f32.cfg = cfg32
+    models = {("cpu", "bf16"): (api, bf),
+              ("card", "bf16"): (api, copy.deepcopy(bf).to(device)),
+              ("cpu", "f32"): (api32, f32),
+              ("card", "f32"): (api32, copy.deepcopy(f32).to(device))}
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        LM_BATCH, SSM_PROMPT)).astype(np.int32))
+    runs = {}
+    for key, (a, params) in models.items():
+        steps = []
+        fa.launches = fa.plain_calls = 0
+        with torch.inference_mode():
+            res = serve_lm.generate(recording(a, steps), params,
+                                    prompt.to(params.embed.device),
+                                    SSM_GEN)
+        runs[key] = (res["tokens"], [x.cpu().float() for x in steps],
+                     (fa.launches, fa.plain_calls))
+    want = sites * (SSM_PROMPT + SSM_GEN)
+    for key in (("card", "bf16"), ("card", "f32")):
+        check(runs[key][2] == (want, 0), f"{arch} {n_layers} layers "
+              f"generate {key[1]}: flash launches, plain calls "
+              f"{runs[key][2]} (want {want}, 0)")
+    # float32: a row's generations part where the greedy choice flips,
+    # so each row is compared up to that step, and a flip is accepted
+    # only where the CPU's logits put the card's choice within twice
+    # the tolerance of its own
+    (ctok, csteps, _), (gtok, gsteps, _) = (runs["cpu", "f32"],
+                                            runs["card", "f32"])
+    errs, flips = [], []
+    for b in range(LM_BATCH):
+        diff = np.flatnonzero(ctok[b] != gtok[b])
+        last = SSM_PROMPT + (diff[0] if diff.size else SSM_GEN)
+        for t in range(last):
+            errs.append(close(gsteps[t][b], csteps[t][b], LM_TOL, LM_TOL,
+                              f"{arch} {n_layers} layers float32, row "
+                              f"{b} step {t}: card != CPU"))
+        if diff.size:
+            lg = csteps[last - 1][b]
+            top = float(lg[int(ctok[b, diff[0]])])
+            margin = top - float(lg[int(gtok[b, diff[0]])])
+            check(margin <= 2 * (LM_TOL + LM_TOL * abs(top)),
+                  f"{arch} {n_layers} layers: row {b} flips at step "
+                  f"{last - 1} where the CPU's margin is {margin}")
+            flips.append((b, last - 1, margin))
+    # bf16 over the prompt's steps, whose inputs every run shares (the
+    # vocabulary's columns: the padded ones hold -1e30 in each dtype)
+    def prompt_logits(key):
+        return torch.stack(runs[key][1][:SSM_PROMPT])[..., :cfg.vocab]
+    ref = prompt_logits(("cpu", "f32"))
+    dist = {dev: float((prompt_logits((dev, "bf16")) - ref).abs().max())
+            for dev in ("cpu", "card")}
+    pair = float((prompt_logits(("card", "bf16"))
+                  - prompt_logits(("cpu", "bf16"))).abs().max())
+    check(dist["card"] <= 2 * dist["cpu"], f"{arch} {n_layers} layers "
+          f"bf16: the card's logits are {dist['card']} from the float32 "
+          f"model's, the CPU's {dist['cpu']}")
+    print(f"[ssm] (b) {arch} at full width cut to {n_layers} layers "
+          f"({sites} shared-block sites) through serve_lm.generate, "
+          f"batch {LM_BATCH} x ({SSM_PROMPT} + {SSM_GEN}), the same "
+          f"weights in float32 and bf16: float32 card against CPU max "
+          f"abs err {max(errs)} over {len(errs)} row-steps (limit "
+          f"{LM_TOL} + {LM_TOL} |logit|), greedy flips (row, step, CPU "
+          f"margin) {flips}; bf16 over the {SSM_PROMPT} prompt steps: "
+          f"max abs distance from the float32 CPU run, card {dist['card']}"
+          f", CPU {dist['cpu']} (the card's held to twice the CPU's), "
+          f"card against CPU {pair}; card flash launches {want} a run, "
+          f"plain calls 0; card bf16 tokens "
+          f"{runs['card', 'bf16'][0].tolist()}")
+
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        PREFILL_BATCH, PREFILL_SEQ)).astype(np.int32))
+    outs = {}
+    for key, (a, params) in models.items():
+        fa.launches = fa.plain_calls = 0
+        with torch.inference_mode():
+            logits, _ = a.prefill(params, {
+                "tokens": toks.to(params.embed.device)})
+        outs[key] = logits.cpu().float()
+        if key[0] == "card":
+            check((fa.launches, fa.plain_calls) == (sites, 0),
+                  f"{arch} {n_layers} layers prefill {key[1]}: flash "
+                  f"launches, plain calls {fa.launches, fa.plain_calls} "
+                  f"(want {sites}, 0)")
+    err = close(outs["card", "f32"], outs["cpu", "f32"], LM_TOL, LM_TOL,
+                f"{arch} {n_layers} layers float32 prefill: card != CPU")
+    dist = {dev: float((outs[dev, "bf16"] - outs["cpu", "f32"]).abs()
+                       .max()) for dev in ("cpu", "card")}
+    check(dist["card"] <= 2 * dist["cpu"], f"{arch} {n_layers} layers "
+          f"bf16 prefill: the card's logits are {dist['card']} from the "
+          f"float32 model's, the CPU's {dist['cpu']}")
+    print(f"[ssm] (e) {arch} cut to {n_layers} layers: api.prefill of "
+          f"{PREFILL_SEQ} tokens at batch {PREFILL_BATCH} (the chunked "
+          f"form, {PREFILL_SEQ // cfg.ssm.chunk} chunk(s) of "
+          f"{cfg.ssm.chunk}): float32 card against CPU max abs err {err} "
+          f"(limit {LM_TOL} + {LM_TOL} |logit|); bf16 max abs distance "
+          f"from the float32 CPU run, card {dist['card']}, CPU "
+          f"{dist['cpu']}, card against CPU "
+          f"{float((outs['card', 'bf16'] - outs['cpu', 'bf16']).abs().max())}"
+          f"; flash launches {sites} a card run (sq = sk = "
+          f"{PREFILL_SEQ}), plain calls 0")
+
+
+
+def phase_ssm(device):
+    """(a) the SSD layer at mamba2-1.3b's and zamba2-2.7b's widths, card
+    against CPU; (b) both models at full width cut to 2 and 6 layers
+    through ``serve_lm.generate``, card against CPU, and (e) their
+    ``api.prefill`` at S = 256; (c) the full models through
+    ``serve_lm.main`` with the flash counts read around them; (d) 8
+    profiled decode steps of each; (f) the flash kernel at zamba2's decode
+    shape against its plain version, timed beside it, its bound and
+    SDPA."""
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import hybrid as H
+    from repro_torch.models import ssm as S
+    print(f"[ssm] card: {nvidia_smi()}")
+    rng = np.random.default_rng(SEED + 16)
+
+    # (a) the SSD layer at both models' widths
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        cfg = get_arch(arch)
+        dI, nh, convd, N = S.dims(cfg)
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            chunk_err, dec_err = ssd_layer_case(cfg, dtype, device)
+            print(f"[ssm] (a) {arch} SSD layer (d_model {cfg.d_model}, "
+                  f"d_inner {dI}, {nh} heads x {cfg.ssm.head_dim}, d_state "
+                  f"{N}, chunk {cfg.ssm.chunk}), {dtype}, batch {SSD_BATCH}: "
+                  f"chunked at S in {SSD_SEQS} and {SSD_DECODE} decode steps "
+                  f"from the carried state, card against CPU: max abs err "
+                  f"{chunk_err} (chunked, final state), {dec_err} (decode) "
+                  f"(limit {LM_TOL} + {LM_TOL} |x|); two card runs "
+                  f"bit-identical; no sync under sync-debug \"error\" "
+                  f"({time.perf_counter() - t0:.1f} s with the CPU runs)")
+        torch.cuda.empty_cache()
+
+    # (b) and (e): full width cut in depth, card against CPU
+    for arch, n_layers in SSM_CUTS.items():
+        cut_depth_case(arch, n_layers, device, rng)
+        torch.cuda.empty_cache()
+
+    # (c) the full models through serve_lm.main, (d) their decode steps
+    hybrid_launches = None
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        cfg = get_arch(arch)
+        sites = H.n_shared_sites(cfg) if cfg.family == "hybrid" else 0
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.plain_calls = 0
+        t0 = time.perf_counter()
+        res = serve_lm.main(["--arch", arch, "--batch", str(LM_BATCH),
+                             "--prompt-len", str(LM_PROMPT), "--gen",
+                             str(LM_GEN), "--seed", str(SEED),
+                             "--device", str(device)])
+        wall = time.perf_counter() - t0
+        launches, plain = fa.launches, fa.plain_calls
+        tokens, logits = res["tokens"], res["logits"]
+        want = sites * (LM_PROMPT + LM_GEN)
+        check(tokens.shape == (LM_BATCH, LM_GEN) and tokens.min() >= 0
+              and tokens.max() < cfg.vocab, f"serve_lm {arch} tokens out of "
+              f"the vocab or misshapen: {tokens.shape}")
+        check(logits.device.type == device.type and bool(torch.isfinite(
+            logits[:, :cfg.vocab].float()).all()),
+              f"serve_lm {arch}'s last logits are not finite on the card")
+        check(launches == want and plain == 0,
+              f"serve_lm {arch}: flash launches {launches} (want {sites} "
+              f"sites x {LM_PROMPT + LM_GEN} steps = {want}), plain calls "
+              f"{plain} (want 0)")
+        if sites:
+            hybrid_launches = launches
+        n_params = sum(q.numel() for q in res["params"].parameters())
+        dI, nh, convd, N = S.dims(cfg)
+        print(f"[ssm] (c) serve_lm.main --arch {arch} ({cfg.n_layers} SSD "
+              f"layers, d_model {cfg.d_model}, d_inner {dI}, {nh} heads x "
+              f"{cfg.ssm.head_dim}, d_state {N}"
+              + (f"; a shared block at {sites} sites, {cfg.n_heads} heads x "
+                 f"{cfg.hd}, GELU d_ff {cfg.d_ff}" if sites else "")
+              + f"; vocab {cfg.vocab} padded to {cfg.vocab_padded}; "
+              f"{n_params} parameters in {cfg.dtype}), batch {LM_BATCH}, "
+              f"prompt {LM_PROMPT}, gen {LM_GEN}, seed {SEED}: prefill "
+              f"{res['prefill_s']:.4f} s "
+              f"({res['prefill_s'] / LM_PROMPT * 1e3:.3f} ms/step), decode "
+              f"{res['ms_per_token']:.4f} ms/token/batch; "
+              f"call wall {wall:.3f} s with the weights' init; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; flash "
+              f"launches {launches}, plain calls {plain}; row 0 "
+              f"{tokens[0].tolist()}")
+
+        # (d) decode steps after the served ones, profiled, then split by
+        # layer part, then one under sync-debug "warn"
+        api, params, state = res["api"], res["params"], res["state"]
+        cur = torch.argmax(logits, -1)[:, None]
+        first = LM_PROMPT + LM_GEN - LM_PROFILED_STEPS
+
+        def steps():
+            with torch.inference_mode():
+                for i in range(LM_PROFILED_STEPS):
+                    api.decode_step(params, state, cur, first + i)
+        steps()
+        prof = profile_run(steps)
+        handles = mark_ranges(
+            [(block, SSM_RANGES[0]) for block in params.layers]
+            + ([(params.shared, SSM_RANGES[1])] if sites else []))
+        try:
+            split = launches_in(profile_run(steps)["events"], SSM_RANGES)
+        finally:
+            for h in handles:
+                h.remove()
+        if prof["by_name"]:
+            top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:8]
+            print(f"[ssm] (d) {arch}: {LM_PROFILED_STEPS} profiled decode "
+                  f"steps: wall {prof['wall_s']:.4f} s "
+                  f"({prof['wall_s'] / LM_PROFILED_STEPS * 1e3:.3f} ms/step), "
+                  f"device busy {prof['busy_s'] * 1e3:.4f} ms, device idle "
+                  f"share {1 - prof['busy_s'] / prof['wall_s']:.5f}; device "
+                  f"ms by name {({n: round(v / 1e3, 4) for n, v in top})}; "
+                  f"kernels recorded {sum(prof['count'].values())}; flash "
+                  f"device ms per recorded launch (sk = 41..48) "
+                  f"{ {n: v for n, v in per_launch(prof).items()
+                      if 'flash' in n} }")
+        else:
+            print(f"[ssm] (d) {arch}: device idle share not measured (the "
+                  f"profiler recorded no device activity)")
+        ssd, shared = split[SSM_RANGES[0]], split[SSM_RANGES[1]]
+        outside = split["all"] - ssd - shared
+        print(f"[ssm] (d) {arch}: kernel launches (host calls, a second "
+              f"profiled run with a range around each SSD layer and each "
+              f"shared-block call) per step "
+              f"{split['all'] / LM_PROFILED_STEPS:.1f}; per SSD layer "
+              f"{ssd / (LM_PROFILED_STEPS * cfg.n_layers):.2f}; per "
+              f"shared-block call "
+              + (f"{shared / (LM_PROFILED_STEPS * sites):.2f}" if sites
+                 else "none")
+              + f"; outside them {outside / LM_PROFILED_STEPS:.1f} per step")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with torch.inference_mode():
+                    api.decode_step(params, state, cur, first)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [str(w.message).splitlines()[0] for w in caught
+                 if "synchroniz" in str(w.message)]
+        check(not syncs, f"{arch}: a decode step synchronises with the "
+              f"host: {syncs[:3]}")
+        print(f"[ssm] (d) {arch}: host syncs in one decode step under "
+              f"sync-debug \"warn\": {len(syncs)}")
+        del res, api, params, state, logits, prof
+        torch.cuda.empty_cache()
+
+    # (f) the flash kernel at zamba2's decode shape
+    cfg = get_arch(HYBRID_ARCH)
+    h, sk, d = LM_BATCH * cfg.n_heads, LM_PROMPT + LM_GEN + 1, cfg.hd
+    frng = np.random.default_rng(SEED + 16)
+    q = normal(frng, (h, 1, d), device)
+    kk, vv = (normal(frng, (h, sk, d), device) for _ in range(2))
+    e = close(fa.attention_kernel(q, kk, vv, True),
+              fa.attention_plain(q, kk, vv, True), 3e-5, 3e-5,
+              f"flash_attention h={h} sq=1 sk={sk} d={d}")
+    print(f"[ssm] (f) flash_kernel against its plain version at h={h}, "
+          f"sq=1, sk={sk}, d={d}, causal: max abs err {e} (limit 3e-5)")
+    row = dict(time_flash(q, kk, vv, "ssm-times"), max_abs_err=e,
+               launches=hybrid_launches)
+    print(f"[ssm] card: {nvidia_smi()}")
+    return row
+
+
 def nvidia_smi() -> str:
     try:
         out = subprocess.run(
@@ -2457,6 +2853,7 @@ def main() -> int:
     del ins
     lm_row = phase_lm(device)
     moe_rows = phase_moe(device)
+    ssm_row = phase_ssm(device)
 
     from repro_torch.bench_kernels import ROTATE
     main_rows = {"fabric_reduce_lanes": (
@@ -2502,6 +2899,7 @@ def main() -> int:
         "max_abs_err": lm_row["max_abs_err"], "ms": lm_row["ms"],
         "plain_ms": lm_row["plain_ms"], "bound_ms": lm_row["bound_ms"],
         "bound_by": lm_row["bound_by"], "library_ms": lm_row["library_ms"]})
+    moe_rows["flash_attention hybrid decode d80"] = ssm_row
     for kname, r in moe_rows.items():
         kernels.append({
             "name": kname, "route": "cuda",

@@ -18,6 +18,8 @@ import torch
 
 from repro_torch.core import dfg as D
 from repro_torch.core.isa import AluOp, CmpOp
+from repro_torch.models.hybrid import Hybrid
+from repro_torch.models.ssm import Mamba2LM
 from repro_torch.models.transformer import Transformer
 
 
@@ -64,14 +66,19 @@ def _map(tree, fn):
 
 
 def lm_params_from_reference(tree, cfg, device="cuda"):
-    """Rebuild a reference dense / MoE / vlm transformer parameter tree
-    (the output of ``repro.models.api.build_model(cfg).init_params``) as
-    the port's ``Transformer`` on ``device``: the leading-L layer stacks
-    (the MoE subtree and its shared expert among them) are unstacked into
-    one block each, and every leaf keeps the reference leaf's dtype, so a
-    MoE router stays float32 in a bfloat16 model."""
-    out = {k: _tensor(v, device) for k, v in tree.items() if k != "layers"}
+    """Rebuild a reference LM parameter tree (the output of
+    ``repro.models.api.build_model(cfg).init_params``) as the port's
+    model for ``cfg.family`` on ``device``: a ``Transformer`` (dense, moe,
+    vlm), a ``Mamba2LM`` (ssm) or a ``Hybrid``. The leading-L layer
+    stacks (the MoE subtree and its shared expert among them) are
+    unstacked into one block each; the hybrid's ``shared`` subtree has no
+    L axis and crosses as it is. Every leaf keeps the reference leaf's
+    dtype, so a MoE router or an SSM's ``A_log`` stays float32 in a
+    bfloat16 model."""
+    out = {k: _map(v, lambda a: _tensor(a, device))
+           for k, v in tree.items() if k != "layers"}
     out["layers"] = [_map(tree["layers"], lambda a, i=i: _tensor(a[i],
                                                                   device))
                      for i in range(cfg.n_layers)]
-    return Transformer(cfg, out)
+    model = {"ssm": Mamba2LM, "hybrid": Hybrid}.get(cfg.family, Transformer)
+    return model(cfg, out)

@@ -1,6 +1,7 @@
-"""LM serving launch driver: prefill + greedy decode with KV caches
-(counterpart of ``repro.launch.serve_lm``; the dense, moe and vlm
-families so far, a vlm on tokens only as in the reference).
+"""LM serving launch driver: prefill + greedy decode with KV caches and
+SSM states (counterpart of ``repro.launch.serve_lm``; the dense, moe,
+vlm, ssm and hybrid families so far, a vlm on tokens only as in the
+reference).
 
 Not to be confused with ``repro_torch.serve`` (the always-on CGRA kernel
 serving engine): this module batch-serves *language models*. It runs on
@@ -8,6 +9,8 @@ the card unless ``--device cpu`` is passed:
 
   python -m repro_torch.launch.serve_lm --arch minicpm-2b
   python -m repro_torch.launch.serve_lm --arch granite-moe-3b-a800m
+  python -m repro_torch.launch.serve_lm --arch mamba2-1.3b
+  python -m repro_torch.launch.serve_lm --arch zamba2-2.7b
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch minicpm-2b \\
       --reduced --device cpu
 """
@@ -21,15 +24,28 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import get_arch
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, ssm, transformer
 from repro_torch.models.api import ModelAPI, build_model
 
 
+def init_decode_state(cfg, batch: int, max_len: int, device="cuda"):
+    """The zeroed decode state of ``cfg``'s family: the KV caches (dense,
+    moe, vlm), the SSM states (ssm) or both (hybrid)."""
+    if cfg.family in ("dense", "moe", "vlm"):
+        return transformer.init_caches(cfg, batch, max_len, device=device)
+    if cfg.family == "ssm":
+        return ssm.init_lm_states(cfg, batch, device)
+    if cfg.family == "hybrid":
+        return hybrid.init_decode_state(cfg, batch, max_len, device)
+    raise ValueError(cfg.family)
+
+
 def generate(api: ModelAPI, params, prompt: torch.Tensor, gen: int) -> Dict:
-    """Prefill by repeated ``decode_step`` over the prompt (the caches'
-    warm-up, as in the reference), then ``gen`` greedy steps. Returns the
-    generated tokens (B, gen) on the host, the last logits, the decode
-    state and the two phases' seconds (each ending in a synchronise)."""
+    """Prefill by repeated ``decode_step`` over the prompt (the decode
+    state's warm-up, as in the reference), then ``gen`` greedy steps.
+    Returns the generated tokens (B, gen) on the host, the last logits,
+    the decode state and the two phases' seconds (each ending in a
+    synchronise)."""
     cfg, device = api.cfg, prompt.device
     B, S = prompt.shape
 
@@ -38,7 +54,7 @@ def generate(api: ModelAPI, params, prompt: torch.Tensor, gen: int) -> Dict:
             torch.cuda.synchronize(device)
 
     t0 = time.perf_counter()
-    state = transformer.init_caches(cfg, B, S + gen + 1, device=device)
+    state = init_decode_state(cfg, B, S + gen + 1, device)
     logits = None
     for t in range(S):
         logits, state = api.decode_step(params, state, prompt[:, t:t + 1], t)

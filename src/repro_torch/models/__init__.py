@@ -6,11 +6,18 @@
     sort dispatch with drops, stacked experts, the ordered combine
   * ``transformer`` — the dense / MoE decoder with a vlm's patch
     embeddings (``Block``, ``Transformer``, ``init_caches``)
+  * ``ssm`` — the Mamba-2 SSD layer (causal conv, chunked form, decode
+    recurrence, gated RMSNorm) and the Mamba-2 LM (``SSMBlock``,
+    ``Mamba2LM``, ``init_lm_states``)
+  * ``hybrid`` — Zamba-2: SSD layers and one shared attention block run
+    at every ``share_every``-th layer (``SharedBlock``, ``Hybrid``,
+    ``init_decode_state``)
   * ``api`` — ``build_model(cfg)`` -> ``ModelAPI`` (``init_params``,
-    ``loss``, ``prefill``, ``decode_step``) for dense, moe and vlm
+    ``loss``, ``prefill``, ``decode_step``) for dense, moe, vlm, ssm and
+    hybrid
 
-The other families (ssm, hybrid, audio) raise ``NotImplementedError``
-naming their queue item in ``ROADMAP.md``.
+The audio family raises ``NotImplementedError`` naming its queue item in
+``ROADMAP.md``.
 """
 from repro_torch.models.api import ModelAPI, build_model
 

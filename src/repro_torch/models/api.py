@@ -1,15 +1,18 @@
 """Unified model API: one bundle per architecture family (counterpart of
-``repro.models.api``; the dense, moe and vlm families so far).
+``repro.models.api``; the dense, moe, vlm, ssm and hybrid families so
+far).
 
 For each of them:
   * ``init_params(generator)``                    (on the generator's device)
   * ``loss(params, batch)``                       (training forward)
   * ``prefill(params, batch)``                    (build decode state)
-  * ``decode_step(params, state, tokens, len)``   (one new token, KV cache)
+  * ``decode_step(params, state, tokens, len)``   (one new token; the KV
+    caches, SSM states or both, updated in place)
 
 Batch layout: ``{tokens (B, S), targets (B, S)}`` integer tensors, a vlm's
 ``patches (B, P, D)`` beside them (its ``targets`` cover the text only),
-and for ``prefill`` an optional ``max_len``. ``cache_len`` is a Python
+and for ``prefill`` an optional ``max_len`` (the transformer's caches;
+ssm and hybrid ignore it, as the reference does). ``cache_len`` is a Python
 int; ``decode_step`` takes tokens only. The reference's
 ``input_specs``/``state_specs`` serve its multi-pod dry run and come with
 ``launch/dryrun``.
@@ -22,12 +25,11 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, ssm, transformer
 from repro_torch.models.layers import mask_padded_vocab, xent_loss
 
 # the families still to port, each with the reference module it needs
-PENDING = {"ssm": "models/ssm.py", "hybrid": "models/hybrid.py",
-           "audio": "models/encdec.py"}
+PENDING = {"audio": "models/encdec.py"}
 
 
 @dataclasses.dataclass
@@ -42,6 +44,10 @@ class ModelAPI:
 def build_model(cfg: ArchConfig) -> ModelAPI:
     if cfg.family in ("dense", "moe", "vlm"):
         return _build_transformer(cfg)
+    if cfg.family == "ssm":
+        return _build_ssm(cfg)
+    if cfg.family == "hybrid":
+        return _build_hybrid(cfg)
     if cfg.family in PENDING:
         raise NotImplementedError(
             f"{cfg.arch_id}: the {cfg.family} builder "
@@ -81,3 +87,52 @@ def _build_transformer(cfg: ArchConfig) -> ModelAPI:
 
     return ModelAPI(cfg, lambda gen: transformer.init_params(gen, cfg),
                     loss, prefill, decode_step)
+
+
+def _build_ssm(cfg: ArchConfig) -> ModelAPI:
+    def loss(params, batch):
+        logits, _, aux = ssm.lm_forward(params, cfg, batch["tokens"])
+        return xent_loss(logits, batch["targets"], cfg.vocab) + aux, aux
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        """The chunked forward's last logits (unmasked) and *zeroed*
+        states, as the reference returns them: the prompt's states are
+        not handed to decode."""
+        logits, _, _ = ssm.lm_forward(params, cfg, batch["tokens"])
+        return logits[:, -1], ssm.init_lm_states(
+            cfg, batch["tokens"].shape[0], device=params.embed.device)
+
+    @torch.no_grad()
+    def decode_step(params, state, tokens, cache_len: int):
+        logits, state, _ = ssm.lm_forward(params, cfg, tokens, states=state)
+        return mask_padded_vocab(logits[:, -1], cfg.vocab), state
+
+    return ModelAPI(cfg, lambda gen: ssm.init_lm(gen, cfg), loss, prefill,
+                    decode_step)
+
+
+def _build_hybrid(cfg: ArchConfig) -> ModelAPI:
+    def loss(params, batch):
+        logits, _, aux = hybrid.forward(params, cfg, batch["tokens"])
+        return xent_loss(logits, batch["targets"], cfg.vocab) + aux, aux
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        """The forward's last logits (unmasked), zeroed states and zeroed
+        caches ``S + 8`` long, as the reference returns them (``max_len``
+        is ignored)."""
+        B, S = batch["tokens"].shape
+        logits, _, _ = hybrid.forward(params, cfg, batch["tokens"])
+        return logits[:, -1], hybrid.init_decode_state(
+            cfg, B, S + 8, device=params.embed.device)
+
+    @torch.no_grad()
+    def decode_step(params, state, tokens, cache_len: int):
+        states, caches = state
+        logits, state, _ = hybrid.forward(params, cfg, tokens, states=states,
+                                          caches=caches, cache_len=cache_len)
+        return mask_padded_vocab(logits[:, -1], cfg.vocab), state
+
+    return ModelAPI(cfg, lambda gen: hybrid.init_params(gen, cfg), loss,
+                    prefill, decode_step)

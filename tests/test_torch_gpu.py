@@ -663,3 +663,90 @@ def test_serve_lm_moe_at_full_width_launches_flash_per_layer_and_step(cuda):
     assert res["tokens"].shape == (4, 16)
     assert res["tokens"].min() >= 0 and res["tokens"].max() < cfg.vocab
     assert bool(torch.isfinite(res["logits"][:, :cfg.vocab].float()).all())
+
+
+# the SSD layer and the hybrid (chip_smoke.py phase 16): one layer at
+# mamba2-1.3b's and zamba2-2.7b's widths, and both models at full width
+# cut to 2 SSD layers and to 6 (one site of zamba2's shared block)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_ssd_layer_on_the_card_matches_the_cpu(cuda, arch, dtype):
+    """The chunked form at S = 256 and 512 (one and two chunks), then 4
+    decode steps from the carried state: card against CPU within the LM
+    tolerance (3e-2), two card runs bit-identical, and no host sync under
+    sync-debug "error"."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ssm as S
+    cfg = dataclasses.replace(get_arch(arch), dtype=str(dtype)[6:])
+    p = S.ssm_init(torch.Generator().manual_seed(0), cfg, dtype)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    x = torch.randn(1, 516, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).to(dtype)
+    xc = x.to(cuda)
+    with torch.inference_mode():
+        for seq in (256, 512):
+            want, wst = S.ssm_forward(p, cfg, x[:, :seq])
+            got, gst = S.ssm_forward(pc, cfg, xc[:, :seq])
+            again, _ = S.ssm_forward(pc, cfg, xc[:, :seq])
+            assert torch.equal(got, again)
+            torch.testing.assert_close(got.cpu().float(), want.float(),
+                                       atol=3e-2, rtol=3e-2)
+        wst = tuple(t.clone() for t in wst)
+        gst = tuple(t.clone() for t in gst)
+        for t in range(512, 516):
+            want, wst = S.ssm_forward(p, cfg, x[:, t:t + 1], wst)
+            got, gst = S.ssm_forward(pc, cfg, xc[:, t:t + 1], gst)
+            torch.testing.assert_close(got.cpu().float(), want.float(),
+                                       atol=3e-2, rtol=3e-2)
+        torch.testing.assert_close(gst[1].cpu(), wst[1], atol=3e-2,
+                                   rtol=3e-2)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            S.ssm_forward(pc, cfg, xc[:, :256])
+            S.ssm_forward(pc, cfg, xc[:, 512:513], gst)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("arch,n_layers,sites", [("mamba2-1.3b", 2, 0),
+                                                 ("zamba2-2.7b", 6, 1)])
+def test_serve_lm_ssm_and_hybrid_at_full_width(cuda, arch, n_layers, sites):
+    """Full width cut in depth, serving batch 4 x (32 + 16) on the card in
+    bf16: a flash launch per site and step and no plain call; the tokens
+    in the vocab and the logits finite. Before it, the first decode step
+    of the same weights in float32 within the LM tolerance of the CPU
+    (bf16 rounding differs between the card's and the CPU's GEMMs and adds
+    up over the layers)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    api, api32 = build_model(cfg), build_model(cfg32)
+    params = api.init_params(torch.Generator().manual_seed(0))
+    f32 = copy.deepcopy(params).float()
+    f32.cfg = cfg32
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 32)).astype(np.int32))
+    with torch.inference_mode():
+        cpu_logits, _ = api32.decode_step(
+            f32, serve_lm.init_decode_state(cfg32, 4, 49, "cpu"),
+            prompt[:, :1], 0)
+        first, _ = api32.decode_step(
+            f32.to(cuda), serve_lm.init_decode_state(cfg32, 4, 49, cuda),
+            prompt[:, :1].to(cuda), 0)
+    torch.testing.assert_close(first.cpu(), cpu_logits, atol=3e-2,
+                               rtol=3e-2)
+    params, prompt = params.to(cuda), prompt.to(cuda)
+    launches, plain = fa.launches, fa.plain_calls
+    with torch.inference_mode():
+        res = serve_lm.generate(api, params, prompt, 16)
+    assert fa.launches - launches == sites * (32 + 16)
+    assert fa.plain_calls == plain
+    assert res["tokens"].shape == (4, 16)
+    assert res["tokens"].min() >= 0 and res["tokens"].max() < cfg.vocab
+    assert bool(torch.isfinite(res["logits"][:, :cfg.vocab].float()).all())

@@ -32,7 +32,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     # named, so that dropping any of these subpackages fails here
     named = ["repro_torch.workloads", "repro_torch.fleet",
              "repro_torch.configs", "repro_torch.models",
-             "repro_torch.models.moe", "repro_torch.launch.serve_lm"]
+             "repro_torch.models.moe", "repro_torch.models.ssm",
+             "repro_torch.models.hybrid", "repro_torch.launch.serve_lm"]
     for m in named:
         assert m in mods, m
         mods.remove(m)
@@ -57,7 +58,8 @@ def test_source_scan_finds_no_jax_or_reference_import():
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
-    assert os.path.join(PORT, "models", "moe.py") in files
+    for name in ("moe.py", "ssm.py", "hybrid.py"):
+        assert os.path.join(PORT, "models", name) in files
     offenders = []
     for f in files:
         with open(f) as fh:

@@ -3,11 +3,14 @@
 (``api.init_params(PRNGKey(0))``, carried over by
 ``repro_torch.convert.lm_params_from_reference``) and the same numpy
 tokens: ``transformer.forward``, ``api.loss``, ``api.prefill`` and
-``api.decode_step`` on the reduced dense, moe and vlm archs, in float32
-and bfloat16, with ``attention_impl`` "full" and "chunked" (a chunk below
-the sequence, so the reference's chunked branch runs; the port takes one
-path). The vlm's forward, loss and prefill take patch embeddings drawn
-from a seeded normal at scale 0.02, so that they show in the result.
+``api.decode_step`` on the reduced dense, moe, vlm, ssm and hybrid archs,
+in float32 and bfloat16, with ``attention_impl`` "full" and "chunked" (a
+chunk below the sequence, so the reference's chunked branch runs; the
+port takes one path; mamba2 has no attention and takes "full" only). The
+vlm's forward, loss and prefill take patch embeddings drawn from a
+seeded normal at scale 0.02, so that they show in the result. The forward
+is ``transformer.forward``, ``ssm.lm_forward`` or ``hybrid.forward`` by
+family.
 
 The MoE archs' reference runs op by op (``jax.disable_jit``), as the
 port does: jitted, XLA fuses a layer's bfloat16 elementwise chain and
@@ -21,8 +24,10 @@ relative; prefill and decode attend over the KV caches, which are
 bfloat16 in both packages whatever the config's dtype, so a float32
 k or v that rounds the other way there moves the logits: 3e-2 (the
 reference's own decode tolerance, ``tests/test_models.py:73-75``), as
-for everything in bfloat16. Then one test per reference quirk the port
-keeps."""
+for everything in bfloat16. The ssm and hybrid families keep float32
+states (and a float32 hybrid float32 caches), so their float32 prefill
+and decode are held to the forward's 2e-4. Then one test per reference
+quirk the port keeps."""
 import contextlib
 import dataclasses
 
@@ -33,22 +38,35 @@ import pytest
 import torch
 
 from repro.configs.base import get_arch as ref_arch
+from repro.models import hybrid as RH
+from repro.models import ssm as RS
 from repro.models import transformer as RT
 from repro.models.api import build_model as ref_build
 from repro_torch.configs.base import get_arch
 from repro_torch.convert import lm_params_from_reference
+from repro_torch.models import hybrid as H
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 from repro_torch.models.api import build_model
 
 DENSE = ["minicpm-2b", "qwen1.5-4b", "yi-9b", "internlm2-20b"]
 MOE = ["granite-moe-3b-a800m", "llama4-scout-17b-a16e"]
 VLM = ["internvl2-76b"]
+SSM_ARCHS = ["mamba2-1.3b"]                 # no attention: one impl
+HYBRID = ["zamba2-2.7b"]
 B, S, MAX_LEN, STEPS = 2, 16, 20, 3
 CHUNK = 8                      # below S: the reference's chunked branch runs
 LOOSE = dict(atol=3e-2, rtol=3e-2)
 TOL = {("float32", "forward"): dict(atol=2e-4, rtol=2e-4),
        ("float32", "loss"): dict(atol=0.0, rtol=1e-5)}
+
+
+def _tol(arch, dtype, what):
+    if (dtype == "float32" and arch in SSM_ARCHS + HYBRID
+            and what in ("prefill", "decode")):
+        return TOL["float32", "forward"]
+    return TOL.get((dtype, what), LOOSE)
 
 
 def _pair(arch, **kw):
@@ -95,11 +113,17 @@ def _run(arch, dtype, impl):
     with contextlib.ExitStack() as ref_mode, torch.no_grad():
         if rcfg.family == "moe":
             ref_mode.enter_context(jax.disable_jit())
-        out["forward"] = (
-            RT.forward(rp, rcfg, tokens=jnp.asarray(prompt),
-                       embeds=rpat.get("patches"))[0],
-            T.forward(pp, pcfg, torch.from_numpy(prompt),
-                      embeds=ppat.get("patches"))[0])
+        if rcfg.family == "ssm":
+            ref_fwd, port_fwd = RS.lm_forward, SSM.lm_forward
+        elif rcfg.family == "hybrid":
+            ref_fwd, port_fwd = RH.forward, H.forward
+        else:
+            ref_fwd = lambda p, c, t: RT.forward(  # noqa: E731
+                p, c, tokens=t, embeds=rpat.get("patches"))
+            port_fwd = lambda p, c, t: T.forward(  # noqa: E731
+                p, c, t, embeds=ppat.get("patches"))
+        out["forward"] = (ref_fwd(rp, rcfg, jnp.asarray(prompt))[0],
+                          port_fwd(pp, pcfg, torch.from_numpy(prompt))[0])
         out["loss"] = (
             rapi.loss(rp, {"tokens": jnp.asarray(prompt),
                            "targets": jnp.asarray(tgt), **rpat})[0],
@@ -134,17 +158,19 @@ def runs():
     return get
 
 
-@pytest.mark.parametrize("what", ["forward", "loss", "prefill", "decode"])
-@pytest.mark.parametrize("impl", ["full", "chunked"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE + MOE + VLM)
+@pytest.mark.parametrize("arch,dtype,impl,what", [
+    (arch, dtype, impl, what)
+    for arch in DENSE + MOE + VLM + SSM_ARCHS + HYBRID
+    for dtype in ("float32", "bfloat16")
+    for impl in (("full",) if arch in SSM_ARCHS else ("full", "chunked"))
+    for what in ("forward", "loss", "prefill", "decode")])
 def test_port_matches_the_reference(runs, arch, dtype, impl, what):
     ref, got = runs(arch, dtype, impl)[what]
     assert tuple(got.shape) == tuple(ref.shape)
     assert got.dtype == (torch.bfloat16 if dtype == "bfloat16"
                          and what != "loss" else torch.float32)
     np.testing.assert_allclose(_f32(got), _f32(ref),
-                               **TOL.get((dtype, what), LOOSE))
+                               **_tol(arch, dtype, what))
 
 
 def test_decode_matches_the_full_forward():

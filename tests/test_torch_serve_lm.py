@@ -1,8 +1,9 @@
 """``repro_torch.launch.serve_lm`` against ``repro.launch.serve_lm`` on the
 CPU: from the reference's own parameters in float32, the port's greedy
 tokens equal the reference loop's (whose first row's sample the
-reference ``main`` itself prints) for dense, moe and vlm archs (a vlm is
-served on tokens only, as the reference serves it); and the port's ``main`` runs here with
+reference ``main`` itself prints) for dense, moe, vlm, ssm and hybrid
+archs (a vlm is served on tokens only, as the reference serves it), each
+from its family's decode state; and the port's ``main`` runs here with
 ``--device cpu``, through the flash kernel's plain version once per layer
 and step, and refuses the card where there is none."""
 import ast
@@ -18,7 +19,6 @@ import torch
 
 import repro.launch.serve_lm as ref_serve_lm
 from repro.configs.base import get_arch as ref_arch
-from repro.models import transformer as RT
 from repro.models.api import build_model as ref_build
 from repro_torch.configs.base import get_arch
 from repro_torch.convert import lm_params_from_reference
@@ -31,10 +31,10 @@ BATCH, PROMPT, GEN = 4, 32, 16           # serve_lm's defaults
 
 def _reference_generate(api, params, tokens, gen):
     """The reference driver's loop (``src/repro/launch/serve_lm.py``,
-    ``main`` from the caches to the stacked generations)."""
+    ``main`` from the decode state to the stacked generations)."""
     cfg = api.cfg
     B, S = tokens.shape
-    state = RT.init_caches(cfg, B, S + gen + 1)
+    state = ref_serve_lm.init_decode_state(cfg, api, B, S + gen + 1, None)
     decode = jax.jit(api.decode_step)
     cache_len, logits = jnp.zeros((), jnp.int32), None
     for t in range(S):
@@ -51,7 +51,8 @@ def _reference_generate(api, params, tokens, gen):
 
 
 @pytest.mark.parametrize("arch", ["minicpm-2b", "yi-9b",
-                                  "granite-moe-3b-a800m", "internvl2-76b"])
+                                  "granite-moe-3b-a800m", "internvl2-76b",
+                                  "mamba2-1.3b", "zamba2-2.7b"])
 def test_greedy_tokens_equal_the_reference(arch, monkeypatch, capsys):
     f32 = lambda a: dataclasses.replace(ref_arch(a), dtype="float32")  # noqa
     rcfg = f32(arch).reduced()
@@ -99,6 +100,23 @@ def test_main_serves_on_the_cpu_through_the_flash_wrapper(capsys):
     assert "ms/token/batch" in out
 
 
+@pytest.mark.parametrize("arch,sites", [("mamba2-1.3b", 0),
+                                        ("zamba2-2.7b", 2)])
+def test_main_serves_ssm_and_hybrid_on_the_cpu(arch, sites):
+    """mamba2 runs no attention; the reduced zamba2's two shared-block
+    sites call the flash wrapper's plain version once a step each."""
+    before = (fa.launches, fa.plain_calls)
+    res = serve_lm.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    cfg = res["cfg"]
+    assert res["tokens"].shape == (BATCH, GEN)
+    assert res["tokens"].min() >= 0 and res["tokens"].max() < cfg.vocab
+    assert bool(torch.isfinite(res["logits"][:, :cfg.vocab]).all())
+    assert (fa.launches, fa.plain_calls) == (
+        before[0], before[1] + sites * (PROMPT + GEN))
+    states = res["state"] if cfg.family == "ssm" else res["state"][0]
+    assert states[1].dtype == torch.float32 and bool(states[1].any())
+
+
 def test_main_needs_a_card_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
@@ -107,7 +125,7 @@ def test_main_needs_a_card_unless_told(monkeypatch):
 
 def test_main_refuses_a_family_not_ported_by_name():
     with pytest.raises(NotImplementedError, match="queue 1 item 2b"):
-        serve_lm.main(["--arch", "mamba2-1.3b", "--reduced",
+        serve_lm.main(["--arch", "whisper-base", "--reduced",
                        "--device", "cpu"])
 
 
