@@ -125,11 +125,27 @@ call) through ``serve_lm.main``, timed; (d) 8 profiled decode steps of
 each: idle share, launches a step split by ranges into SSD layers and
 shared-block calls, no host sync; (f) the flash kernel at zamba2's
 decode shape (128 heads, sq = 1, sk = 49, d = 80) against its plain
-version, timed beside it, its bound and SDPA. Phases 5, 11, 12, 13, 14,
-15 and 16 set the counts to 0 before their runs and read them after, and
-allow no plain call, fold or failed lane grid there. It exits non-zero,
-printing no result line, when there is no CUDA device, when the port is
-missing, or when any phase fails. The last line is
+version, timed beside it, its bound and SDPA; (17) the Whisper
+encoder-decoder (``repro_torch.models.encdec``): (a) whisper-base reduced,
+the same weights in float32 and bf16, its encoder, decoder, loss,
+``api.prefill`` and decode steps on the card against the CPU (float32
+within the LM tolerance, bf16 no farther from the float32 CPU run than
+twice the CPU's own bf16 run); (b) the flash kernel at whisper-base's
+shapes at batch 4 (32 heads of 64: the encoder non-causal at sq = sk =
+1500, cross-attention of 1 and 32 queries against 1500 frames, a decode
+step's causal self-attention over 49 keys) against its plain version;
+(c) the full model through ``serve_lm.main`` at batch 4 x (32 + 16),
+with exactly 6 + 48 x 12 = 582 flash launches (the encoder once a layer,
+then self- and cross-attention once a layer and step) and no plain call,
+timed, the encoder inside the prefill; (d) 8 profiled decode steps: idle
+share, launches a step and a decoder layer, no host sync, and the
+cross-attention's recomputed k and v timed alone; (e) the flash kernel
+at the encoder's and the cross-attention decode shape, non-causal,
+timed beside its plain version, its bound and SDPA. Phases 5, 11, 12,
+13, 14, 15, 16 and 17 set the counts to 0 before their runs and read
+them after, and allow no plain call, fold or failed lane grid there.
+It exits non-zero, printing no result line, when there is no CUDA
+device, when the port is missing, or when any phase fails. The last line is
 ``{"ok": true, "device": {...}}``.
 
 It imports neither ``jax`` nor the JAX package.
@@ -1841,32 +1857,35 @@ LM_TOL = 3e-2
 LM_PROFILED_STEPS = 8
 
 
-def time_flash(q, k, v, tag):
-    """The flash kernel's events time on (q, k, v), causal, beside its
-    plain version's, SDPA's on the same inputs (checked to compute the
-    same function) and the bound; the profiler's device time per launch."""
+def time_flash(q, k, v, tag, causal=True):
+    """The flash kernel's events time on (q, k, v), causal or not, beside
+    its plain version's, SDPA's on the same inputs (checked to compute the
+    same function) and the bound (``h * sq * sk`` pairs without the mask);
+    the profiler's device time per launch."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     h, sq, d = q.shape
     sk = k.shape[1]
     # SDPA's is_causal aligns the mask to the first key; with one
     # query the end-aligned mask hides nothing, so it runs unmasked
-    library = lambda c=sq == sk: (  # noqa: E731
+    library = lambda c=causal and sq == sk: (  # noqa: E731
         F.scaled_dot_product_attention(q[None], k[None], v[None],
                                        is_causal=c)[0])
-    e_lib = close(library(), fa.attention_plain(q, k, v, True), 1e-4,
+    e_lib = close(library(), fa.attention_plain(q, k, v, causal), 1e-4,
                   1e-4, f"SDPA at sq={sq} sk={sk} is another function")
-    pairs = h * sum(min(sk, sk - sq + i + 1) for i in range(sq))
+    pairs = (h * sum(min(sk, sk - sq + i + 1) for i in range(sq)) if causal
+             else h * sq * sk)
     b_ms, b_by = dense_bound(4 * h * d * (2 * sq + 2 * sk), 4 * d * pairs,
                              FP32_FLOP_PER_S)
-    kernel = lambda: fa.attention_kernel(q, k, v, True)  # noqa: E731
+    kernel = lambda: fa.attention_kernel(q, k, v, causal)  # noqa: E731
     ms = time_ms(kernel)
-    plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, True),
+    plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, causal),
                        reps=5, warm=1)
     library_ms = time_ms(library)
     kernel()
     dev = per_launch(profile_run(lambda: [kernel() for _ in range(5)]))
-    print(f"[{tag}] flash_attention causal f32 h={h} sq={sq} sk={sk} "
+    print(f"[{tag}] flash_attention {'causal' if causal else 'non-causal'} "
+          f"f32 h={h} sq={sq} sk={sk} "
           f"d={d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
           f"{library_ms:.4f} ms (max abs err against plain {e_lib}), "
           f"bound {b_ms:.5f} ms ({b_by}), share of bound "
@@ -2798,6 +2817,264 @@ def phase_ssm(device):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the Whisper encoder-decoder (repro_torch.models.encdec)
+# ---------------------------------------------------------------------------
+
+AUDIO_ARCH = "whisper-base"
+AUDIO_PROMPT, AUDIO_STEPS = 8, 4     # (a): prefill and decode steps
+# (b): (sq, sk, causal) of the flash kernel on whisper's path at batch 4:
+# the encoder over its 1500 frames, a decode step's cross-attention and
+# self-attention (1..49 cached keys), api.prefill's cross-attention
+AUDIO_FLASH_SHAPES = ((1500, 1500, False), (1, 1500, False), (1, 49, True),
+                      (LM_PROMPT, 1500, False))
+AUDIO_TIMED = ((1500, 1500, False), (1, 1500, False))
+
+
+def whisper_runs(api, params, frames, toks):
+    """The encoder's output, the decoder's logits over ``toks``, the loss,
+    ``api.prefill``'s logits over the first ``AUDIO_PROMPT`` tokens, and
+    ``AUDIO_STEPS`` decode steps from the encoder's output and caches the
+    prompt was decoded into (``prefill``'s caches are exactly S long)."""
+    import torch
+    from repro_torch.models import encdec as E
+    cfg = api.cfg
+    B = toks.shape[0]
+    P = AUDIO_PROMPT
+    with torch.inference_mode():
+        enc = E.encode(params, cfg, frames)
+        logits = E.decode(params, cfg, toks, enc)[0]
+        loss = api.loss(params, {"tokens": toks[:, :P],
+                                 "targets": toks[:, 1:P + 1],
+                                 "frames": frames})[0]
+        pre, _ = api.prefill(params, {"tokens": toks[:, :P],
+                                      "frames": frames})
+        caches = E.init_caches(cfg, B, P + AUDIO_STEPS, frames.device)
+        E.decode(params, cfg, toks[:, :P], enc, caches, 0)
+        steps = [api.decode_step(params, (enc, caches),
+                                 toks[:, t:t + 1], t)[0]
+                 for t in range(P, P + AUDIO_STEPS)]
+    return [x.cpu().float() for x in [enc, logits[..., :cfg.vocab], loss,
+                                      pre[..., :cfg.vocab]]
+            + [x[..., :cfg.vocab] for x in steps]]
+
+
+def phase_whisper(device):
+    """(a) the reduced whisper on the card against the CPU from the same
+    parameters: float32 within the LM tolerance, bf16 no farther from the
+    float32 CPU run than twice the CPU's own bf16 run; (b) the flash
+    kernel at whisper-base's attention shapes against its plain version;
+    (c) the full model through ``serve_lm.main`` with the flash counts
+    read around it; (d) 8 profiled decode steps and the recomputed cross
+    k and v timed alone; (e) the kernel's time at the encoder's and the
+    cross-attention decode shape beside its plain version, its bound and
+    SDPA."""
+    import copy
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+    print(f"[audio] card: {nvidia_smi()}")
+    rng = np.random.default_rng(SEED + 17)
+
+    # (a) reduced, the same weights in bf16 and float32, card against CPU
+    cfg = get_arch(AUDIO_ARCH).reduced()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    api, api32 = build_model(cfg), build_model(cfg32)
+    bf = api.init_params(torch.Generator().manual_seed(SEED))
+    f32 = copy.deepcopy(bf).float()
+    f32.cfg = cfg32
+    frames = torch.from_numpy(rng.standard_normal(
+        (LM_BATCH, cfg.encdec.enc_len, cfg.d_model)).astype(np.float32)
+        * 0.02)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        LM_BATCH, AUDIO_PROMPT + AUDIO_STEPS)).astype(np.int32))
+    runs = {}
+    for key, (a, params) in {("cpu", "bf16"): (api, bf),
+                             ("card", "bf16"): (api, copy.deepcopy(bf)
+                                                .to(device)),
+                             ("cpu", "f32"): (api32, f32),
+                             ("card", "f32"): (api32, copy.deepcopy(f32)
+                                               .to(device))}.items():
+        dev = params.embed.device
+        fa.launches = fa.plain_calls = 0
+        runs[key] = whisper_runs(a, params, frames.to(dev, params.embed.dtype),
+                                 toks.to(dev))
+        if key[0] == "card":
+            check(fa.launches > 0 and fa.plain_calls == 0,
+                  f"reduced {AUDIO_ARCH} {key[1]} on the card: flash "
+                  f"launches {fa.launches}, plain calls {fa.plain_calls}")
+    names = (["encode", "decode", "loss", "prefill"]
+             + [f"step {t}" for t in range(AUDIO_STEPS)])
+    errs = [close(g, c, LM_TOL, LM_TOL, f"reduced {AUDIO_ARCH} float32 "
+                  f"{n}: card != CPU")
+            for n, g, c in zip(names, runs["card", "f32"],
+                               runs["cpu", "f32"])]
+    dist = {dev: max(float((x - r).abs().max()) for x, r in zip(
+        runs[dev, "bf16"], runs["cpu", "f32"])) for dev in ("cpu", "card")}
+    check(dist["card"] <= 2 * dist["cpu"], f"reduced {AUDIO_ARCH} bf16: "
+          f"the card's outputs are {dist['card']} from the float32 "
+          f"model's, the CPU's {dist['cpu']}")
+    print(f"[audio] (a) {AUDIO_ARCH} reduced (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} kv, "
+          f"{cfg.encdec.n_enc_layers} + {cfg.n_layers} layers, "
+          f"{cfg.encdec.enc_len} frames), batch {LM_BATCH}: encode, "
+          f"decode, loss, api.prefill of {AUDIO_PROMPT} tokens and "
+          f"{AUDIO_STEPS} decode steps, the same weights in float32 and "
+          f"bf16: float32 card against CPU max abs err "
+          f"{dict(zip(names, errs))} (limit {LM_TOL} + {LM_TOL} |x|); "
+          f"bf16 max abs distance from the float32 CPU run, card "
+          f"{dist['card']}, CPU {dist['cpu']} (the card's held to twice "
+          f"the CPU's)")
+    del runs, bf, f32
+
+    # (b) the kernel at whisper-base's shapes, batch 4
+    full = get_arch(AUDIO_ARCH)
+    h, d = LM_BATCH * full.n_heads, full.hd
+    cases, err = {}, 0.0
+    for sq, sk, causal in AUDIO_FLASH_SHAPES:
+        q = normal(rng, (h, sq, d), device)
+        k, v = (normal(rng, (h, sk, d), device) for _ in range(2))
+        e = close(fa.attention_kernel(q, k, v, causal),
+                  fa.attention_plain(q, k, v, causal), 3e-5, 3e-5,
+                  f"flash_attention h={h} sq={sq} sk={sk} d={d} "
+                  f"causal={causal}")
+        cases[sq, sk, causal], err = (q, k, v), max(err, e)
+    print(f"[audio] (b) flash_kernel against its plain version on the card "
+          f"at h={h}, d={d}, (sq, sk, causal) in {AUDIO_FLASH_SHAPES}: max "
+          f"abs err {err} (limit 3e-5)")
+    torch.cuda.empty_cache()
+
+    # (c) the full model through serve_lm.main: every count at 0 just
+    # before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.plain_calls = 0
+    t0 = time.perf_counter()
+    res = serve_lm.main(["--arch", AUDIO_ARCH, "--batch", str(LM_BATCH),
+                         "--prompt-len", str(LM_PROMPT), "--gen",
+                         str(LM_GEN), "--seed", str(SEED),
+                         "--device", str(device)])
+    wall = time.perf_counter() - t0
+    launches, plain = fa.launches, fa.plain_calls
+    tokens, logits = res["tokens"], res["logits"]
+    n_enc = full.encdec.n_enc_layers
+    want = n_enc + 2 * full.n_layers * (LM_PROMPT + LM_GEN)
+    check(tokens.shape == (LM_BATCH, LM_GEN) and tokens.min() >= 0
+          and tokens.max() < full.vocab, f"serve_lm {AUDIO_ARCH} tokens out "
+          f"of the vocab or misshapen: {tokens.shape}")
+    check(logits.device.type == device.type and bool(torch.isfinite(
+        logits[:, :full.vocab].float()).all()),
+          f"serve_lm {AUDIO_ARCH}'s last logits are not finite on the card")
+    check(launches == want and plain == 0,
+          f"serve_lm {AUDIO_ARCH}: flash launches {launches} (want {n_enc} "
+          f"+ 2 x {full.n_layers} x {LM_PROMPT + LM_GEN} = {want}), plain "
+          f"calls {plain} (want 0)")
+    n_params = sum(q.numel() for q in res["params"].parameters())
+    print(f"[audio] (c) serve_lm.main --arch {AUDIO_ARCH} ({n_enc} encoder "
+          f"+ {full.n_layers} decoder layers, d_model {full.d_model}, "
+          f"{full.n_heads} heads x {d}, GELU d_ff {full.d_ff}, "
+          f"{full.encdec.enc_len} stub frames, vocab {full.vocab} padded to "
+          f"{full.vocab_padded}; {n_params} parameters in {full.dtype}), "
+          f"batch {LM_BATCH}, prompt {LM_PROMPT}, gen {LM_GEN}, seed {SEED}:"
+          f" prefill {res['prefill_s']:.4f} s (the encoder included), "
+          f"decode {res['ms_per_token']:.4f} ms/token/batch; call wall "
+          f"{wall:.3f} s with the weights' init; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; flash "
+          f"launches {launches}, plain calls {plain}; row 0 "
+          f"{tokens[0].tolist()}")
+
+    # (d) decode steps after the served ones, profiled, then split by
+    # decoder layer, then one under sync-debug "warn"
+    api, params, state = res["api"], res["params"], res["state"]
+    cur = torch.argmax(logits, -1)[:, None]
+    first = LM_PROMPT + LM_GEN - LM_PROFILED_STEPS
+
+    def steps():
+        with torch.inference_mode():
+            for i in range(LM_PROFILED_STEPS):
+                api.decode_step(params, state, cur, first + i)
+    steps()
+    prof = profile_run(steps)
+    handles = mark_ranges([(layer, RANGES[0]) for layer in params.dec_layers])
+    try:
+        split = launches_in(profile_run(steps)["events"], RANGES[:1])
+    finally:
+        for hd in handles:
+            hd.remove()
+    if prof["by_name"]:
+        top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:8]
+        print(f"[audio] (d) {LM_PROFILED_STEPS} profiled decode steps: wall "
+              f"{prof['wall_s']:.4f} s "
+              f"({prof['wall_s'] / LM_PROFILED_STEPS * 1e3:.3f} ms/step), "
+              f"device busy {prof['busy_s'] * 1e3:.4f} ms "
+              f"({prof['busy_s'] / LM_PROFILED_STEPS * 1e3:.4f} ms/step), "
+              f"device idle share {1 - prof['busy_s'] / prof['wall_s']:.5f}"
+              f"; device ms by name "
+              f"{({n: round(v / 1e3, 4) for n, v in top})}; kernels "
+              f"recorded {sum(prof['count'].values())}; flash device ms "
+              f"per recorded launch "
+              f"{ {n: v for n, v in per_launch(prof).items()
+                  if 'flash' in n} }")
+    else:
+        print("[audio] (d) device idle share not measured (the profiler "
+              "recorded no device activity)")
+    layer_launches = split[RANGES[0]]
+    print(f"[audio] (d) kernel launches (host calls) per step "
+          f"{split['all'] / LM_PROFILED_STEPS:.1f}; per decoder layer "
+          f"{layer_launches / (LM_PROFILED_STEPS * full.n_layers):.2f}; "
+          f"outside them "
+          f"{(split['all'] - layer_launches) / LM_PROFILED_STEPS:.1f} per "
+          f"step")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with torch.inference_mode():
+                api.decode_step(params, state, cur, first)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the first use of the mode also warns that it is a prototype
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message)
+             and "prototype" not in str(w.message)]
+    check(not syncs, f"{AUDIO_ARCH}: a decode step synchronises with the "
+          f"host: {syncs[:3]}")
+    print(f"[audio] (d) host syncs in one decode step under sync-debug "
+          f"\"warn\": {len(syncs)}")
+    # the cross-attention's k and v, recomputed from the encoder's output
+    # in every layer and step (the reference keeps no cache of them)
+    enc_out = state[0]
+    kv = [(layer.cross_attn["wk"], layer.cross_attn["wv"])
+          for layer in params.dec_layers]
+    with torch.inference_mode():
+        kv_ms = time_ms(lambda: [(enc_out @ wk, enc_out @ wv)
+                                 for wk, wv in kv])
+    T_enc, D = enc_out.shape[1], full.d_model
+    kv_flop = 2 * 2 * LM_BATCH * T_enc * D * D * full.n_layers
+    print(f"[audio] (d) the cross-attention's k and v recomputed per decode "
+          f"step ({full.n_layers} layers x 2 GEMMs of ({LM_BATCH}x{T_enc}x"
+          f"{D}) @ ({D}x{D}), {kv_flop / 1e9:.2f} GFLOP in {full.dtype}): "
+          f"{kv_ms:.4f} ms a step by events, "
+          f"{kv_flop / (kv_ms * 1e-3) / 1e12:.1f} TFLOP/s")
+    del res, api, params, state, logits, prof, enc_out, kv
+    torch.cuda.empty_cache()
+
+    # (e) the kernel's times at the encoder's shape and the cross-attention
+    # decode shape
+    rows = {c: time_flash(*cases[c], "audio-times", causal=c[2])
+            for c in AUDIO_TIMED}
+    print(f"[audio] card: {nvidia_smi()}")
+    return {name: dict(rows[c], max_abs_err=err, launches=launches)
+            for name, c in (("flash_attention whisper encoder",
+                             AUDIO_TIMED[0]),
+                            ("flash_attention whisper cross decode",
+                             AUDIO_TIMED[1]))}
+
+
 def nvidia_smi() -> str:
     try:
         out = subprocess.run(
@@ -2854,6 +3131,7 @@ def main() -> int:
     lm_row = phase_lm(device)
     moe_rows = phase_moe(device)
     ssm_row = phase_ssm(device)
+    audio_rows = phase_whisper(device)
 
     from repro_torch.bench_kernels import ROTATE
     main_rows = {"fabric_reduce_lanes": (
@@ -2900,6 +3178,7 @@ def main() -> int:
         "plain_ms": lm_row["plain_ms"], "bound_ms": lm_row["bound_ms"],
         "bound_by": lm_row["bound_by"], "library_ms": lm_row["library_ms"]})
     moe_rows["flash_attention hybrid decode d80"] = ssm_row
+    moe_rows.update(audio_rows)
     for kname, r in moe_rows.items():
         kernels.append({
             "name": kname, "route": "cuda",

@@ -24,11 +24,13 @@ port module names the reference module it is held against:
                           entry point
   repro_torch.configs   — the architecture registry (``ArchConfig``, the
                           ten LM configs, the STRELA SoC)
-  repro_torch.models    — the dense, MoE, vlm, ssm and hybrid LM
-                          families (layers, the MoE layer, transformer,
-                          the Mamba-2 SSD layer, the Zamba-2 hybrid,
-                          ``build_model``), their attention on the flash
-                          kernel
+  repro_torch.models    — the LM families: dense, MoE, vlm, ssm, hybrid
+                          and audio (layers, the MoE layer, transformer,
+                          the Mamba-2 SSD layer, the Zamba-2 hybrid, the
+                          Whisper encoder-decoder, ``build_model``), their
+                          attention on the flash kernel
+  repro_torch.data      — ``pipeline``: synthetic token batches and the
+                          audio frontend's stub frames (copied verbatim)
   repro_torch.launch    — ``serve_lm``: prefill and greedy decode with KV
                           caches and SSM states
   repro_torch.convert   — reference DFGs, inputs and LM parameters into

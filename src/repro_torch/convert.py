@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core import dfg as D
 from repro_torch.core.isa import AluOp, CmpOp
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.hybrid import Hybrid
 from repro_torch.models.ssm import Mamba2LM
 from repro_torch.models.transformer import Transformer
@@ -69,16 +70,22 @@ def lm_params_from_reference(tree, cfg, device="cuda"):
     """Rebuild a reference LM parameter tree (the output of
     ``repro.models.api.build_model(cfg).init_params``) as the port's
     model for ``cfg.family`` on ``device``: a ``Transformer`` (dense, moe,
-    vlm), a ``Mamba2LM`` (ssm) or a ``Hybrid``. The leading-L layer
-    stacks (the MoE subtree and its shared expert among them) are
-    unstacked into one block each; the hybrid's ``shared`` subtree has no
-    L axis and crosses as it is. Every leaf keeps the reference leaf's
-    dtype, so a MoE router or an SSM's ``A_log`` stays float32 in a
-    bfloat16 model."""
+    vlm), a ``Mamba2LM`` (ssm), a ``Hybrid`` or an ``EncDec`` (audio).
+    The leading-L layer stacks (``layers``, the MoE subtree and its shared
+    expert among them; whisper's ``enc_layers`` over its encoder's depth
+    and ``dec_layers`` over ``n_layers``) are unstacked into one block
+    each; every other leaf (the hybrid's ``shared`` subtree, whisper's
+    positions and final norms) crosses as it is. Every leaf keeps the
+    reference leaf's dtype, so a MoE router or an SSM's ``A_log`` stays
+    float32 in a bfloat16 model."""
+    depth = ({"enc_layers": cfg.encdec.n_enc_layers,
+              "dec_layers": cfg.n_layers} if cfg.family == "audio"
+             else {"layers": cfg.n_layers})
     out = {k: _map(v, lambda a: _tensor(a, device))
-           for k, v in tree.items() if k != "layers"}
-    out["layers"] = [_map(tree["layers"], lambda a, i=i: _tensor(a[i],
-                                                                  device))
-                     for i in range(cfg.n_layers)]
-    model = {"ssm": Mamba2LM, "hybrid": Hybrid}.get(cfg.family, Transformer)
+           for k, v in tree.items() if k not in depth}
+    for key, n in depth.items():
+        out[key] = [_map(tree[key], lambda a, i=i: _tensor(a[i], device))
+                    for i in range(n)]
+    model = {"ssm": Mamba2LM, "hybrid": Hybrid,
+             "audio": EncDec}.get(cfg.family, Transformer)
     return model(cfg, out)

@@ -1,6 +1,6 @@
 """LM serving launch driver: prefill + greedy decode with KV caches and
-SSM states (counterpart of ``repro.launch.serve_lm``; the dense, moe,
-vlm, ssm and hybrid families so far, a vlm on tokens only as in the
+SSM states (counterpart of ``repro.launch.serve_lm``; every family, a
+vlm on tokens only and whisper on the stub frontend's frames, as in the
 reference).
 
 Not to be confused with ``repro_torch.serve`` (the always-on CGRA kernel
@@ -11,6 +11,7 @@ the card unless ``--device cpu`` is passed:
   python -m repro_torch.launch.serve_lm --arch granite-moe-3b-a800m
   python -m repro_torch.launch.serve_lm --arch mamba2-1.3b
   python -m repro_torch.launch.serve_lm --arch zamba2-2.7b
+  python -m repro_torch.launch.serve_lm --arch whisper-base
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch minicpm-2b \\
       --reduced --device cpu
 """
@@ -24,13 +25,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import get_arch
-from repro_torch.models import hybrid, ssm, transformer
+from repro_torch.data.pipeline import stub_frames
+from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.api import ModelAPI, build_model
 
 
 def init_decode_state(cfg, batch: int, max_len: int, device="cuda"):
     """The zeroed decode state of ``cfg``'s family: the KV caches (dense,
-    moe, vlm), the SSM states (ssm) or both (hybrid)."""
+    moe, vlm), the SSM states (ssm) or both (hybrid). The audio family's
+    state holds the encoder's output: :func:`encode_state` builds it, as
+    the reference builds it in ``main``."""
     if cfg.family in ("dense", "moe", "vlm"):
         return transformer.init_caches(cfg, batch, max_len, device=device)
     if cfg.family == "ssm":
@@ -40,12 +44,24 @@ def init_decode_state(cfg, batch: int, max_len: int, device="cuda"):
     raise ValueError(cfg.family)
 
 
+def encode_state(cfg, params, batch: int, max_len: int, device="cuda"):
+    """Whisper's decode state as the reference's ``main`` builds it: the
+    stub frames (step 0) in the config's dtype, encoded, and zeroed
+    caches ``max_len`` long."""
+    frames = torch.from_numpy(stub_frames(batch, cfg.encdec.enc_len,
+                                          cfg.d_model))
+    frames = frames.to(device=device, dtype=cfg.torch_dtype)
+    return (encdec.encode(params, cfg, frames),
+            encdec.init_caches(cfg, batch, max_len, device))
+
+
 def generate(api: ModelAPI, params, prompt: torch.Tensor, gen: int) -> Dict:
     """Prefill by repeated ``decode_step`` over the prompt (the decode
     state's warm-up, as in the reference), then ``gen`` greedy steps.
     Returns the generated tokens (B, gen) on the host, the last logits,
     the decode state and the two phases' seconds (each ending in a
-    synchronise)."""
+    synchronise). Whisper's encoder runs inside the timed prefill, as in
+    the reference."""
     cfg, device = api.cfg, prompt.device
     B, S = prompt.shape
 
@@ -54,7 +70,10 @@ def generate(api: ModelAPI, params, prompt: torch.Tensor, gen: int) -> Dict:
             torch.cuda.synchronize(device)
 
     t0 = time.perf_counter()
-    state = init_decode_state(cfg, B, S + gen + 1, device)
+    if cfg.family == "audio":
+        state = encode_state(cfg, params, B, S + gen + 1, device)
+    else:
+        state = init_decode_state(cfg, B, S + gen + 1, device)
     logits = None
     for t in range(S):
         logits, state = api.decode_step(params, state, prompt[:, t:t + 1], t)

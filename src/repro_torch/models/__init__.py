@@ -12,12 +12,13 @@
   * ``hybrid`` — Zamba-2: SSD layers and one shared attention block run
     at every ``share_every``-th layer (``SharedBlock``, ``Hybrid``,
     ``init_decode_state``)
+  * ``encdec`` — the Whisper encoder-decoder: non-causal encoder over
+    the stub frontend's frames, decoder with causal self-attention,
+    cross-attention and a tied head (``EncoderLayer``, ``DecoderLayer``,
+    ``EncDec``, ``encode``, ``decode``, ``init_caches``)
   * ``api`` — ``build_model(cfg)`` -> ``ModelAPI`` (``init_params``,
-    ``loss``, ``prefill``, ``decode_step``) for dense, moe, vlm, ssm and
-    hybrid
-
-The audio family raises ``NotImplementedError`` naming its queue item in
-``ROADMAP.md``.
+    ``loss``, ``prefill``, ``decode_step``) for every family: dense, moe,
+    vlm, ssm, hybrid and audio
 """
 from repro_torch.models.api import ModelAPI, build_model
 

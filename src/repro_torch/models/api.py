@@ -1,6 +1,5 @@
 """Unified model API: one bundle per architecture family (counterpart of
-``repro.models.api``; the dense, moe, vlm, ssm and hybrid families so
-far).
+``repro.models.api``): dense, moe, vlm, ssm, hybrid and audio.
 
 For each of them:
   * ``init_params(generator)``                    (on the generator's device)
@@ -12,10 +11,12 @@ For each of them:
 Batch layout: ``{tokens (B, S), targets (B, S)}`` integer tensors, a vlm's
 ``patches (B, P, D)`` beside them (its ``targets`` cover the text only),
 and for ``prefill`` an optional ``max_len`` (the transformer's caches;
-ssm and hybrid ignore it, as the reference does). ``cache_len`` is a Python
-int; ``decode_step`` takes tokens only. The reference's
-``input_specs``/``state_specs`` serve its multi-pod dry run and come with
-``launch/dryrun``.
+ssm, hybrid and audio ignore it, as the reference does). The audio family
+(whisper) adds ``frames (B, T, D)``, the stub conv frontend's output, to
+``loss`` and ``prefill``; its decode state is ``(enc_out, caches)``.
+``cache_len`` is a Python int; ``decode_step`` takes tokens only. The
+reference's ``input_specs``/``state_specs`` serve its multi-pod dry run
+and come with ``launch/dryrun``.
 """
 from __future__ import annotations
 
@@ -25,11 +26,8 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import hybrid, ssm, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.layers import mask_padded_vocab, xent_loss
-
-# the families still to port, each with the reference module it needs
-PENDING = {"audio": "models/encdec.py"}
 
 
 @dataclasses.dataclass
@@ -48,10 +46,8 @@ def build_model(cfg: ArchConfig) -> ModelAPI:
         return _build_ssm(cfg)
     if cfg.family == "hybrid":
         return _build_hybrid(cfg)
-    if cfg.family in PENDING:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family} builder "
-            f"({PENDING[cfg.family]}) {transformer.PENDING}")
+    if cfg.family == "audio":
+        return _build_encdec(cfg)
     raise ValueError(cfg.family)
 
 
@@ -135,4 +131,35 @@ def _build_hybrid(cfg: ArchConfig) -> ModelAPI:
         return mask_padded_vocab(logits[:, -1], cfg.vocab), state
 
     return ModelAPI(cfg, lambda gen: hybrid.init_params(gen, cfg), loss,
+                    prefill, decode_step)
+
+
+def _build_encdec(cfg: ArchConfig) -> ModelAPI:
+    def loss(params, batch):
+        enc_out = encdec.encode(params, cfg, batch["frames"])
+        logits, _, aux = encdec.decode(params, cfg, batch["tokens"], enc_out)
+        return xent_loss(logits, batch["targets"], cfg.vocab) + aux, aux
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        """The encoder's output, caches *exactly S long* (``max_len`` is
+        ignored, as in the reference), the prompt decoded at position 0,
+        and the last logits unmasked. A ``decode_step`` on that state
+        writes past the caches and raises, where the reference clamps the
+        write onto position S - 1."""
+        B, S = batch["tokens"].shape
+        enc_out = encdec.encode(params, cfg, batch["frames"])
+        caches = encdec.init_caches(cfg, B, S, device=params.embed.device)
+        logits, caches, _ = encdec.decode(params, cfg, batch["tokens"],
+                                          enc_out, caches, 0)
+        return logits[:, -1], (enc_out, caches)
+
+    @torch.no_grad()
+    def decode_step(params, state, tokens, cache_len: int):
+        enc_out, caches = state
+        logits, caches, _ = encdec.decode(params, cfg, tokens, enc_out,
+                                          caches, cache_len)
+        return mask_padded_vocab(logits[:, -1], cfg.vocab), (enc_out, caches)
+
+    return ModelAPI(cfg, lambda gen: encdec.init_params(gen, cfg), loss,
                     prefill, decode_step)

@@ -25,8 +25,6 @@ from repro_torch.models.moe import moe_apply, moe_init
 
 Caches = Tuple[torch.Tensor, torch.Tensor]
 
-PENDING = "is not ported yet: ROADMAP.md queue 1 item 2b"
-
 
 def _attn_cfg(cfg: ArchConfig) -> L.AttnCfg:
     return L.AttnCfg(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,

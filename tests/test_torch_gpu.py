@@ -750,3 +750,83 @@ def test_serve_lm_ssm_and_hybrid_at_full_width(cuda, arch, n_layers, sites):
     assert res["tokens"].shape == (4, 16)
     assert res["tokens"].min() >= 0 and res["tokens"].max() < cfg.vocab
     assert bool(torch.isfinite(res["logits"][:, :cfg.vocab].float()).all())
+
+
+# the Whisper encoder-decoder (chip_smoke.py phase 17): whisper-base at
+# batch 4 runs 4 x 8 = 32 heads at d = 64: the encoder non-causal over its
+# 1500 frames (11 query tiles of 128 and one of 92), the decoder's
+# self-attention causal over its cache, and cross-attention non-causal of
+# one query (a decode step) or of the prompt against the 1500 frames
+@pytest.mark.parametrize("sq,sk,causal", [(1500, 1500, False),
+                                          (1, 1500, False),
+                                          (32, 1500, False),
+                                          (1, 49, True)])
+def test_flash_attention_at_the_whisper_shapes(cuda, sq, sk, causal):
+    rng = np.random.default_rng(sq + sk)
+    q = _normal(rng, (32, sq, 64), cuda)
+    k, v = (_normal(rng, (32, sk, 64), cuda) for _ in range(2))
+    got = fa.attention_kernel(q, k, v, causal)
+    want = fa.attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+
+
+def test_reduced_whisper_on_the_card_matches_the_cpu(cuda):
+    """whisper-base reduced, float32, from the same parameters on the card
+    and on the CPU: the encoder and decoder's logits, the loss, prefill
+    and decode steps within the LM's float32 tolerance (2e-4)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models import encdec as E
+    cfg = dataclasses.replace(get_arch("whisper-base").reduced(),
+                              dtype="float32")
+    api = build_model(cfg)
+    cpu = api.init_params(torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, cfg.encdec.enc_len, cfg.d_model)).astype(np.float32) * 0.02)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)).astype(
+        np.int32))
+    out = {}
+    for label, params in (("cpu", cpu), ("card", card)):
+        dev = params.embed.device
+        f, t = frames.to(dev), toks.to(dev)
+        with torch.inference_mode():
+            enc = E.encode(params, cfg, f)
+            logits = E.decode(params, cfg, t, enc)[0]
+            loss = api.loss(params, {"tokens": t[:, :8], "targets": t[:, 1:9],
+                                     "frames": f})[0]
+            pre, _ = api.prefill(params, {"tokens": t[:, :8], "frames": f})
+            state = (enc, E.init_caches(cfg, 2, 12, device=dev))
+            steps = [api.decode_step(params, state, t[:, i:i + 1], i)[0]
+                     for i in range(12)]
+        out[label] = [x.cpu() for x in [enc, logits, loss, pre] + steps]
+    for got, want in zip(out["card"], out["cpu"]):
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+def test_serve_lm_whisper_at_full_width_launches_flash_582_times(cuda):
+    """whisper-base at full width (6 + 6 layers, 1500 frames, bf16)
+    serving batch 4 x (32 + 16) through ``serve_lm.generate``: the
+    encoder's 6 flash launches in the prefill, then 6 self- and 6
+    cross-attention launches a step, 6 + 48 x 12 = 582, and no plain
+    call; the tokens in the vocab and the logits finite."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+    cfg = get_arch("whisper-base")
+    api = build_model(cfg)
+    params = api.init_params(torch.Generator(cuda).manual_seed(0))
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 32)).astype(np.int32)).to(cuda)
+    launches, plain = fa.launches, fa.plain_calls
+    with torch.inference_mode():
+        res = serve_lm.generate(api, params, prompt, 16)
+    assert fa.launches - launches == 6 + 48 * 12 == 582
+    assert fa.plain_calls == plain
+    assert res["tokens"].shape == (4, 16)
+    assert res["tokens"].min() >= 0 and res["tokens"].max() < cfg.vocab
+    assert bool(torch.isfinite(res["logits"][:, :cfg.vocab].float()).all())

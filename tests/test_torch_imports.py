@@ -33,7 +33,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     named = ["repro_torch.workloads", "repro_torch.fleet",
              "repro_torch.configs", "repro_torch.models",
              "repro_torch.models.moe", "repro_torch.models.ssm",
-             "repro_torch.models.hybrid", "repro_torch.launch.serve_lm"]
+             "repro_torch.models.hybrid", "repro_torch.models.encdec",
+             "repro_torch.data.pipeline", "repro_torch.launch.serve_lm"]
     for m in named:
         assert m in mods, m
         mods.remove(m)
@@ -58,7 +59,7 @@ def test_source_scan_finds_no_jax_or_reference_import():
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
-    for name in ("moe.py", "ssm.py", "hybrid.py"):
+    for name in ("moe.py", "ssm.py", "hybrid.py", "encdec.py"):
         assert os.path.join(PORT, "models", name) in files
     offenders = []
     for f in files:

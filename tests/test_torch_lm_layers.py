@@ -2,8 +2,8 @@
 ``repro_torch.configs`` equal to ``repro.configs`` field by field, and each
 function of ``repro_torch.models.layers`` within 1e-5 of
 ``repro.models.layers`` in float32 on the same numpy inputs (attention's
-core through the flash kernel's plain version). The families not ported
-yet (ssm, hybrid, audio) raise by name."""
+core through the flash kernel's plain version). Every family of the
+configs builds; an unknown family raises by name."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -244,20 +244,20 @@ def test_init_helpers_follow_the_reference_distributions():
 
 
 # ---------------------------------------------------------------------------
-# the families not ported yet raise by name
+# every family builds; an unknown one raises by name
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch_id", [a for a in ARCHS
                                      if pbase.get_arch(a).family != "dense"])
 def test_other_families_raise_naming_their_queue_item(arch_id):
-    """audio raises naming its queue item; moe, vlm, ssm and hybrid
-    (ported since) build."""
+    """Every family in the configs is ported (moe, vlm, ssm, hybrid and
+    audio): each non-dense arch builds, and its family under another name
+    raises ``ValueError`` naming it."""
     cfg = pbase.get_arch(arch_id).reduced()
-    if cfg.family in ("moe", "vlm", "ssm", "hybrid"):
-        assert build_model(cfg).cfg is cfg
-        return
-    with pytest.raises(NotImplementedError, match="queue 1 item 2b"):
-        build_model(cfg)
+    assert build_model(cfg).cfg is cfg
+    unknown = dataclasses.replace(cfg, family=f"{cfg.family}-x")
+    with pytest.raises(ValueError, match=f"{cfg.family}-x"):
+        build_model(unknown)
 
 
 def test_a_moe_config_raises_in_the_transformer():

@@ -3,14 +3,18 @@
 (``api.init_params(PRNGKey(0))``, carried over by
 ``repro_torch.convert.lm_params_from_reference``) and the same numpy
 tokens: ``transformer.forward``, ``api.loss``, ``api.prefill`` and
-``api.decode_step`` on the reduced dense, moe, vlm, ssm and hybrid archs,
-in float32 and bfloat16, with ``attention_impl`` "full" and "chunked" (a
-chunk below the sequence, so the reference's chunked branch runs; the
-port takes one path; mamba2 has no attention and takes "full" only). The
-vlm's forward, loss and prefill take patch embeddings drawn from a
-seeded normal at scale 0.02, so that they show in the result. The forward
-is ``transformer.forward``, ``ssm.lm_forward`` or ``hybrid.forward`` by
-family.
+``api.decode_step`` on the reduced dense, moe, vlm, ssm, hybrid and audio
+archs, in float32 and bfloat16, with ``attention_impl`` "full" and
+"chunked" (a chunk below the sequence, so the reference's chunked branch
+runs; the port takes one path; mamba2 has no attention and whisper's
+``_attn_cfg`` passes no ``impl``, so both take "full" only). The vlm's
+forward, loss and prefill take patch embeddings, and whisper's its
+frames, drawn from a seeded normal at scale 0.02, so that they show in
+the result. The forward is ``transformer.forward``, ``ssm.lm_forward``,
+``hybrid.forward`` or whisper's ``encode`` then ``decode`` by family.
+Whisper's ``prefill`` allocates caches exactly S long, so its decode
+steps start from the encoder's output and caches ``MAX_LEN`` long that
+one ``decode`` call over the prompt has written.
 
 The MoE archs' reference runs op by op (``jax.disable_jit``), as the
 port does: jitted, XLA fuses a layer's bfloat16 elementwise chain and
@@ -24,8 +28,8 @@ relative; prefill and decode attend over the KV caches, which are
 bfloat16 in both packages whatever the config's dtype, so a float32
 k or v that rounds the other way there moves the logits: 3e-2 (the
 reference's own decode tolerance, ``tests/test_models.py:73-75``), as
-for everything in bfloat16. The ssm and hybrid families keep float32
-states (and a float32 hybrid float32 caches), so their float32 prefill
+for everything in bfloat16. The ssm, hybrid and audio families keep
+float32 states or caches in a float32 config, so their float32 prefill
 and decode are held to the forward's 2e-4. Then one test per reference
 quirk the port keeps."""
 import contextlib
@@ -38,12 +42,14 @@ import pytest
 import torch
 
 from repro.configs.base import get_arch as ref_arch
+from repro.models import encdec as RE
 from repro.models import hybrid as RH
 from repro.models import ssm as RS
 from repro.models import transformer as RT
 from repro.models.api import build_model as ref_build
 from repro_torch.configs.base import get_arch
 from repro_torch.convert import lm_params_from_reference
+from repro_torch.models import encdec as E
 from repro_torch.models import hybrid as H
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
@@ -55,6 +61,7 @@ MOE = ["granite-moe-3b-a800m", "llama4-scout-17b-a16e"]
 VLM = ["internvl2-76b"]
 SSM_ARCHS = ["mamba2-1.3b"]                 # no attention: one impl
 HYBRID = ["zamba2-2.7b"]
+AUDIO = ["whisper-base"]                    # one attention path: one impl
 B, S, MAX_LEN, STEPS = 2, 16, 20, 3
 CHUNK = 8                      # below S: the reference's chunked branch runs
 LOOSE = dict(atol=3e-2, rtol=3e-2)
@@ -63,7 +70,7 @@ TOL = {("float32", "forward"): dict(atol=2e-4, rtol=2e-4),
 
 
 def _tol(arch, dtype, what):
-    if (dtype == "float32" and arch in SSM_ARCHS + HYBRID
+    if (dtype == "float32" and arch in SSM_ARCHS + HYBRID + AUDIO
             and what in ("prefill", "decode")):
         return TOL["float32", "forward"]
     return TOL.get((dtype, what), LOOSE)
@@ -87,15 +94,20 @@ def _f32(x):
 
 
 def _patches(rcfg, seed):
-    """A vlm's stub patch embeddings (the reference's tests pass zeros):
-    a seeded normal at 0.02, in the config's dtype."""
-    if rcfg.family != "vlm":
+    """A vlm's stub patch embeddings or whisper's stub frames (the
+    reference's tests pass zeros): a seeded normal at 0.02, in the
+    config's dtype."""
+    if rcfg.family == "vlm":
+        key, n = "patches", rcfg.n_patches
+    elif rcfg.family == "audio":
+        key, n = "frames", rcfg.encdec.enc_len
+    else:
         return {}, {}
     x = np.random.default_rng(seed).standard_normal(
-        (B, rcfg.n_patches, rcfg.d_model)) * 0.02
+        (B, n, rcfg.d_model)) * 0.02
     x = np.array(jnp.asarray(x, rcfg.jdtype).astype(jnp.float32))
-    return ({"patches": jnp.asarray(x, rcfg.jdtype)},
-            {"patches": torch.from_numpy(x).to(getattr(torch, rcfg.dtype))})
+    return ({key: jnp.asarray(x, rcfg.jdtype)},
+            {key: torch.from_numpy(x).to(getattr(torch, rcfg.dtype))})
 
 
 def _run(arch, dtype, impl):
@@ -108,7 +120,7 @@ def _run(arch, dtype, impl):
     prompt, tgt = toks[:, :S], rng.integers(0, rcfg.vocab, (B, S))
     tgt = tgt.astype(np.int32)
     rpat, ppat = _patches(rcfg, len(arch))
-    Pn = rcfg.n_patches if rpat else 0
+    Pn = rcfg.n_patches if "patches" in rpat else 0
     out = {}
     with contextlib.ExitStack() as ref_mode, torch.no_grad():
         if rcfg.family == "moe":
@@ -117,6 +129,11 @@ def _run(arch, dtype, impl):
             ref_fwd, port_fwd = RS.lm_forward, SSM.lm_forward
         elif rcfg.family == "hybrid":
             ref_fwd, port_fwd = RH.forward, H.forward
+        elif rcfg.family == "audio":
+            ref_fwd = lambda p, c, t: RE.decode(  # noqa: E731
+                p, c, t, RE.encode(p, c, rpat["frames"]))
+            port_fwd = lambda p, c, t: E.decode(  # noqa: E731
+                p, c, t, E.encode(p, c, ppat["frames"]))
         else:
             ref_fwd = lambda p, c, t: RT.forward(  # noqa: E731
                 p, c, tokens=t, embeds=rpat.get("patches"))
@@ -134,6 +151,14 @@ def _run(arch, dtype, impl):
         pl, ps = papi.prefill(pp, {"tokens": torch.from_numpy(prompt),
                                    "max_len": MAX_LEN + Pn, **ppat})
         out["prefill"] = (rl, pl)
+        if rcfg.family == "audio":
+            renc, penc = rs[0], ps[0]
+            _, rc, _ = RE.decode(rp, rcfg, jnp.asarray(prompt), renc,
+                                 RE.init_caches(rcfg, B, MAX_LEN),
+                                 jnp.zeros((), jnp.int32))
+            _, pc, _ = E.decode(pp, pcfg, torch.from_numpy(prompt), penc,
+                                E.init_caches(pcfg, B, MAX_LEN, "cpu"), 0)
+            rs, ps = (renc, rc), (penc, pc)
         decode = jax.jit(rapi.decode_step)
         rsteps, psteps = [], []
         for t in range(S, S + STEPS):
@@ -160,9 +185,10 @@ def runs():
 
 @pytest.mark.parametrize("arch,dtype,impl,what", [
     (arch, dtype, impl, what)
-    for arch in DENSE + MOE + VLM + SSM_ARCHS + HYBRID
+    for arch in DENSE + MOE + VLM + SSM_ARCHS + HYBRID + AUDIO
     for dtype in ("float32", "bfloat16")
-    for impl in (("full",) if arch in SSM_ARCHS else ("full", "chunked"))
+    for impl in (("full",) if arch in SSM_ARCHS + AUDIO
+                 else ("full", "chunked"))
     for what in ("forward", "loss", "prefill", "decode")])
 def test_port_matches_the_reference(runs, arch, dtype, impl, what):
     ref, got = runs(arch, dtype, impl)[what]

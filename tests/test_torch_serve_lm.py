@@ -1,11 +1,12 @@
 """``repro_torch.launch.serve_lm`` against ``repro.launch.serve_lm`` on the
 CPU: from the reference's own parameters in float32, the port's greedy
 tokens equal the reference loop's (whose first row's sample the
-reference ``main`` itself prints) for dense, moe, vlm, ssm and hybrid
-archs (a vlm is served on tokens only, as the reference serves it), each
-from its family's decode state; and the port's ``main`` runs here with
-``--device cpu``, through the flash kernel's plain version once per layer
-and step, and refuses the card where there is none."""
+reference ``main`` itself prints) for dense, moe, vlm, ssm, hybrid and
+audio archs (a vlm is served on tokens only, whisper on the stub
+frontend's frames, as the reference serves them), each from its family's
+decode state; and the port's ``main`` runs here with ``--device cpu``,
+through the flash kernel's plain version once per attention and step,
+and refuses the card where there is none."""
 import ast
 import dataclasses
 import re
@@ -19,6 +20,8 @@ import torch
 
 import repro.launch.serve_lm as ref_serve_lm
 from repro.configs.base import get_arch as ref_arch
+from repro.data.pipeline import stub_frames
+from repro.models import encdec as RE
 from repro.models.api import build_model as ref_build
 from repro_torch.configs.base import get_arch
 from repro_torch.convert import lm_params_from_reference
@@ -31,10 +34,18 @@ BATCH, PROMPT, GEN = 4, 32, 16           # serve_lm's defaults
 
 def _reference_generate(api, params, tokens, gen):
     """The reference driver's loop (``src/repro/launch/serve_lm.py``,
-    ``main`` from the decode state to the stacked generations)."""
+    ``main`` from the decode state to the stacked generations; whisper's
+    state built where ``main`` builds it)."""
     cfg = api.cfg
     B, S = tokens.shape
-    state = ref_serve_lm.init_decode_state(cfg, api, B, S + gen + 1, None)
+    if cfg.family == "audio":
+        frames = jnp.asarray(stub_frames(B, cfg.encdec.enc_len, cfg.d_model)
+                             ).astype(cfg.jdtype)
+        state = (RE.encode(params, cfg, frames),
+                 RE.init_caches(cfg, B, S + gen + 1))
+    else:
+        state = ref_serve_lm.init_decode_state(cfg, api, B, S + gen + 1,
+                                               None)
     decode = jax.jit(api.decode_step)
     cache_len, logits = jnp.zeros((), jnp.int32), None
     for t in range(S):
@@ -52,7 +63,8 @@ def _reference_generate(api, params, tokens, gen):
 
 @pytest.mark.parametrize("arch", ["minicpm-2b", "yi-9b",
                                   "granite-moe-3b-a800m", "internvl2-76b",
-                                  "mamba2-1.3b", "zamba2-2.7b"])
+                                  "mamba2-1.3b", "zamba2-2.7b",
+                                  "whisper-base"])
 def test_greedy_tokens_equal_the_reference(arch, monkeypatch, capsys):
     f32 = lambda a: dataclasses.replace(ref_arch(a), dtype="float32")  # noqa
     rcfg = f32(arch).reduced()
@@ -123,10 +135,38 @@ def test_main_needs_a_card_unless_told(monkeypatch):
         serve_lm.main(["--arch", "minicpm-2b", "--reduced"])
 
 
-def test_main_refuses_a_family_not_ported_by_name():
-    with pytest.raises(NotImplementedError, match="queue 1 item 2b"):
-        serve_lm.main(["--arch", "whisper-base", "--reduced",
-                       "--device", "cpu"])
+def test_main_serves_whisper_on_the_cpu():
+    """The encoder's flash call once a layer in the prefill, then the
+    decoder's self- and cross-attention once a layer and step each; the
+    caches in the config's dtype, ``S + gen + 1`` long, beside the
+    encoder's output over the stub frames."""
+    before = (fa.launches, fa.plain_calls)
+    res = serve_lm.main(["--arch", "whisper-base", "--reduced",
+                         "--device", "cpu"])
+    cfg = res["cfg"]
+    assert res["tokens"].shape == (BATCH, GEN)
+    assert res["tokens"].min() >= 0 and res["tokens"].max() < cfg.vocab
+    assert bool(torch.isfinite(res["logits"]).all())
+    assert (fa.launches, fa.plain_calls) == (
+        before[0], before[1] + cfg.encdec.n_enc_layers
+        + 2 * cfg.n_layers * (PROMPT + GEN))
+    enc_out, caches = res["state"]
+    assert enc_out.shape == (BATCH, cfg.encdec.enc_len, cfg.d_model)
+    assert caches[0].shape == (cfg.n_layers, BATCH, PROMPT + GEN + 1,
+                               cfg.n_kv_heads, cfg.hd)
+    assert caches[0].dtype == cfg.torch_dtype
+    with pytest.raises(ValueError, match="audio"):
+        serve_lm.init_decode_state(cfg, BATCH, 8, "cpu")
+
+
+def test_main_refuses_a_family_not_ported_by_name(monkeypatch):
+    """Every family of the configs is ported; a family the builder does
+    not know raises ``ValueError`` naming it, before any weight is made."""
+    cfg = dataclasses.replace(get_arch("minicpm-2b").reduced(),
+                              family="speech")
+    monkeypatch.setattr(serve_lm, "get_arch", lambda arch: cfg)
+    with pytest.raises(ValueError, match="speech"):
+        serve_lm.main(["--arch", "minicpm-2b", "--device", "cpu"])
 
 
 def test_generate_refuses_a_padded_vocab_token():
