@@ -141,9 +141,27 @@ timed, the encoder inside the prefill; (d) 8 profiled decode steps: idle
 share, launches a step and a decoder layer, no host sync, and the
 cross-attention's recomputed k and v timed alone; (e) the flash kernel
 at the encoder's and the cross-attention decode shape, non-causal,
-timed beside its plain version, its bound and SDPA. Phases 5, 11, 12,
-13, 14, 15, 16 and 17 set the counts to 0 before their runs and read
-them after, and allow no plain call, fold or failed lane grid there.
+timed beside its plain version, its bound and SDPA; (18) training
+(``repro_torch.launch.train``): (a) the flash backward kernels
+(``flash_bwd_preprocess``, ``flash_bwd_dkdv_kernel``,
+``flash_bwd_dq_kernel``) against autograd of the plain version at every
+shape training reaches (minicpm-2b causal at h = 144, sq = sk = 512,
+d = 64; d = 80 and 128; whisper-base's encoder at sq = sk = 1500 and its
+cross-attention at sq = 512, sk = 1500, non-causal), float32 and bf16,
+two runs bit-identical, the forward's lse against logsumexp, timed in
+float32 beside the plain backward, the bound (5 products) and SDPA's
+forward plus backward, and each kernel alone at minicpm-2b's shape; (b)
+2 ``make_step`` steps of minicpm-2b and whisper-base reduced in float32
+on the card against the CPU from one set of parameters, with and
+without gradient compression; (c) minicpm-2b at full width through
+``launch.train.main`` (batch 4 x 512, 6 steps, wsd): finite losses,
+exactly 40 forward and 40 of each backward kernel's launches a step and
+no plain call, s/step, tokens/s, peak memory, and 2 profiled steps (idle
+share, launches a step split into forward, backward and optimizer); (d)
+a resume at reduced size (4 steps with a checkpoint at step 2, then a
+restart to 6) against 6 uninterrupted steps. Phases 5, 11, 12, 13, 14,
+15, 16, 17 and 18 set the counts to 0 before their runs and read them
+after, and allow no plain call, fold or failed lane grid there.
 It exits non-zero, printing no result line, when there is no CUDA
 device, when the port is missing, or when any phase fails. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -918,7 +936,6 @@ def profile_run(fn):
     time per launch divides by this count, never by the calls made), and
     the profiler's events."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -926,13 +943,21 @@ def profile_run(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.events()
+    return profile_summary(prof.events(), wall)
+
+
+def profile_summary(events, wall):
+    """:func:`profile_run`'s result from a profiler's events and the
+    window's wall time."""
+    from torch.autograd import DeviceType
+    # and the trainer's ranges around a step's forward, backward, optimizer
+    from repro_torch.launch.train import RANGES as TRAIN_RANGES
     spans, by_name, count = [], {}, {}
     for e in events:
         # a record_function range shows on the device's timeline too
         if e.device_type == DeviceType.CUDA and not (
                 getattr(e, "is_user_annotation", False)
-                or e.name in RANGES + SSM_RANGES):
+                or e.name in RANGES + SSM_RANGES + TRAIN_RANGES):
             spans.append((e.time_range.start, e.time_range.end))
             name = e.name.replace("(anonymous namespace)::", "")
             name = name.removeprefix("void ").split("(")[0].strip()
@@ -1857,6 +1882,13 @@ LM_TOL = 3e-2
 LM_PROFILED_STEPS = 8
 
 
+def allowed_pairs(h, sq, sk, causal):
+    """(query, key) pairs the end-aligned mask allows, over h heads."""
+    if not causal:
+        return h * sq * sk
+    return h * sum(min(sk, sk - sq + i + 1) for i in range(sq))
+
+
 def time_flash(q, k, v, tag, causal=True):
     """The flash kernel's events time on (q, k, v), causal or not, beside
     its plain version's, SDPA's on the same inputs (checked to compute the
@@ -1873,8 +1905,7 @@ def time_flash(q, k, v, tag, causal=True):
                                        is_causal=c)[0])
     e_lib = close(library(), fa.attention_plain(q, k, v, causal), 1e-4,
                   1e-4, f"SDPA at sq={sq} sk={sk} is another function")
-    pairs = (h * sum(min(sk, sk - sq + i + 1) for i in range(sq)) if causal
-             else h * sq * sk)
+    pairs = allowed_pairs(h, sq, sk, causal)
     b_ms, b_by = dense_bound(4 * h * d * (2 * sq + 2 * sk), 4 * d * pairs,
                              FP32_FLOP_PER_S)
     kernel = lambda: fa.attention_kernel(q, k, v, causal)  # noqa: E731
@@ -3074,6 +3105,385 @@ def phase_whisper(device):
                             ("flash_attention whisper cross decode",
                              AUDIO_TIMED[1]))}
 
+# ---------------------------------------------------------------------------
+# phase 18: training on the card — the flash backward, the trainer
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 6
+TRAIN_PROFILED = (4, 5)          # the steps profiled in (c)
+# (label, heads, sq, sk, d, causal): every shape training reaches, batch 4
+BWD_SHAPES = (("minicpm-2b", 4 * 36, 512, 512, 64, True),
+              ("zamba2-2.7b shared block", 4 * 32, 512, 512, 80, True),
+              ("internvl2-76b heads (d 128, batch 1)", 64, 512, 512, 128,
+               True),
+              ("whisper-base encoder", 4 * 8, 1500, 1500, 64, False),
+              ("whisper-base cross-attention", 4 * 8, 512, 1500, 64, False))
+# max |kernel - autograd of the plain version| / max |plain|: float32 on
+# the FP32 units (ex2.approx, other sums' order); bfloat16 outputs round
+# to 8 bits and the Function's D uses the rounded o
+BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+LSE_TOL = 1e-5                   # natural-log units, against logsumexp
+TRAIN_CPU_STEPS = 2
+TRAIN_REDUCED_BATCH, TRAIN_REDUCED_SEQ = 2, 32
+# card against CPU after TRAIN_CPU_STEPS AdamW steps (wsd, lr 6e-5 then
+# 1.2e-4): an entry whose gradient is near zero may take Adam's
+# sign-like step the other way, at most 2 x (6e-5 + 1.2e-4); such entries
+# must stay a rare few (TRAIN_PARAM_FRAC of all beyond 1e-6)
+TRAIN_PARAM_TOL = 3.6e-4
+TRAIN_PARAM_FRAC = 1e-3
+
+
+def phase_train_bwd(device):
+    """(a) the three backward kernels against autograd of the plain version
+    at every shape training reaches, float32 and bf16, twice (bit-equal),
+    the forward's lse against logsumexp; times in float32 (the path's
+    dtype: the LM hands attention float32 q, k, v)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(SEED + 18)
+    rows, kernel_rows = [], {}
+    for label, h, sq, sk, d, causal in BWD_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).removeprefix("torch.")
+            q = normal(rng, (h, sq, d), device, dt)
+            k, v = (normal(rng, (h, sk, d), device, dt) for _ in range(2))
+            do = normal(rng, (h, sq, d), device, dt)
+            o, lse = fa.attention_lse_kernel(q, k, v, causal)
+            got = fa.attention_backward_kernel(q, k, v, o, lse, do, causal)
+            again = fa.attention_backward_kernel(q, k, v, o, lse, do, causal)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"flash backward {label} {name}: two runs differ")
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            want = torch.autograd.grad(
+                ref.flash_attention(*leaves, causal=causal), leaves, do)
+            errs = [float((a.float() - b.float()).abs().max()
+                          / b.float().abs().max())
+                    for a, b in zip(got, want)]
+            check(all(e <= BWD_REL_TOL[name] for e in errs)
+                  and all(bool(torch.isfinite(a).all()) for a in got),
+                  f"flash backward {label} {name}: max |d| / max |ref| of "
+                  f"dq, dk, dv {errs} (limit {BWD_REL_TOL[name]})")
+            _, lse_ref = ref.flash_attention_lse(q, k, v, causal)
+            e_lse = float((lse - lse_ref).abs().max())
+            check(e_lse <= LSE_TOL, f"flash lse {label} {name}: max abs err "
+                  f"{e_lse} against logsumexp (limit {LSE_TOL})")
+            print(f"[train] (a) {label}, h={h} sq={sq} sk={sk} d={d} "
+                  f"{'causal' if causal else 'non-causal'} {name}: "
+                  f"max |d| / max |ref| dq {errs[0]:.3e}, dk {errs[1]:.3e}, "
+                  f"dv {errs[2]:.3e} (limit {BWD_REL_TOL[name]}); lse max "
+                  f"abs err {e_lse:.3e}; two runs bit-identical")
+            if dt != torch.float32:
+                continue
+            pairs = allowed_pairs(h, sq, sk, causal)
+            # q, o, dO, k, v and lse read once; dq, dk, dv written once
+            n_bytes = 4 * h * d * (3 * sq + 2 * sk) + 4 * h * sq + \
+                4 * h * d * (sq + 2 * sk)
+            b_ms, b_by = dense_bound(n_bytes, 5 * 2 * d * pairs,
+                                     FP32_FLOP_PER_S)
+            ms = time_ms(lambda: fa.attention_backward_kernel(
+                q, k, v, o, lse, do, causal))
+            fwd_ms = time_ms(lambda: fa.attention_lse_kernel(q, k, v, causal))
+            plain_ms = time_ms(lambda: fa.attention_backward_plain(
+                q, k, v, o, lse, do, causal), reps=5, warm=1)
+            sq_ = [t.clone().requires_grad_() for t in (q, k, v)]
+            c = causal and sq == sk
+
+            def sdpa():
+                out = F.scaled_dot_product_attention(
+                    sq_[0][None], sq_[1][None], sq_[2][None], is_causal=c)
+                torch.autograd.grad(out, sq_, do[None])
+            lib_ms = time_ms(sdpa, reps=10)
+            row = dict(label=label, ms=ms, fwd_ms=fwd_ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            rows.append(row)
+            print(f"[train] (a) times f32 {label}: backward (3 kernels) "
+                  f"{ms:.4f} ms, forward with lse {fwd_ms:.4f} ms, "
+                  f"forward + backward {fwd_ms + ms:.4f} ms; plain backward "
+                  f"{plain_ms:.4f} ms; SDPA forward + backward "
+                  f"{lib_ms:.4f} ms (is_causal={c}); backward bound "
+                  f"{b_ms:.5f} ms ({b_by}: 5 products of 2 sq sk d over "
+                  f"{pairs} pairs at 67 TFLOP/s), share of bound "
+                  f"{b_ms / ms:.3f}; kernels' forward + backward / SDPA "
+                  f"{(fwd_ms + ms) / lib_ms:.3f}")
+            if label == BWD_SHAPES[0][0]:
+                kernel_rows = bwd_kernel_rows(q, k, v, o, lse, do, causal,
+                                              pairs)
+            del q, k, v, do, o, lse, got, again, want, leaves, sq_
+            torch.cuda.empty_cache()
+    return rows, kernel_rows
+
+
+def bwd_kernel_rows(q, k, v, o, lse, do, causal, pairs):
+    """Each backward kernel alone at minicpm-2b's shape: events time
+    against its plain counterpart, its bound and, for the preprocess, the
+    one PyTorch call computing the same function (``linalg.vecdot``)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    h, sq, d = q.shape
+    sk = k.shape[1]
+    dq_p, dk_p, dv_p = ref.flash_attention_backward(q, k, v, o, lse, do,
+                                                    causal)
+    delta = fa.bwd_preprocess_kernel(o, do)
+    delta_p = (do.float() * o.float()).sum(-1)
+    dk, dv = fa.bwd_dkdv_kernel(q, k, v, do, lse, delta, causal)
+    dq = fa.bwd_dq_kernel(q, k, v, do, lse, delta, causal)
+    err = lambda a, b: float((a.float() - b.float()).abs().max())  # noqa
+    plain_ms = time_ms(lambda: ref.flash_attention_backward(
+        q, k, v, o, lse, do, causal), reps=5, warm=1)
+    tile = 4 * h * d
+    cases = {
+        "flash_bwd_preprocess": (
+            lambda: fa.bwd_preprocess_kernel(o, do),
+            time_ms(lambda: (do.float() * o.float()).sum(-1)),
+            dense_bound(tile * 2 * sq + 4 * h * sq, 2 * d * h * sq,
+                        FP32_FLOP_PER_S),
+            time_ms(lambda: torch.linalg.vecdot(do, o)),
+            err(delta, delta_p)),
+        "flash_bwd_dkdv": (
+            lambda: fa.bwd_dkdv_kernel(q, k, v, do, lse, delta, causal),
+            plain_ms,
+            dense_bound(tile * (2 * sq + 4 * sk) + 8 * h * sq,
+                        4 * 2 * d * pairs, FP32_FLOP_PER_S),
+            None, max(err(dk, dk_p), err(dv, dv_p))),
+        "flash_bwd_dq": (
+            lambda: fa.bwd_dq_kernel(q, k, v, do, lse, delta, causal),
+            plain_ms,
+            dense_bound(tile * (3 * sq + 2 * sk) + 8 * h * sq,
+                        3 * 2 * d * pairs, FP32_FLOP_PER_S),
+            None, err(dq, dq_p))}
+    out = {}
+    for name, (fn, p_ms, (b_ms, b_by), lib_ms, e) in cases.items():
+        ms = time_ms(fn)
+        out[name] = dict(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms, max_abs_err=e)
+        print(f"[train] (a) {name} alone, h={h} sq={sq} sk={sk} d={d} f32: "
+              f"{ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}), share {b_ms / ms:.3f}, library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, max abs "
+              f"err against plain {e:.3e}")
+    return out
+
+
+def train_run(cfg, tree, device, compress):
+    """TRAIN_CPU_STEPS of ``make_step`` from the reference-layout ``tree``
+    on ``device``: losses, gnorms and the parameters after."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import lm_params_from_reference
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import grad_compress
+    from repro_torch.optim.adamw import AdamW
+    api = build_model(cfg)
+    params = lm_params_from_reference(tree, cfg, device)
+    leaves = list(params.parameters())
+    opt = AdamW(lr=train.schedule("wsd", 3e-4, TRAIN_CPU_STEPS))
+    state = opt.init(leaves)
+    err = grad_compress.init_error(leaves) if compress else None
+    step = train.make_step(api, opt, compress)
+    pipe = TokenPipeline(DataCfg(cfg.vocab, TRAIN_REDUCED_SEQ,
+                                 TRAIN_REDUCED_BATCH, seed=SEED))
+    losses, gnorms = [], []
+    for i in range(TRAIN_CPU_STEPS):
+        batch = train.make_batch(cfg, pipe, i, TRAIN_REDUCED_BATCH, device)
+        params, state, err, m = step(params, state, err, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+    return (np.array(losses), np.array(gnorms),
+            [p.detach().cpu() for p in params.parameters()])
+
+
+def phase_train(device):
+    """Phase 18: (a) the flash backward kernels; (b) reduced train steps on
+    the card against the CPU; (c) minicpm-2b at full width through
+    ``launch.train.main``; (d) a resume at reduced size on the card."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.convert import lm_params_to_reference
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.models.api import build_model
+
+    rows, kernel_rows = phase_train_bwd(device)
+
+    # (b) 2 steps on the card against the CPU, float32, one set of params
+    for arch in (TRAIN_ARCH, AUDIO_ARCH):
+        cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+        tree = lm_params_to_reference(build_model(cfg).init_params(
+            torch.Generator("cpu").manual_seed(SEED)), cfg)
+        for compress in (False, True):
+            lc, gc, pc = train_run(cfg, tree, torch.device("cpu"), compress)
+            lg, gg, pg = train_run(cfg, tree, device, compress)
+            dp = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
+            n_off = sum(int(((a - b).abs() > 1e-6).sum())
+                        for a, b in zip(pc, pg))
+            n_all = sum(a.numel() for a in pc)
+            e_loss = float(np.abs(lg / lc - 1).max())
+            e_gn = float(np.abs(gg / gc - 1).max())
+            check(np.isfinite(lg).all() and e_loss <= 1e-5 and e_gn <= 1e-4
+                  and dp <= TRAIN_PARAM_TOL
+                  and n_off <= TRAIN_PARAM_FRAC * n_all,
+                  f"train step {arch} compress={compress}: card vs CPU "
+                  f"loss rel {e_loss}, gnorm rel {e_gn}, params max abs "
+                  f"{dp}, {n_off} of {n_all} entries beyond 1e-6 (limits "
+                  f"1e-5, 1e-4, {TRAIN_PARAM_TOL}, {TRAIN_PARAM_FRAC})")
+            print(f"[train] (b) {arch} reduced float32, {TRAIN_CPU_STEPS} "
+                  f"make_step steps, batch {TRAIN_REDUCED_BATCH} x "
+                  f"{TRAIN_REDUCED_SEQ}, grad compression {compress}: "
+                  f"losses card {lg.tolist()} CPU {lc.tolist()} (rel "
+                  f"{e_loss:.3e}), gnorm rel {e_gn:.3e}, parameters max abs "
+                  f"diff {dp:.3e} ({n_off} of {n_all} entries beyond 1e-6)")
+
+    # (c) minicpm-2b at full width through the trainer's entry point
+    full = get_arch(TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    marks, prof = {}, {}
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        marks[step] = time.perf_counter()
+        # the profiler starts a step early, so that its start-up lands
+        # in a step outside the window read below
+        if step == TRAIN_PROFILED[0] - 2:
+            from torch.profiler import ProfilerActivity, profile
+            prof["p"] = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            prof["p"].start()
+        elif step == TRAIN_PROFILED[-1]:
+            prof["p"].stop()
+    fa.launches = fa.plain_calls = fa.backward_plain_calls = 0
+    fa.bwd_preprocess_launches = fa.bwd_dkdv_launches = \
+        fa.bwd_dq_launches = 0
+    t0 = time.perf_counter()
+    losses = train.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                         "--batch", str(TRAIN_BATCH), "--seq",
+                         str(TRAIN_SEQ), "--log-every", "1", "--seed",
+                         str(SEED), "--device", str(device)],
+                        on_step=on_step)
+    wall = time.perf_counter() - t0
+    counts = {"flash_kernel": fa.launches,
+              "flash_bwd_preprocess": fa.bwd_preprocess_launches,
+              "flash_bwd_dkdv": fa.bwd_dkdv_launches,
+              "flash_bwd_dq": fa.bwd_dq_launches}
+    plain = (fa.plain_calls, fa.backward_plain_calls)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = full.n_layers * TRAIN_STEPS
+    check(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(),
+          f"train {TRAIN_ARCH}: losses {losses}")
+    check(all(n == want for n in counts.values()) and plain == (0, 0),
+          f"train {TRAIN_ARCH}: launches {counts} (want {want} each: "
+          f"{full.n_layers} layers x {TRAIN_STEPS} steps), plain calls "
+          f"{plain} (want 0)")
+    dts = [marks[i] - marks[i - 1] for i in range(1, TRAIN_STEPS)]
+    # steps 1 .. before the profiler's start (step 0 warms up)
+    steady = float(np.median(dts[:TRAIN_PROFILED[0] - 2]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[train] (c) launch.train.main --arch {TRAIN_ARCH} (full width: "
+          f"{full.n_layers} layers, d_model {full.d_model}, {full.n_heads} "
+          f"heads x {full.hd}, d_ff {full.d_ff}, vocab {full.vocab}, "
+          f"{full.dtype}), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+          f"{TRAIN_STEPS} steps, wsd: losses {losses}; step s "
+          f"{[round(x, 4) for x in dts]} (steps 1..{TRAIN_STEPS - 1}; "
+          f"steps {TRAIN_PROFILED[0] - 1}.. under the profiler); "
+          f"median of steps 1..{TRAIN_PROFILED[0] - 2} "
+          f"{steady:.4f} s/step, {tokens / steady:.1f} tokens/s; call wall "
+          f"{wall:.2f} s with the init; peak memory {peak:.2f} GiB; "
+          f"launches {counts} ({want // TRAIN_STEPS} a step each), plain "
+          f"calls {plain}")
+    # the window: from the first profiled step's forward range on (each
+    # step ends in the hook's synchronise, so the steps before it have
+    # finished on the device), against the host clock between the hooks
+    from torch.autograd import DeviceType
+    events = prof["p"].events()
+    n_prof = len(TRAIN_PROFILED)
+    since = sorted(e.time_range.start for e in events
+                   if e.name == train.RANGES[0]
+                   and e.device_type == DeviceType.CPU)[-n_prof]
+    window = [e for e in events if e.time_range.start >= since]
+    summary = profile_summary(window, marks[TRAIN_PROFILED[-1]]
+                              - marks[TRAIN_PROFILED[0] - 1])
+    split = launches_in(window, train.RANGES)
+    if summary["by_name"]:
+        top = sorted(summary["by_name"].items(), key=lambda kv: -kv[1])[:10]
+        print(f"[train] (c) steps {TRAIN_PROFILED} profiled: wall "
+              f"{summary['wall_s']:.4f} s, device busy "
+              f"{summary['busy_s']:.4f} s, device idle share "
+              f"{1 - summary['busy_s'] / summary['wall_s']:.5f} (the "
+              f"profiler's host work inflates the wall; against the "
+              f"unprofiled {steady:.4f} s/step: "
+              f"{1 - summary['busy_s'] / n_prof / steady:.5f}); device ms "
+              f"by name {({n: round(v / 1e3, 3) for n, v in top})}; "
+              f"kernels recorded {sum(summary['count'].values())}")
+    else:
+        print("[train] (c) device idle share not measured (the profiler "
+              "recorded no device activity)")
+    print(f"[train] (c) kernel launches (host calls) a step "
+          f"{split['all'] / n_prof:.1f}: forward "
+          f"{split[train.RANGES[0]] / n_prof:.1f}, backward "
+          f"{split[train.RANGES[1]] / n_prof:.1f}, optimizer "
+          f"{split[train.RANGES[2]] / n_prof:.1f}, outside them "
+          f"{(split['all'] - sum(map(split.get, train.RANGES))) / n_prof:.1f}")
+    del summary, prof, events, window
+    torch.cuda.empty_cache()
+
+    train_resume(device)
+    print(f"[train] card: {nvidia_smi()}")
+    return rows, kernel_rows, counts
+
+
+def train_resume(device):
+    """Phase 18 (d): a resume at reduced size, 6 steps uninterrupted
+    against 4 steps (a checkpoint at step 2) and a restart to 6."""
+    import json
+    import tempfile
+    import numpy as np
+    from repro_torch.checkpoint import ckpt as C
+    from repro_torch.launch import train
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--arch", TRAIN_ARCH, "--reduced", "--batch", "4", "--seq",
+                "64", "--save-every", "2", "--log-every", "1", "--seed",
+                str(SEED), "--device", str(device)]
+        a_dir, b_dir = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        whole = train.main(args + ["--steps", "6", "--ckpt-dir", a_dir])
+        train.main(args + ["--steps", "4", "--ckpt-dir", b_dir])
+        check(C.Checkpointer(b_dir).latest_step() == 2,
+              "train resume: the 4-step run left no checkpoint at step 2")
+        resumed = train.main(args + ["--steps", "6", "--ckpt-dir", b_dir])
+        check(len(resumed) == 3, f"train resume: {len(resumed)} steps "
+              f"after the restart (want steps 3-5)")
+        blobs = [open(os.path.join(d, "step_00000004", "data.msgpack.zst"),
+                      "rb").read() for d in (a_dir, b_dir)]
+        same_ckpt = blobs[0] == blobs[1]
+        same_loss = resumed == whole[3:]
+        dmax = 0.0
+        if not same_ckpt:
+            flat = [C.unpackb(C._ZD.decompress(b) if b[:4] == C.ZSTD_MAGIC
+                              else b) for b in blobs]
+            man = json.load(open(os.path.join(a_dir, "step_00000004",
+                                              "manifest.json")))["tensors"]
+            for key, meta in man.items():
+                a, b = (C._decode_array(f[key], meta["dtype"], meta["shape"])
+                        for f in flat)
+                dmax = max(dmax, float((a.double() - b.double()).abs().max()))
+        check(same_loss or np.allclose(resumed, whole[3:], rtol=1e-5),
+              f"train resume: steps 3-5 {resumed} against the uninterrupted "
+              f"{whole[3:]}")
+        print(f"[train] (d) {TRAIN_ARCH} reduced, batch 4 x 64, bf16: "
+              f"uninterrupted losses {whole}; restarted at step 3 from the "
+              f"step-2 checkpoint: {resumed}; losses bit-equal {same_loss}; "
+              f"step-4 checkpoints byte-equal {same_ckpt}"
+              + ("" if same_ckpt else f" (max abs diff {dmax:.3e})"))
+
 
 def nvidia_smi() -> str:
     try:
@@ -3132,6 +3542,7 @@ def main() -> int:
     moe_rows = phase_moe(device)
     ssm_row = phase_ssm(device)
     audio_rows = phase_whisper(device)
+    train_rows, bwd_rows, train_launches = phase_train(device)
 
     from repro_torch.bench_kernels import ROTATE
     main_rows = {"fabric_reduce_lanes": (
@@ -3188,6 +3599,19 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    for kname, r in bwd_rows.items():
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:68",
+            "launches": train_launches[kname],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print("[train] flash backward f32 by shape (ms): " + "; ".join(
+        f"{r['label']}: {r['ms']:.4f} (bound {r['bound_ms']:.4f}, plain "
+        f"{r['plain_ms']:.4f}, SDPA fwd+bwd {r['library_ms']:.4f})"
+        for r in train_rows))
     print(nvidia_smi())                  # name, power limit: a line alone
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

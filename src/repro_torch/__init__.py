@@ -14,7 +14,9 @@ port module names the reference module it is held against:
                           ``"sim"`` and ``"cuda"``
   repro_torch.serve     — the always-on kernel serving loop (virtual and
                           wall clocks, admission, preemption)
-  repro_torch.runtime   — liveness: heartbeats and the health monitor
+  repro_torch.runtime   — fault tolerance: heartbeats, the health
+                          monitor, the straggler detector and the
+                          trainer's supervisor
   repro_torch.workloads — model-layer compute as served request classes
   repro_torch.fleet     — N fabrics behind one router, with fault-drain
   repro_torch.kernels   — hand-written CUDA kernels for Hopper
@@ -32,9 +34,13 @@ port module names the reference module it is held against:
   repro_torch.data      — ``pipeline``: synthetic token batches and the
                           audio frontend's stub frames (copied verbatim)
   repro_torch.launch    — ``serve_lm``: prefill and greedy decode with KV
-                          caches and SSM states
+                          caches and SSM states; ``train``: the trainer
+  repro_torch.optim     — AdamW with its schedules, int8 gradient
+                          compression with error feedback
+  repro_torch.checkpoint — checkpoints in the reference's on-disk format
   repro_torch.convert   — reference DFGs, inputs and LM parameters into
-                          the port's types
+                          the port's types, and parameters and optimizer
+                          state back into the reference's layout
 
 The port imports ``torch``, never ``jax`` and nothing of ``repro``.
 """

@@ -9,12 +9,18 @@ op is mapped by its enum *name*, so the two packages' enums never mix.
 Inputs need no conversion: both packages take numpy int32 streams.
 
 LM parameters arrive as the reference's parameter tree with numpy leaves
-(``jax.device_get``; bfloat16 leaves are ``ml_dtypes.bfloat16`` arrays).
+(``jax.device_get``; bfloat16 leaves are ``ml_dtypes.bfloat16`` arrays)
+or CPU tensors (a checkpoint restored by ``repro_torch.checkpoint``), and
+leave as that tree with CPU-tensor leaves (:func:`lm_params_to_reference`,
+:func:`opt_state_to_reference`): the layout the reference's training
+checkpoints hold, so a checkpoint crosses between the two trainers.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from typing import Dict, List, Sequence, Tuple
 
 from repro_torch.core import dfg as D
 from repro_torch.core.isa import AluOp, CmpOp
@@ -22,6 +28,7 @@ from repro_torch.models.encdec import EncDec
 from repro_torch.models.hybrid import Hybrid
 from repro_torch.models.ssm import Mamba2LM
 from repro_torch.models.transformer import Transformer
+from repro_torch.optim.adamw import AdamWState
 
 
 def _op(kind: str, op):
@@ -54,7 +61,10 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def _tensor(a, device) -> torch.Tensor:
     """A numpy leaf in its own dtype, through float32, which holds every
-    bfloat16 value exactly."""
+    bfloat16 value exactly; a tensor leaf copied (never aliased: the
+    trainer updates its parameters in place)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device, copy=True)
     dtype = DTYPES[np.asarray(a).dtype.name]
     return torch.from_numpy(np.array(a, np.float32)).to(device=device,
                                                           dtype=dtype)
@@ -89,3 +99,84 @@ def lm_params_from_reference(tree, cfg, device="cuda"):
     model = {"ssm": Mamba2LM, "hybrid": Hybrid,
              "audio": EncDec}.get(cfg.family, Transformer)
     return model(cfg, out)
+
+
+# the reference's leading-L layer stacks
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
+def _path(name: str) -> Tuple[Tuple[str, ...], int]:
+    """A port parameter name (``layers.3.attn.wq``) as the reference
+    tree's key path (``layers/attn/wq``) and its layer, -1 if unstacked."""
+    parts = name.split(".")
+    if parts[0] in STACKED:
+        return (parts[0], *parts[2:]), int(parts[1])
+    return tuple(parts), -1
+
+
+def _to_reference(named: Sequence[Tuple[str, torch.Tensor]]) -> Dict:
+    """Tensors named as the port's parameters, as the reference's tree on
+    the host: each leaf copied to the CPU, layer leaves stacked there along
+    a leading L axis."""
+    tree: Dict = {}
+    stacks: Dict[Tuple[str, ...], List[Tuple[int, torch.Tensor]]] = {}
+    for name, t in named:
+        path, layer = _path(name)
+        if layer < 0:               # a copy, never an alias of the model
+            _set(tree, path, t.detach().to("cpu", copy=True))
+        else:
+            stacks.setdefault(path, []).append((layer, t.detach().cpu()))
+    for path, items in stacks.items():
+        layers = [i for i, _ in sorted(items, key=lambda it: it[0])]
+        if layers != list(range(len(layers))):
+            raise ValueError(f"{'/'.join(path)}: layers {layers}")
+        _set(tree, path, torch.stack([t for _, t in sorted(
+            items, key=lambda it: it[0])]))
+    return tree
+
+
+def _set(tree: Dict, path: Tuple[str, ...], leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def _from_reference(tree: Dict, name: str):
+    path, layer = _path(name)
+    for key in path:
+        tree = tree[key]
+    return tree if layer < 0 else tree[layer]
+
+
+def lm_params_to_reference(model, cfg) -> Dict:
+    """The port's model as the reference's parameter tree (the inverse of
+    :func:`lm_params_from_reference`): CPU-tensor leaves in each leaf's
+    dtype, the layer stacks (``layers``; whisper's ``enc_layers`` and
+    ``dec_layers``) stacked along a leading L axis. Built on the host, one
+    leaf at a time, so a save never doubles device memory."""
+    if model.cfg != cfg:
+        raise ValueError(f"lm_params_to_reference: the model was built for "
+                         f"{model.cfg.arch_id}, not this config")
+    return _to_reference(list(model.named_parameters()))
+
+
+def opt_state_to_reference(state: AdamWState, model) -> AdamWState:
+    """An ``AdamWState`` over ``model``'s parameter list as the
+    reference's: ``mu`` and ``nu`` as parameter trees (float32, stacked,
+    on the host), ``count`` an int32 0-d CPU tensor."""
+    names = [n for n, _ in model.named_parameters()]
+    return AdamWState(_to_reference(list(zip(names, state.mu))),
+                      _to_reference(list(zip(names, state.nu))),
+                      state.count.detach().cpu())
+
+
+def opt_state_from_reference(state, model, device="cuda") -> AdamWState:
+    """The reference's ``AdamWState`` (a restored tuple ``(mu, nu, count)``
+    of parameter trees) as the port's, over ``model``'s parameter list on
+    ``device``."""
+    mu, nu, count = state
+    names = [n for n, _ in model.named_parameters()]
+    return AdamWState(
+        [_tensor(_from_reference(mu, n), device) for n in names],
+        [_tensor(_from_reference(nu, n), device) for n in names],
+        _tensor(count, device).to(torch.int32))

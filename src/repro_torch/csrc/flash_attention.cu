@@ -6,7 +6,9 @@
 // flash_attention (body _masked_kernel, pallas_call at line 68). q is
 // (h, sq, d), k and v are (h, sk, d) with the kv heads already broadcast;
 // float32 or bfloat16, upcast on load; all arithmetic in fp32; the output
-// has q's dtype. Entry point strela_flash_attention.
+// has q's dtype. Entry point strela_flash_attention. With a non-null lse
+// (float32, (h, sq)) the forward also writes each row's log-sum-exp of
+// the scaled scores in natural-log units, m + log(l), for the backward.
 //
 // Semantics kept from the reference: s = (q . k) * scale with scale =
 // 1/sqrt(d); a masked score is -1e30; a key is allowed when ki < sk and,
@@ -87,6 +89,10 @@ struct Layout {
 
 template <typename T>
 __device__ __forceinline__ float4 load4(const T* p);
+template <>
+__device__ __forceinline__ float4 load4<float>(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 template <>
 __device__ __forceinline__ float4 load4<__nv_bfloat16>(
     const __nv_bfloat16* p) {
@@ -176,8 +182,9 @@ __device__ __forceinline__ float ex2(float x) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, Layout<D>::two_blocks ? 2 : 1)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-             float scale, int causal) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int sq, int sk, float scale,
+             int causal) {
   using L = Layout<D>;
   constexpr int QS = L::QS, KS = L::KS, VS = L::VS, NV4 = L::NV4,
                 NV2 = L::NV2, CPT = L::CPT;
@@ -339,6 +346,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 8; ++i) {
     const int row = q0 + tq + 16 * i;
     if (row >= sq) continue;
+    // m and l are equal across the row group's 8 threads (shuffled); the
+    // log-sum-exp back in natural-log units: (m + log2 l) ln 2
+    if (lse != nullptr && tk == 0)
+      lse[static_cast<size_t>(head) * sq + row] =
+          (m[i] + log2f(l[i])) * 0.6931471805599453f;
     const float denom = fmaxf(l[i], 1e-30f);
     T* orow = oh + static_cast<size_t>(row) * D;
 #pragma unroll
@@ -355,8 +367,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int h,
-           int sq, int sk, float scale, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int h, int sq, int sk, float scale, int causal,
+           cudaStream_t stream) {
   constexpr size_t bytes = Layout<D>::bytes;
   // above 48 KB a block may use dynamic shared memory only once the limit
   // is raised (per device, so on every call)
@@ -367,21 +380,424 @@ int launch(const void* q, const void* k, const void* v, void* o, int h,
   const dim3 grid((sq + kBQ - 1) / kBQ, h);
   flash_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, scale,
+      causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int h,
-               int sq, int sk, int d, float scale, int causal,
-               cudaStream_t s) {
+int dispatch_d(const void* q, const void* k, const void* v, void* o,
+               float* lse, int h, int sq, int sk, int d, float scale,
+               int causal, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, h, sq, sk, scale, causal, s);
-    case 64: return launch<T, 64>(q, k, v, o, h, sq, sk, scale, causal, s);
-    case 80: return launch<T, 80>(q, k, v, o, h, sq, sk, scale, causal, s);
-    case 128: return launch<T, 128>(q, k, v, o, h, sq, sk, scale, causal, s);
+    case 16: return launch<T, 16>(q, k, v, o, lse, h, sq, sk, scale,
+                                  causal, s);
+    case 64: return launch<T, 64>(q, k, v, o, lse, h, sq, sk, scale,
+                                  causal, s);
+    case 80: return launch<T, 80>(q, k, v, o, lse, h, sq, sk, scale,
+                                  causal, s);
+    case 128: return launch<T, 128>(q, k, v, o, lse, h, sq, sk, scale,
+                                    causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The backward: three kernels, deterministic (no atomics; every sum runs in
+// one fixed order), fp32 arithmetic, never TF32.
+//
+// Given q, k, v, the forward's o and lse (natural-log units) and dO:
+//   P  = exp(S scale - lse), 0 where the forward's mask is 0 (padded or
+//        masked keys, padded queries), S = Q K^T
+//   D  = rowsum(dO o O)                  (flash_bwd_preprocess)
+//   dV = P^T dO,  dS = P o (dO V^T - D),  dK = dS^T Q scale
+//                                         (flash_bwd_dkdv_kernel)
+//   dQ = dS K scale                       (flash_bwd_dq_kernel)
+// XLA differentiates the reference's attention (the "full" branch or
+// _chunked_attention); the Pallas kernel has no backward, so these are the
+// counterpart of XLA's derivative, not of a TPU kernel's.
+//
+// Bound on the H100: operations, 5 products of 2 sq sk d (S once, dP, dV,
+// dK, dQ), halved under the causal mask, on the FP32 units. This design
+// recomputes S and dP in both kernels (7 products) so that each output is
+// summed by one block in registers: dK and dV by a block per key tile
+// looping over the query tiles that see it (the forward's causal skip
+// mirrored: query tiles that end before the key tile starts), dQ by a block
+// per query tile looping over the key tiles it sees. 64 x 64 tiles, 256
+// threads; thread (ty, tx) = (t / 16, t % 16) owns rows ty + 16 i (i < 4)
+// and columns tx + 16 j of a score tile, and rows ty + 16 i, columns
+// tx + 16 c (c < d / 16) of its block's output. Tiles lie in shared memory
+// as float32 rows of d + 1 (odd, so the 16 rows a warp reads at one column
+// fall on distinct banks); the scalar products read shared memory once per
+// FMA pair, a simple design that later work can move to mma.
+// ---------------------------------------------------------------------------
+
+constexpr int kBB = 64;                  // queries and keys per tile
+constexpr int kBwdThreads = 256;         // 16 x 16
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct BwdLayout {
+  static constexpr int S = D + 1;        // row stride of Q, K, V, dO tiles
+  static constexpr int PS = kBB + 1;     // row stride of P and dS tiles
+  static constexpr int CPT = D / 16;     // output columns per thread
+  static constexpr int T = kBB * S, P = kBB * PS;
+  static constexpr size_t dkdv_bytes =
+      sizeof(float) * (4 * static_cast<size_t>(T) + 2 * P + 2 * kBB);
+  static constexpr size_t dq_bytes =
+      sizeof(float) * (4 * static_cast<size_t>(T) + P + 2 * kBB);
+  static_assert(D % 16 == 0, "d must be a multiple of 16");
+  static_assert(dkdv_bytes <= 232448,
+                "the block's shared memory passes 227 KB");
+};
+
+// rows [row0, row0 + kBB) of a (rows, D) matrix into dst as float32 with
+// row stride S, zero past n_rows
+template <typename T, int D, int S>
+__device__ __forceinline__ void stage_bwd(float* dst, const T* src, int row0,
+                                          int n_rows) {
+  for (int idx = threadIdx.x; idx < kBB * (D / 4); idx += kBwdThreads) {
+    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
+    const int row = row0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < n_rows) x = load4(src + static_cast<size_t>(row) * D + c);
+    float* d = dst + r * S + c;
+    d[0] = x.x;
+    d[1] = x.y;
+    d[2] = x.z;
+    d[3] = x.w;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store1(T* p, float v);
+template <>
+__device__ __forceinline__ void store1<float>(float* p, float v) { *p = v; }
+template <>
+__device__ __forceinline__ void store1<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      float v) {
+  *p = __float2bfloat16(v);
+}
+
+template <typename T>
+__device__ __forceinline__ float load1(const T* p);
+template <>
+__device__ __forceinline__ float load1<float>(const float* p) { return *p; }
+template <>
+__device__ __forceinline__ float load1<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// D = rowsum(dO o O) over rows = h * sq rows of width d: one warp a row,
+// lanes over the columns in order, then a fixed butterfly
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_preprocess(const T* __restrict__ o, const T* __restrict__ dout,
+                     float* __restrict__ delta, long long rows, int d) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const T* orow = o + row * d;
+  const T* drow = dout + row * d;
+  float acc = 0.f;
+  for (int c = lane; c < d; c += 32)
+    acc = fmaf(load1(drow + c), load1(orow + c), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+// S = Q K^T and dP = dO V^T for this thread's 4 x 4 of a 64 x 64 tile,
+// then P and dS with the forward's mask; P and dS into shared memory
+// (dkdv) or dS only (dq, Ps null)
+template <int D>
+__device__ __forceinline__ void scores_bwd(
+    const float* Qs, const float* dOs, const float* Ks, const float* Vs,
+    const float* lse2_s, const float* dl_s, float* Ps, float* dSs, int q0,
+    int k0, int sq, int sk, int q_off, float scale2, int causal) {
+  using L = BwdLayout<D>;
+  constexpr int S = L::S, PS = L::PS;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int dd = 0; dd < D; ++dd) {
+    float qv[4], ov[4], kv[4], vv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qv[i] = Qs[(ty + 16 * i) * S + dd];
+      ov[i] = dOs[(ty + 16 * i) * S + dd];
+      kv[i] = Ks[(tx + 16 * i) * S + dd];
+      vv[i] = Vs[(tx + 16 * i) * S + dd];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i, qi = q0 + r;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j, ki = k0 + c;
+      const bool ok = qi < sq && ki < sk && (!causal || q_off + qi >= ki);
+      const float p = ok ? ex2(s[i][j] * scale2 - lse2_s[r]) : 0.f;
+      if (Ps != nullptr) Ps[r * PS + c] = p;
+      dSs[r * PS + c] = p * (dp[i][j] - dl_s[r]);
+    }
+  }
+}
+
+// lse (in log2 units) and D of query rows [q0, q0 + kBB), zero past sq
+__device__ __forceinline__ void stage_rows_stats(float* lse2_s, float* dl_s,
+                                                 const float* lse,
+                                                 const float* delta, int q0,
+                                                 int sq) {
+  const int t = threadIdx.x;
+  if (t < kBB) {
+    const int row = q0 + t;
+    lse2_s[t] = row < sq ? lse[row] * kLog2e : 0.f;
+    dl_s[t] = row < sq ? delta[row] : 0.f;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, int sq, int sk, float scale,
+                      int causal) {
+  using L = BwdLayout<D>;
+  constexpr int S = L::S, PS = L::PS, CPT = L::CPT;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + L::T;
+  float* Qs = Vs + L::T;
+  float* dOs = Qs + L::T;
+  float* Ps = dOs + L::T;
+  float* dSs = Ps + L::P;
+  float* lse2_s = dSs + L::P;
+  float* dl_s = lse2_s + kBB;
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int head = blockIdx.y;
+  const int k0 = blockIdx.x * kBB;
+  const int q_off = sk - sq;
+  const float scale2 = scale * kLog2e;
+  const size_t qoff = static_cast<size_t>(head) * sq;
+  const size_t koff = static_cast<size_t>(head) * sk;
+
+  stage_bwd<T, D, S>(Ks, k + koff * D, k0, sk);
+  stage_bwd<T, D, S>(Vs, v + koff * D, k0, sk);
+
+  float dk_acc[4][CPT], dv_acc[4][CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  // causal: query qi sees key ki when q_off + qi >= ki, so the first query
+  // tile that sees this key tile holds query k0 - q_off
+  const int qb0 = causal ? max(0, k0 - q_off) / kBB : 0;
+  const int n_qb = (sq + kBB - 1) / kBB;
+  for (int qb = qb0; qb < n_qb; ++qb) {
+    const int q0 = qb * kBB;
+    __syncthreads();             // the last tile's Q, dO, P, dS are read
+    stage_bwd<T, D, S>(Qs, q + qoff * D, q0, sq);
+    stage_bwd<T, D, S>(dOs, dout + qoff * D, q0, sq);
+    stage_rows_stats(lse2_s, dl_s, lse + qoff, delta + qoff, q0, sq);
+    __syncthreads();
+    scores_bwd<D>(Qs, dOs, Ks, Vs, lse2_s, dl_s, Ps, dSs, q0, k0, sq, sk,
+                  q_off, scale2, causal);
+    __syncthreads();
+    // dV += P^T dO, dK += dS^T Q for keys ty + 16 i, columns tx + 16 c,
+    // in query order
+#pragma unroll 2
+    for (int qq = 0; qq < kBB; ++qq) {
+      float pr[4], dsr[4], oc[CPT], qc[CPT];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pr[i] = Ps[qq * PS + ty + 16 * i];
+        dsr[i] = dSs[qq * PS + ty + 16 * i];
+      }
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        oc[c] = dOs[qq * S + tx + 16 * c];
+        qc[c] = Qs[qq * S + tx + 16 * c];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          dv_acc[i][c] = fmaf(pr[i], oc[c], dv_acc[i][c]);
+          dk_acc[i][c] = fmaf(dsr[i], qc[c], dk_acc[i][c]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + ty + 16 * i;
+    if (row >= sk) continue;
+    T* dkrow = dk + (koff + row) * D;
+    T* dvrow = dv + (koff + row) * D;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      store1(dkrow + tx + 16 * c, dk_acc[i][c] * scale);
+      store1(dvrow + tx + 16 * c, dv_acc[i][c]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int sq, int sk, float scale, int causal) {
+  using L = BwdLayout<D>;
+  constexpr int S = L::S, PS = L::PS, CPT = L::CPT;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + L::T;
+  float* Ks = dOs + L::T;
+  float* Vs = Ks + L::T;
+  float* dSs = Vs + L::T;
+  float* lse2_s = dSs + L::P;
+  float* dl_s = lse2_s + kBB;
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int head = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBB;   // heaviest first
+  const int q_off = sk - sq;
+  const float scale2 = scale * kLog2e;
+  const size_t qoff = static_cast<size_t>(head) * sq;
+  const size_t koff = static_cast<size_t>(head) * sk;
+
+  stage_bwd<T, D, S>(Qs, q + qoff * D, q0, sq);
+  stage_bwd<T, D, S>(dOs, dout + qoff * D, q0, sq);
+  stage_rows_stats(lse2_s, dl_s, lse + qoff, delta + qoff, q0, sq);
+
+  float dq_acc[4][CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) dq_acc[i][c] = 0.f;
+
+  // key tiles up to the first that starts past the tile's last query
+  const int n_kb = (sk + kBB - 1) / kBB;
+  const int n_tiles =
+      causal ? min(n_kb, (q_off + q0 + kBB - 1) / kBB + 1) : n_kb;
+  for (int kb = 0; kb < n_tiles; ++kb) {
+    const int k0 = kb * kBB;
+    __syncthreads();             // the last tile's K and dS are read
+    stage_bwd<T, D, S>(Ks, k + koff * D, k0, sk);
+    stage_bwd<T, D, S>(Vs, v + koff * D, k0, sk);
+    __syncthreads();
+    scores_bwd<D>(Qs, dOs, Ks, Vs, lse2_s, dl_s, nullptr, dSs, q0, k0, sq,
+                  sk, q_off, scale2, causal);
+    __syncthreads();
+    // dQ += dS K for queries ty + 16 i, columns tx + 16 c, in key order
+#pragma unroll 2
+    for (int kk = 0; kk < kBB; ++kk) {
+      float dsr[4], kc[CPT];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsr[i] = dSs[(ty + 16 * i) * PS + kk];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) kc[c] = Ks[kk * S + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c)
+          dq_acc[i][c] = fmaf(dsr[i], kc[c], dq_acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= sq) continue;
+    T* dqrow = dq + (qoff + row) * D;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c)
+      store1(dqrow + tx + 16 * c, dq_acc[i][c] * scale);
+  }
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  void *dq, *dk, *dv;
+  int h, sq, sk;
+  float scale;
+  int causal;
+};
+
+template <typename T, int D>
+int launch_dkdv(const BwdArgs& a, cudaStream_t stream) {
+  constexpr size_t bytes = BwdLayout<D>::dkdv_bytes;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      flash_bwd_dkdv_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((a.sk + kBB - 1) / kBB, a.h);
+  flash_bwd_dkdv_kernel<T, D><<<grid, kBwdThreads, bytes, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq, a.sk,
+      a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dq(const BwdArgs& a, cudaStream_t stream) {
+  constexpr size_t bytes = BwdLayout<D>::dq_bytes;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((a.sq + kBB - 1) / kBB, a.h);
+  flash_bwd_dq_kernel<T, D><<<grid, kBwdThreads, bytes, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(a.dq), a.sq, a.sk, a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kDq>
+int dispatch_bwd(const BwdArgs& a, int d, cudaStream_t s) {
+  switch (d) {
+    case 16: return kDq ? launch_dq<T, 16>(a, s) : launch_dkdv<T, 16>(a, s);
+    case 64: return kDq ? launch_dq<T, 64>(a, s) : launch_dkdv<T, 64>(a, s);
+    case 80: return kDq ? launch_dq<T, 80>(a, s) : launch_dkdv<T, 80>(a, s);
+    case 128:
+      return kDq ? launch_dq<T, 128>(a, s) : launch_dkdv<T, 128>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool kDq>
+int run_bwd(const BwdArgs& a, int d, int dtype, void* stream) {
+  if (a.h < 0 || a.h > 65535 || a.sq < 0 || a.sk < 1 ||
+      (a.causal && a.sq > a.sk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.h == 0 || a.sq == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_bwd<float, kDq>(a, d, s);
+  if (dtype == 1) return dispatch_bwd<__nv_bfloat16, kDq>(a, d, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -389,22 +805,72 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int h,
 extern "C" {
 
 // q (h, sq, d), k and v (h, sk, d), o (h, sq, d): contiguous, 16-byte
-// aligned, dtype 0 float32 or 1 bfloat16 for all four. d is 16, 64, 80 or
+// aligned, dtype 0 float32 or 1 bfloat16 for all four. lse is null or a
+// float32 (h, sq) buffer for the rows' log-sum-exp. d is 16, 64, 80 or
 // 128; sk >= 1; causal requires sq <= sk. Returns the CUDA error
 // of the launch (0 on success).
 int strela_flash_attention(const void* q, const void* k, const void* v,
-                           void* o, int h, int sq, int sk, int d, int dtype,
-                           int causal, float scale, void* stream) {
+                           void* o, void* lse, int h, int sq, int sk, int d,
+                           int dtype, int causal, float scale, void* stream) {
   if (h < 0 || h > 65535 || sq < 0 || sk < 1 || (causal && sq > sk))
     return static_cast<int>(cudaErrorInvalidValue);
   if (h == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, h, sq, sk, d, scale, causal, s);
+    return dispatch_d<float>(q, k, v, o, l, h, sq, sk, d, scale, causal, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, h, sq, sk, d, scale, causal,
-                                     s);
+    return dispatch_d<__nv_bfloat16>(q, k, v, o, l, h, sq, sk, d, scale,
+                                     causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// D = rowsum(dout o o) in float32 over rows rows of width d (o and dout
+// contiguous, dtype 0 float32 or 1 bfloat16; delta float32 (rows,)).
+int strela_flash_bwd_preprocess(const void* o, const void* dout, void* delta,
+                                long long rows, int d, int dtype,
+                                void* stream) {
+  if (rows < 0 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>((rows + 7) / 8));
+  if (dtype == 0)
+    flash_bwd_preprocess<float><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout),
+        static_cast<float*>(delta), rows, d);
+  else if (dtype == 1)
+    flash_bwd_preprocess<__nv_bfloat16><<<grid, 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(o),
+        static_cast<const __nv_bfloat16*>(dout), static_cast<float*>(delta),
+        rows, d);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dK and dV (h, sk, d) from q (h, sq, d), k and v (h, sk, d), dout
+// (h, sq, d), the forward's lse and D (float32, (h, sq)): one block per
+// (key tile, head). Shapes, dtypes and d as strela_flash_attention's.
+int strela_flash_bwd_dkdv(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv, int h,
+                          int sq, int sk, int d, int dtype, int causal,
+                          float scale, void* stream) {
+  const BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), nullptr, dk, dv, h, sq,
+                  sk, scale, causal};
+  return run_bwd<false>(a, d, dtype, stream);
+}
+
+// dQ (h, sq, d) from the same inputs: one block per (query tile, head).
+int strela_flash_bwd_dq(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* dq, int h, int sq, int sk, int d, int dtype,
+                        int causal, float scale, void* stream) {
+  const BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), dq, nullptr, nullptr,
+                  h, sq, sk, scale, causal};
+  return run_bwd<true>(a, d, dtype, stream);
 }
 
 }  // extern "C"

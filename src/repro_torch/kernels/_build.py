@@ -114,8 +114,17 @@ def load() -> ctypes.CDLL:
         lib.strela_stream_conv2d.argtypes = [vp, vp, vp, i, i, vp]
         lib.strela_stream_conv2d.restype = i
         lib.strela_flash_attention.argtypes = [
-            vp, vp, vp, vp, i, i, i, i, i, i, ctypes.c_float, vp]
+            vp, vp, vp, vp, vp, i, i, i, i, i, i, ctypes.c_float, vp]
         lib.strela_flash_attention.restype = i
+        lib.strela_flash_bwd_preprocess.argtypes = [vp, vp, vp, ll, i, i, vp]
+        lib.strela_flash_bwd_preprocess.restype = i
+        lib.strela_flash_bwd_dkdv.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
+            ctypes.c_float, vp]
+        lib.strela_flash_bwd_dkdv.restype = i
+        lib.strela_flash_bwd_dq.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, ctypes.c_float, vp]
+        lib.strela_flash_bwd_dq.restype = i
         lib.strela_error_string.argtypes = [i]
         lib.strela_error_string.restype = ctypes.c_char_p
         _lib = lib

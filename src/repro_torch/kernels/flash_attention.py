@@ -30,12 +30,31 @@ Causal attention with ``sq > sk`` raises ``ValueError``: query rows then
 have no allowed key, where the reference oracle gives NaN rows and the
 Pallas kernel values that depend on its block sizes.
 
-Beside it, the plain PyTorch version (``ref.flash_attention``) runs for
-tensors on the CPU, and only there: a CUDA tensor launches the kernel or
-raises. ``launches`` counts kernel launches, ``plain_calls`` calls of the
-plain version.
+The gradient: :class:`FlashAttentionFn` (``torch.autograd.Function``)
+runs the forward kernel with a float32 ``lse`` (each row's log-sum-exp in
+natural-log units) and saves q, k, v, o and lse; its backward runs three
+hand-written kernels of the same source, deterministic and without
+atomics: ``flash_bwd_preprocess`` (D = rowsum(dO o O)),
+``flash_bwd_dkdv_kernel`` (a block per key tile looping over the query
+tiles that see it) and ``flash_bwd_dq_kernel`` (a block per query tile
+looping over its key tiles), each recomputing P from q, k and lse. The
+Pallas kernel is forward only: the reference trains through XLA's
+derivative of its attention, which these kernels stand in for. Bound:
+operations, 5 products of 2 sq sk d, halved under the causal mask, at 67
+TFLOP/s. :func:`flash_attention` takes the Function whenever grad mode is
+on and an input requires a gradient; :func:`attention_kernel` raises
+then, since its output would carry no graph.
+
+Beside them, the plain PyTorch versions (``ref.flash_attention``,
+``ref.flash_attention_lse``, ``ref.flash_attention_backward``) run for
+tensors on the CPU, and only there: a CUDA tensor launches the kernels or
+raises. ``launches`` counts forward launches, ``bwd_*_launches`` each
+backward kernel's, ``plain_calls`` and ``backward_plain_calls`` calls of
+the plain versions.
 """
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 
@@ -47,8 +66,12 @@ BLOCK_Q = 128                  # queries per block (csrc/flash_attention.cu)
 BLOCK_K = 64                   # keys per tile
 NEG_INF = -1e30
 
-launches = 0
+launches = 0                   # flash_kernel, with or without lse
 plain_calls = 0
+bwd_preprocess_launches = 0
+bwd_dkdv_launches = 0
+bwd_dq_launches = 0
+backward_plain_calls = 0
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,45 +111,216 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ref.flash_attention(q, k, v, causal=causal)
 
 
-def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     causal: bool = True) -> torch.Tensor:
-    """Attention by the CUDA kernel: contiguous, 16-byte aligned CUDA
-    tensors only."""
-    global launches
-    _check(q, k, v, causal)
-    if q.device.type != "cuda":
+def _check_kernel_inputs(tensors: Dict[str, torch.Tensor], d: int) -> None:
+    """CUDA tensors on one device, contiguous and 16-byte aligned, and a
+    head_dim the kernels are instantiated for."""
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"flash_attention: the kernel runs on CUDA "
-                         f"tensors, got {q.device}")
-    h, sq, d = q.shape
-    sk = k.shape[1]
+                         f"tensors, all on one device, got "
+                         f"{sorted(map(str, devices))}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: the kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in tensors.items():
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must be contiguous "
                              f"and 16-byte aligned")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, with_lse: bool):
+    """One launch of ``flash_kernel``: the output and, with ``with_lse``,
+    the rows' float32 log-sum-exp ``(h, sq)`` (else None)."""
+    global launches
+    _check(q, k, v, causal)
+    h, sq, d = q.shape
+    sk = k.shape[1]
+    _check_kernel_inputs({"q": q, "k": k, "v": v}, d)
     if h > 65535 or max(sq, sk) >= 2 ** 31:
         raise ValueError(f"flash_attention: at most 65535 heads and 2^31 "
                          f"positions, got h={h} sq={sq} sk={sk}")
     out = torch.empty_like(q)
+    lse = (torch.empty((h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if h == 0 or sq == 0:
-        return out
+        return out, lse
     lib = _build.load()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.strela_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), h, sq,
-            sk, d, DTYPES[q.dtype], int(causal), 1.0 / (d ** 0.5), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None, h, sq, sk, d,
+            DTYPES[q.dtype], int(causal), 1.0 / (d ** 0.5), _stream(q))
     _build.check(lib, rc, f"flash_attention h={h} sq={sq} sk={sk} d={d}")
     launches += 1
-    return out
+    return out, lse
+
+
+def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool = True) -> torch.Tensor:
+    """Attention by the CUDA kernel: contiguous, 16-byte aligned CUDA
+    tensors only. An input that requires a gradient, with grad mode on,
+    raises: the kernel writes through a raw pointer, so its output would
+    carry no graph (:func:`flash_attention` takes
+    :class:`FlashAttentionFn` then)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_attention: attention_kernel returns no "
+                         "gradient; an input requires one, so call "
+                         "flash_attention (FlashAttentionFn) instead")
+    return _forward_kernel(q, k, v, causal, False)[0]
+
+
+def attention_lse_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's output and its rows' log-sum-exp (natural-log
+    units, float32 ``(h, sq)``), as the backward needs them."""
+    return _forward_kernel(q, k, v, causal, True)
+
+
+def bwd_preprocess_kernel(o: torch.Tensor, do: torch.Tensor
+                          ) -> torch.Tensor:
+    """``flash_bwd_preprocess``: D = rowsum(dO o O) in float32, shape
+    ``o.shape[:-1]``."""
+    global bwd_preprocess_launches
+    if o.shape != do.shape or o.dtype != do.dtype or o.dtype not in DTYPES:
+        raise ValueError(f"flash_attention backward: o and dO must share a "
+                         f"shape and a dtype in {sorted(map(str, DTYPES))}, "
+                         f"got {tuple(o.shape)} {o.dtype} and "
+                         f"{tuple(do.shape)} {do.dtype}")
+    _check_kernel_inputs({"o": o, "dO": do}, o.shape[-1])
+    delta = torch.empty(o.shape[:-1], dtype=torch.float32, device=o.device)
+    rows = delta.numel()
+    if rows == 0:
+        return delta
+    lib = _build.load()
+    with torch.cuda.device(o.device):
+        rc = lib.strela_flash_bwd_preprocess(
+            o.data_ptr(), do.data_ptr(), delta.data_ptr(), rows, o.shape[-1],
+            DTYPES[o.dtype], _stream(o))
+    _build.check(lib, rc, f"flash_bwd_preprocess rows={rows}")
+    bwd_preprocess_launches += 1
+    return delta
+
+
+def _check_backward(q, k, v, do, lse, delta, causal) -> None:
+    _check(q, k, v, causal)
+    h, sq, d = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention backward: dO must be q's shape "
+                         f"and dtype {tuple(q.shape)} {q.dtype}, got "
+                         f"{tuple(do.shape)} {do.dtype}")
+    for name, t in (("lse", lse), ("D", delta)):
+        if t.shape != (h, sq) or t.dtype != torch.float32:
+            raise ValueError(f"flash_attention backward: {name} must be "
+                             f"float32 ({h}, {sq}), got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    _check_kernel_inputs({"q": q, "k": k, "v": v, "dO": do, "lse": lse,
+                          "D": delta}, d)
+
+
+def bwd_dkdv_kernel(q, k, v, do, lse, delta, causal: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_bwd_dkdv_kernel``: dK and dV in k's and v's dtype."""
+    global bwd_dkdv_launches
+    _check_backward(q, k, v, do, lse, delta, causal)
+    h, sq, d = q.shape
+    sk = k.shape[1]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if h == 0 or sq == 0:
+        return dk.zero_(), dv.zero_()
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        rc = lib.strela_flash_bwd_dkdv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            h, sq, sk, d, DTYPES[q.dtype], int(causal), 1.0 / (d ** 0.5),
+            _stream(q))
+    _build.check(lib, rc, f"flash_bwd_dkdv h={h} sq={sq} sk={sk} d={d}")
+    bwd_dkdv_launches += 1
+    return dk, dv
+
+
+def bwd_dq_kernel(q, k, v, do, lse, delta, causal: bool = True
+                  ) -> torch.Tensor:
+    """``flash_bwd_dq_kernel``: dQ in q's dtype."""
+    global bwd_dq_launches
+    _check_backward(q, k, v, do, lse, delta, causal)
+    h, sq, d = q.shape
+    sk = k.shape[1]
+    dq = torch.empty_like(q)
+    if h == 0 or sq == 0:
+        return dq
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        rc = lib.strela_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), h, sq, sk, d,
+            DTYPES[q.dtype], int(causal), 1.0 / (d ** 0.5), _stream(q))
+    _build.check(lib, rc, f"flash_bwd_dq h={h} sq={sq} sk={sk} d={d}")
+    bwd_dq_launches += 1
+    return dq
+
+
+def attention_backward_kernel(q, k, v, o, lse, do, causal: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """dq, dk, dv by the three backward kernels, in the inputs' dtypes."""
+    delta = bwd_preprocess_kernel(o, do)
+    dk, dv = bwd_dkdv_kernel(q, k, v, do, lse, delta, causal)
+    return bwd_dq_kernel(q, k, v, do, lse, delta, causal), dk, dv
+
+
+def attention_backward_plain(q, k, v, o, lse, do, causal: bool = True
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The plain version of :func:`attention_backward_kernel`."""
+    global backward_plain_calls
+    backward_plain_calls += 1
+    dq, dk, dv = ref.flash_attention_backward(q, k, v, o, lse, do, causal)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with a gradient: the forward kernel with its log-sum-exp,
+    and the three backward kernels, for CUDA tensors; the plain versions
+    (``ref.flash_attention_lse``, ``ref.flash_attention_backward``) for CPU
+    tensors, and only there. Saves q, k, v, o and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        global plain_calls
+        if q.device.type == "cpu":
+            _check(q, k, v, causal)
+            plain_calls += 1
+            o, lse = ref.flash_attention_lse(q, k, v, causal)
+        else:
+            o, lse = attention_lse_kernel(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()             # autograd may hand a strided view
+        back = (attention_backward_plain if q.device.type == "cpu"
+                else attention_backward_kernel)
+        dq, dk, dv = back(q, k, v, o, lse, do, ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Attention on the tensors' device: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors; through :class:`FlashAttentionFn`
+    when grad mode is on and an input requires a gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal)
     return attention_kernel(q, k, v, causal)

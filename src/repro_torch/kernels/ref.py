@@ -247,14 +247,10 @@ def conv2d_3x3(img: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Attention over ``(heads, seq, head_dim)`` with the kv heads already
-    broadcast, in float32, returned in q's dtype. The causal mask is
-    aligned to the end of the keys, ``tril(diagonal=sk - sq)``; SDPA's
-    ``is_causal`` aligns it to the start instead, which differs whenever
-    ``sq != sk``."""
+def _attention_logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                      scale: Optional[float]) -> Tuple[torch.Tensor, float]:
+    """Scaled float32 scores ``(h, sq, sk)``, masked entries at -inf (the
+    causal mask aligned to the end of the keys), and the scale."""
     h, sq, d = q.shape
     sk = k.shape[1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
@@ -264,6 +260,54 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = torch.ones((sq, sk), dtype=torch.bool,
                           device=q.device).tril(diagonal=sk - sq)
         logits = logits.masked_fill(~mask, float("-inf"))
+    return logits, scale
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over ``(heads, seq, head_dim)`` with the kv heads already
+    broadcast, in float32, returned in q's dtype. The causal mask is
+    aligned to the end of the keys, ``tril(diagonal=sk - sq)``; SDPA's
+    ``is_causal`` aligns it to the start instead, which differs whenever
+    ``sq != sk``."""
+    logits, _ = _attention_logits(q, k, causal, scale)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("hqk,hkd->hqd", probs,
                         v.to(torch.float32)).to(q.dtype)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention`'s output and each row's float32
+    log-sum-exp of the scaled, masked scores ``(h, sq)`` in natural-log
+    units: what the forward kernel saves for the backward."""
+    logits, _ = _attention_logits(q, k, causal, scale)
+    out = torch.einsum("hqk,hkd->hqd", torch.softmax(logits, dim=-1),
+                       v.to(torch.float32))
+    return out.to(q.dtype), torch.logsumexp(logits, dim=-1)
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor,
+                             causal: bool = True,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """dq, dk, dv (float32) of :func:`flash_attention` by the explicit
+    formulas the backward kernels compute, from the forward's ``o`` and
+    ``lse``: P = exp(S scale - lse) with masked entries 0, D =
+    rowsum(dO o O), dV = P^T dO, dS = P o (dO V^T - D), dQ = dS K scale,
+    dK = dS^T Q scale."""
+    f32 = torch.float32
+    logits, scale = _attention_logits(q, k, causal, scale)
+    p = torch.exp(logits - lse[..., None])          # exp(-inf) = 0: masked
+    dof, qf, kf, vf = do.to(f32), q.to(f32), k.to(f32), v.to(f32)
+    delta = (dof * o.to(f32)).sum(-1)
+    dv = torch.einsum("hqk,hqd->hkd", p, dof)
+    ds = p * (torch.einsum("hqd,hkd->hqk", dof, vf) - delta[..., None])
+    dq = torch.einsum("hqk,hkd->hqd", ds, kf) * scale
+    dk = torch.einsum("hqk,hqd->hkd", ds, qf) * scale
+    return dq, dk, dv

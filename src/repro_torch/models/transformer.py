@@ -10,7 +10,8 @@ and the forward loops over them. Its parameters keep the reference's
 tree layout and names (``layers.<i>.attn.wq``, ``layers.<i>.moe.router``,
 ...), so ``repro_torch.convert.lm_params_from_reference`` carries a
 reference tree across by unstacking the L axis. ``remat`` (activation
-checkpointing) has no effect: the port runs no backward pass yet.
+checkpointing) has no effect: training keeps every layer's activations
+for the backward.
 """
 from __future__ import annotations
 

@@ -1,0 +1,8 @@
+"""Optimizer and gradient transforms of the trainer (counterpart of
+``repro.optim``): AdamW with its schedules and int8 gradient compression
+with error feedback."""
+from repro_torch.optim.adamw import (AdamW, AdamWState, clip_by_global_norm,
+                                     cosine_schedule, wsd_schedule)
+
+__all__ = ["AdamW", "AdamWState", "clip_by_global_norm", "cosine_schedule",
+           "wsd_schedule"]

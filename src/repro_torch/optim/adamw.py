@@ -1,0 +1,124 @@
+"""AdamW with cosine / WSD (warmup-stable-decay, MiniCPM) schedules
+(counterpart of ``repro.optim.adamw``).
+
+The state is a plain ``NamedTuple`` so the checkpoint layer treats it like
+any tree: ``mu`` and ``nu`` are float32 lists in the order of the
+parameter list the optimizer is handed (a model's ``parameters()``, which
+is ``named_parameters()`` order), ``count`` an int32 0-d tensor. The
+update runs in place under ``torch.no_grad()`` (the reference returns new
+trees): the moments and the parameters are overwritten, so a step holds no
+second copy of either.
+
+Numerics follow the reference's float32 arithmetic: ``count`` is
+incremented before use; the bias corrections ``1 - b ** count`` and the
+learning rate ``lr(count)`` are float32 tensors, as JAX's weakly typed
+Python floats make them (not Python doubles); the step
+``(m2 / b1c) / (sqrt(v2 / b2c) + eps) + wd * p`` is float32, and
+``p_f32 - lr * step`` is cast back to the parameter's dtype, so bfloat16
+parameters keep no float32 master copy, as in the reference. Weight decay
+applies to every leaf, norms and embeddings included.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, List, NamedTuple, Sequence, Tuple
+
+import torch
+
+F32 = torch.float32
+
+
+class AdamWState(NamedTuple):
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+    count: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    lr: Callable[[torch.Tensor], torch.Tensor]
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+
+    def init(self, params: Sequence[torch.Tensor]) -> AdamWState:
+        zeros = lambda p: torch.zeros_like(p, dtype=F32)      # noqa: E731
+        device = params[0].device if len(params) else "cpu"
+        return AdamWState([zeros(p) for p in params],
+                          [zeros(p) for p in params],
+                          torch.zeros((), dtype=torch.int32, device=device))
+
+    def bias_corrections(self, count: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``1 - b1 ** count`` and ``1 - b2 ** count`` in float32."""
+        cf = count.to(F32)
+        return 1 - torch.pow(self.b1, cf), 1 - torch.pow(self.b2, cf)
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor], state: AdamWState,
+               params: Sequence[torch.Tensor]
+               ) -> Tuple[Sequence[torch.Tensor], AdamWState]:
+        """One step over the parameter list, in place: returns ``params``
+        (the same tensors, updated) and the state with the same moment
+        tensors (updated) and the incremented count."""
+        if not (len(grads) == len(params) == len(state.mu)
+                == len(state.nu)):
+            raise ValueError(f"AdamW.update: {len(grads)} grads, "
+                             f"{len(params)} params, {len(state.mu)} moments")
+        count = state.count + 1
+        b1c, b2c = self.bias_corrections(count)
+        lr = self.lr(count)
+        for g, m, v, p in zip(grads, state.mu, state.nu, params):
+            gf = g.to(F32)
+            m.copy_(self.b1 * m + (1 - self.b1) * gf)
+            v.copy_(self.b2 * v + (1 - self.b2) * gf * gf)
+            pf = p.to(F32)
+            step = (m / b1c) / (torch.sqrt(v / b2c) + self.eps)
+            step = step + self.weight_decay * pf
+            p.copy_((pf - lr * step).to(p.dtype))
+        return params, AdamWState(state.mu, state.nu, count)
+
+
+def cosine_schedule(base_lr: float, warmup: int, total: int,
+                    final_frac: float = 0.1) -> Callable:
+    def lr(step: torch.Tensor) -> torch.Tensor:
+        s = step.to(F32)
+        warm = base_lr * s / max(warmup, 1)
+        prog = torch.clip((s - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = final_frac + (1 - final_frac) * 0.5 * (
+            1 + torch.cos(math.pi * prog))
+        return torch.where(s < warmup, warm, base_lr * cos)
+    return lr
+
+
+def wsd_schedule(base_lr: float, warmup: int, stable: int, decay: int,
+                 final_frac: float = 0.01) -> Callable:
+    """Warmup-Stable-Decay (MiniCPM, arXiv:2404.06395): linear warmup,
+    long flat stage, sharp (exponential-ish) decay tail."""
+    def lr(step: torch.Tensor) -> torch.Tensor:
+        s = step.to(F32)
+        warm = base_lr * s / max(warmup, 1)
+        in_decay = torch.clip((s - warmup - stable) / max(decay, 1), 0.0,
+                              1.0)
+        dec = base_lr * torch.pow(final_frac, in_decay)
+        flat = torch.full_like(s, base_lr)
+        return torch.where(s < warmup, warm,
+                           torch.where(s < warmup + stable, flat, dec))
+    return lr
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float
+                        ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Scale every gradient by ``min(1, max_norm / (norm + 1e-9))`` (in
+    float32, cast back to its dtype) and return them with the float32
+    global norm. The sum of squares runs over the leaves in order, as the
+    reference's Python ``sum``."""
+    total = torch.zeros((), dtype=F32, device=grads[0].device)
+    for g in grads:
+        total = total + torch.sum(g.to(F32) ** 2)
+    norm = torch.sqrt(total)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return [(g.to(F32) * scale).to(g.dtype) for g in grads], norm

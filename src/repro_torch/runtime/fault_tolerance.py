@@ -1,23 +1,33 @@
-"""Liveness primitives of the fault-tolerance runtime (counterpart of
-``repro.runtime.fault_tolerance``, whose ``Heartbeat`` and
-``HealthMonitor`` are copied here verbatim).
+"""Fault tolerance runtime (counterpart of
+``repro.runtime.fault_tolerance``, whose ``Heartbeat``, ``HealthMonitor``
+and ``StragglerDetector`` are copied here verbatim).
 
+  * **checkpoint/restart** — ``TrainSupervisor.on_step`` saves every
+    ``save_every`` steps and ``resume_or_init`` restores the latest
+    checkpoint (``repro_torch.checkpoint``, the reference's format);
   * **heartbeats** — each host publishes a monotonic step heartbeat;
     ``HealthMonitor.stalled()`` flags hosts whose heartbeat lags the fleet
-    (dead node or crashed process).
+    (dead node or crashed process);
+  * **straggler detection** — per-step wall times; a step slower than
+    ``factor`` x the window's median is recorded.
 
 Heartbeats are files and monitors are pure functions of them. The serving
-loop's :class:`repro_torch.serve.LivenessProbe` is built on both. The
-training side of the reference module (``StragglerDetector``,
-``elastic_remesh``, ``TrainSupervisor``) belongs to the LM stack and is
-not ported yet.
+loop's :class:`repro_torch.serve.LivenessProbe` is built on both. One
+deliberate difference from the reference: ``TrainSupervisor.on_step``
+takes the state as a zero-argument callable, called only on a save step,
+so the trainer builds the reference-layout host tree only when a save is
+due. ``elastic_remesh`` (a restore onto another mesh) comes with the
+port's partitioning (``runtime/partition``).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
 
 
 # ---------------------------------------------------------------------------
@@ -102,3 +112,69 @@ class HealthMonitor:
     def stalled(self, now: Optional[float] = None) -> List[int]:
         return sorted(h for h, s in self.states(now).items()
                       if s == "stalled")
+
+
+# ---------------------------------------------------------------------------
+# straggler detection
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StragglerDetector:
+    factor: float = 2.0
+    window: int = 50
+
+    def __post_init__(self):
+        self._times: List[float] = []
+        self.events: List[Dict] = []
+
+    def record(self, step: int, dt: float) -> bool:
+        """Returns True if this step was a straggler."""
+        self._times.append(dt)
+        if len(self._times) > self.window:
+            self._times.pop(0)
+        med = float(np.median(self._times))
+        is_straggler = len(self._times) >= 10 and dt > self.factor * med
+        if is_straggler:
+            self.events.append({"step": step, "dt": dt, "median": med})
+        return is_straggler
+
+
+# ---------------------------------------------------------------------------
+# supervisor
+# ---------------------------------------------------------------------------
+
+class TrainSupervisor:
+    """Glues checkpointing, heartbeats and straggler handling to the loop."""
+
+    def __init__(self, ckpt, hb_dir: str, host_id: int = 0,
+                 save_every: int = 100, straggler_factor: float = 2.0):
+        self.ckpt = ckpt
+        self.hb = Heartbeat(hb_dir, host_id)
+        self.monitor = HealthMonitor(hb_dir)
+        self.straggler = StragglerDetector(straggler_factor)
+        self.save_every = save_every
+        self._last_t: Optional[float] = None
+
+    def on_step(self, step: int, state: Callable[[], Any],
+                extra: Optional[Dict] = None) -> Dict:
+        """After step ``step``: a heartbeat, the straggler check, and on a
+        save step an async save of ``state()``."""
+        now = time.time()
+        info: Dict[str, Any] = {}
+        if self._last_t is not None:
+            info["straggler"] = self.straggler.record(step, now - self._last_t)
+        self._last_t = now
+        self.hb.beat(step)
+        if step > 0 and step % self.save_every == 0:
+            self.ckpt.save_async(step, state(), extra)
+            info["saved"] = True
+        stalled = self.monitor.stalled(now)
+        if stalled:
+            info["stalled_hosts"] = stalled
+        return info
+
+    def resume_or_init(self, template: Any):
+        step = self.ckpt.latest_step()
+        if step is None:
+            return None, 0, {}
+        return self.ckpt.restore(template, step)

@@ -85,3 +85,27 @@ def test_a_drifted_copy_is_caught():
     m = re.search(r"=\s*(\d+)\b", text)
     drifted = text[:m.start(1)] + str(int(m.group(1)) + 1) + text[m.end(1):]
     assert ast.dump(_tree(drifted)) != want
+
+
+# classes the port copies verbatim into a module of its own making
+COPIED_CLASSES = {"runtime/fault_tolerance.py": (
+    "Heartbeat", "HealthMonitor", "StragglerDetector")}
+
+
+def _class(path, name, rename):
+    tree = _tree(_read(path, rename=rename))
+    found = [n for n in tree.body
+             if isinstance(n, ast.ClassDef) and n.name == name]
+    assert len(found) == 1, (path, name)
+    return ast.dump(found[0])
+
+
+@pytest.mark.parametrize("rel,name", [(rel, name) for rel, names in
+                                      COPIED_CLASSES.items()
+                                      for name in names])
+def test_copied_class_equals_the_reference(rel, name):
+    """The trainer's straggler detector and the liveness primitives stay
+    the reference's classes, decorators included."""
+    assert _class(os.path.join(PORT, rel), name, False) == \
+        _class(os.path.join(REF, rel), name, True), \
+        f"{name} in {rel} has drifted from src/repro/{rel}"

@@ -830,3 +830,131 @@ def test_serve_lm_whisper_at_full_width_launches_flash_582_times(cuda):
     assert res["tokens"].shape == (4, 16)
     assert res["tokens"].min() >= 0 and res["tokens"].max() < cfg.vocab
     assert bool(torch.isfinite(res["logits"][:, :cfg.vocab].float()).all())
+
+
+# training (chip_smoke.py phase 18): the flash backward kernels against
+# the plain backward and autograd of the plain forward, at the reduced
+# models' d = 16 and at every shape training reaches at batch 4 (minicpm-2b,
+# zamba2-2.7b's shared block at d = 80, d = 128, whisper-base's encoder and
+# cross-attention); two runs bit-identical
+BWD_CASES = [(2, 5, 9, 16, True), (3, 130, 200, 16, False),
+             (4, 70, 70, 16, True), (144, 512, 512, 64, True),
+             (128, 512, 512, 80, True), (64, 512, 512, 128, True),
+             (32, 1500, 1500, 64, False), (32, 512, 1500, 64, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,sq,sk,d,causal", BWD_CASES)
+def test_flash_backward_kernels_match_plain(cuda, h, sq, sk, d, causal,
+                                            dtype):
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(h + sq + sk + d)
+    q = _normal(rng, (h, sq, d), cuda, dtype)
+    k, v = (_normal(rng, (h, sk, d), cuda, dtype) for _ in range(2))
+    do = _normal(rng, (h, sq, d), cuda, dtype)
+    o, lse = fa.attention_lse_kernel(q, k, v, causal)
+    o_p, lse_p = ref.flash_attention_lse(q, k, v, causal)
+    got = fa.attention_backward_kernel(q, k, v, o, lse, do, causal)
+    again = fa.attention_backward_kernel(q, k, v, o, lse, do, causal)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention(*leaves, causal=causal),
+                               leaves, do)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, lse_p, atol=1e-5, rtol=0)
+    # max |kernel - plain| / max |plain|: float32 on the FP32 units; bf16
+    # outputs round to 8 bits and D uses the rounded o
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == dtype and torch.equal(a, b)
+        assert float((a.float() - w.float()).abs().max()) <= \
+            tol * float(w.float().abs().max())
+
+
+def test_flash_attention_fn_on_the_card_runs_the_kernels_only(cuda):
+    """With a gradient the Function runs the forward kernel (with lse)
+    and the three backward kernels once each, and no plain version."""
+    rng = np.random.default_rng(5)
+    q, k, v = (_normal(rng, (8, 96, 64), cuda).requires_grad_()
+               for _ in range(3))
+    counts = (fa.launches, fa.bwd_preprocess_launches, fa.bwd_dkdv_launches,
+              fa.bwd_dq_launches, fa.plain_calls, fa.backward_plain_calls)
+    out = fa.flash_attention(q, k, v, True)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    after = (fa.launches, fa.bwd_preprocess_launches, fa.bwd_dkdv_launches,
+             fa.bwd_dq_launches, fa.plain_calls, fa.backward_plain_calls)
+    assert [b - a for a, b in zip(counts, after)] == [1, 1, 1, 1, 0, 0]
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+def test_attention_kernel_refuses_an_input_that_needs_a_gradient(cuda):
+    rng = np.random.default_rng(6)
+    q, k, v = (_normal(rng, (2, 16, 64), cuda) for _ in range(3))
+    launches = fa.launches
+    with pytest.raises(ValueError, match="attention_kernel returns no "
+                                         "gradient"):
+        fa.attention_kernel(q.requires_grad_(), k, v, True)
+    assert fa.launches == launches
+
+
+def test_serving_launches_no_backward_kernel(cuda):
+    """Serving (no_grad / inference mode) takes the forward kernel alone,
+    without lse, once per layer and step, as before training came."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+    cfg = get_arch("minicpm-2b").reduced()
+    api = build_model(cfg)
+    params = api.init_params(torch.Generator(cuda).manual_seed(0))
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 8)).astype(np.int32)).to(cuda)
+    before = (fa.launches, fa.bwd_preprocess_launches, fa.bwd_dkdv_launches,
+              fa.bwd_dq_launches, fa.plain_calls)
+    with torch.inference_mode():
+        serve_lm.generate(api, params, prompt, 4)
+    after = (fa.launches, fa.bwd_preprocess_launches, fa.bwd_dkdv_launches,
+             fa.bwd_dq_launches, fa.plain_calls)
+    assert [b - a for a, b in zip(before, after)] == [
+        cfg.n_layers * (8 + 4), 0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "whisper-base"])
+def test_train_steps_on_the_card_match_the_cpu(cuda, arch):
+    """Two ``make_step`` steps of the reduced model in float32 from one
+    set of parameters: losses and gnorms within 1e-5 and 1e-4 relative,
+    parameters within 2 x (lr_1 + lr_2) = 3.6e-4 (an entry with a near
+    zero gradient may take Adam's sign-like step the other way), such
+    entries under 0.1% of all."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import (lm_params_from_reference,
+                                     lm_params_to_reference)
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamW
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    api = build_model(cfg)
+    tree = lm_params_to_reference(api.init_params(
+        torch.Generator().manual_seed(0)), cfg)
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        params = lm_params_from_reference(tree, cfg, dev)
+        opt = AdamW(lr=train.schedule("wsd", 3e-4, 2))
+        state = opt.init(list(params.parameters()))
+        step = train.make_step(api, opt, False)
+        pipe = TokenPipeline(DataCfg(cfg.vocab, 32, 2, seed=0))
+        metrics = []
+        for i in range(2):
+            batch = train.make_batch(cfg, pipe, i, 2, dev)
+            params, state, _, m = step(params, state, None, batch)
+            metrics.append((float(m["loss"]), float(m["gnorm"])))
+        runs.append((np.array(metrics),
+                     [p.detach().cpu() for p in params.parameters()]))
+    (mc, pc), (mg, pg) = runs
+    np.testing.assert_allclose(mg[:, 0], mc[:, 0], rtol=1e-5)
+    np.testing.assert_allclose(mg[:, 1], mc[:, 1], rtol=1e-4)
+    diffs = [(a - b).abs() for a, b in zip(pc, pg)]
+    assert max(float(d.max()) for d in diffs) <= 3.6e-4
+    assert sum(int((d > 1e-6).sum()) for d in diffs) <= \
+        1e-3 * sum(d.numel() for d in diffs)

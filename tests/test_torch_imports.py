@@ -34,7 +34,10 @@ def test_port_imports_neither_jax_nor_the_reference():
              "repro_torch.configs", "repro_torch.models",
              "repro_torch.models.moe", "repro_torch.models.ssm",
              "repro_torch.models.hybrid", "repro_torch.models.encdec",
-             "repro_torch.data.pipeline", "repro_torch.launch.serve_lm"]
+             "repro_torch.data.pipeline", "repro_torch.launch.serve_lm",
+             "repro_torch.launch.train", "repro_torch.optim.adamw",
+             "repro_torch.optim.grad_compress", "repro_torch.checkpoint.ckpt",
+             "repro_torch.runtime.fault_tolerance"]
     for m in named:
         assert m in mods, m
         mods.remove(m)
