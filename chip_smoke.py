@@ -185,6 +185,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 # 128 FP32 ones, so half the data sheet's 67 TFLOP/s float32 rate.
 INT_OPS_PER_S = 33.5e12
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+# float32-grade products on the TF32 tensor cores (495 TFLOP/s dense) in
+# three passes (hi hi + hi lo + lo hi), as the flash backward runs them
+TF32X3_FLOP_PER_S = 495e12 / 3
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bfloat16 tensor cores
 SEED = 0
 
@@ -3112,16 +3115,11 @@ def phase_whisper(device):
 TRAIN_ARCH = "minicpm-2b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 6
 TRAIN_PROFILED = (4, 5)          # the steps profiled in (c)
-# (label, heads, sq, sk, d, causal): every shape training reaches, batch 4
-BWD_SHAPES = (("minicpm-2b", 4 * 36, 512, 512, 64, True),
-              ("zamba2-2.7b shared block", 4 * 32, 512, 512, 80, True),
-              ("internvl2-76b heads (d 128, batch 1)", 64, 512, 512, 128,
-               True),
-              ("whisper-base encoder", 4 * 8, 1500, 1500, 64, False),
-              ("whisper-base cross-attention", 4 * 8, 512, 1500, 64, False))
-# max |kernel - autograd of the plain version| / max |plain|: float32 on
-# the FP32 units (ex2.approx, other sums' order); bfloat16 outputs round
-# to 8 bits and the Function's D uses the rounded o
+# The backward's shapes are repro_torch.bench_flash.BWD_SHAPES: every shape
+# training reaches, batch 4. max |kernel - autograd of the plain version| /
+# max |plain|: float32-grade products (three TF32 passes on the tensor
+# cores, about 2^-21 relative a product; ex2.approx, other sums' order);
+# bfloat16 outputs round to 8 bits and the Function's D uses the rounded o
 BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LSE_TOL = 1e-5                   # natural-log units, against logsumexp
 TRAIN_CPU_STEPS = 2
@@ -3138,10 +3136,13 @@ def phase_train_bwd(device):
     """(a) the three backward kernels against autograd of the plain version
     at every shape training reaches, float32 and bf16, twice (bit-equal),
     the forward's lse against logsumexp; times in float32 (the path's
-    dtype: the LM hands attention float32 q, k, v)."""
+    dtype: the LM hands attention float32 q, k, v), each beside two
+    bounds (the products on the FP32 units and on the TF32 tensor cores
+    in three passes), SDPA's backward alone and its forward + backward."""
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from repro_torch.bench_flash import BWD_SHAPES, bwd_work
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     rng = np.random.default_rng(SEED + 18)
@@ -3181,10 +3182,9 @@ def phase_train_bwd(device):
                 continue
             pairs = allowed_pairs(h, sq, sk, causal)
             # q, o, dO, k, v and lse read once; dq, dk, dv written once
-            n_bytes = 4 * h * d * (3 * sq + 2 * sk) + 4 * h * sq + \
-                4 * h * d * (sq + 2 * sk)
-            b_ms, b_by = dense_bound(n_bytes, 5 * 2 * d * pairs,
-                                     FP32_FLOP_PER_S)
+            work = bwd_work(h, sq, sk, d, causal)["backward"]
+            b32, by32 = dense_bound(*work, FP32_FLOP_PER_S)
+            b_ms, b_by = dense_bound(*work, TF32X3_FLOP_PER_S)
             ms = time_ms(lambda: fa.attention_backward_kernel(
                 q, k, v, o, lse, do, causal))
             fwd_ms = time_ms(lambda: fa.attention_lse_kernel(q, k, v, causal))
@@ -3198,31 +3198,42 @@ def phase_train_bwd(device):
                     sq_[0][None], sq_[1][None], sq_[2][None], is_causal=c)
                 torch.autograd.grad(out, sq_, do[None])
             lib_ms = time_ms(sdpa, reps=10)
+            # SDPA's backward alone: its forward once, then the gradient
+            out = F.scaled_dot_product_attention(
+                sq_[0][None], sq_[1][None], sq_[2][None], is_causal=c)
+            lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+                out, sq_, do[None], retain_graph=True), reps=10)
+            del out
             row = dict(label=label, ms=ms, fwd_ms=fwd_ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                       bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32,
+                       library_ms=lib_ms, library_bwd_ms=lib_bwd_ms)
             rows.append(row)
             print(f"[train] (a) times f32 {label}: backward (3 kernels) "
                   f"{ms:.4f} ms, forward with lse {fwd_ms:.4f} ms, "
                   f"forward + backward {fwd_ms + ms:.4f} ms; plain backward "
-                  f"{plain_ms:.4f} ms; SDPA forward + backward "
-                  f"{lib_ms:.4f} ms (is_causal={c}); backward bound "
-                  f"{b_ms:.5f} ms ({b_by}: 5 products of 2 sq sk d over "
-                  f"{pairs} pairs at 67 TFLOP/s), share of bound "
-                  f"{b_ms / ms:.3f}; kernels' forward + backward / SDPA "
-                  f"{(fwd_ms + ms) / lib_ms:.3f}")
+                  f"{plain_ms:.4f} ms; SDPA backward alone {lib_bwd_ms:.4f} "
+                  f"ms, forward + backward {lib_ms:.4f} ms (is_causal={c}); "
+                  f"backward bound (5 products of 2 sq sk d over {pairs} "
+                  f"pairs) {b32:.5f} ms ({by32}) at 67 TFLOP/s, share "
+                  f"{b32 / ms:.3f}; {b_ms:.5f} ms ({b_by}) at 3xTF32 165 "
+                  f"TFLOP/s, share {b_ms / ms:.3f}; backward / SDPA's "
+                  f"{ms / lib_bwd_ms:.3f}; kernels' forward + backward / "
+                  f"SDPA {(fwd_ms + ms) / lib_ms:.3f}")
             if label == BWD_SHAPES[0][0]:
-                kernel_rows = bwd_kernel_rows(q, k, v, o, lse, do, causal,
-                                              pairs)
+                kernel_rows = bwd_kernel_rows(q, k, v, o, lse, do, causal)
             del q, k, v, do, o, lse, got, again, want, leaves, sq_
             torch.cuda.empty_cache()
     return rows, kernel_rows
 
 
-def bwd_kernel_rows(q, k, v, o, lse, do, causal, pairs):
+def bwd_kernel_rows(q, k, v, o, lse, do, causal):
     """Each backward kernel alone at minicpm-2b's shape: events time
-    against its plain counterpart, its bound and, for the preprocess, the
-    one PyTorch call computing the same function (``linalg.vecdot``)."""
+    against its plain counterpart, its bounds (FP32 units and 3xTF32; the
+    row's ``bound_ms`` is the 3xTF32 one, the least time) and, for the
+    preprocess, the one PyTorch call computing the same function
+    (``linalg.vecdot``)."""
     import torch
+    from repro_torch.bench_flash import bwd_work
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     h, sq, d = q.shape
@@ -3236,35 +3247,30 @@ def bwd_kernel_rows(q, k, v, o, lse, do, causal, pairs):
     err = lambda a, b: float((a.float() - b.float()).abs().max())  # noqa
     plain_ms = time_ms(lambda: ref.flash_attention_backward(
         q, k, v, o, lse, do, causal), reps=5, warm=1)
-    tile = 4 * h * d
+    work = bwd_work(h, sq, sk, d, causal)
     cases = {
         "flash_bwd_preprocess": (
             lambda: fa.bwd_preprocess_kernel(o, do),
             time_ms(lambda: (do.float() * o.float()).sum(-1)),
-            dense_bound(tile * 2 * sq + 4 * h * sq, 2 * d * h * sq,
-                        FP32_FLOP_PER_S),
             time_ms(lambda: torch.linalg.vecdot(do, o)),
             err(delta, delta_p)),
         "flash_bwd_dkdv": (
             lambda: fa.bwd_dkdv_kernel(q, k, v, do, lse, delta, causal),
-            plain_ms,
-            dense_bound(tile * (2 * sq + 4 * sk) + 8 * h * sq,
-                        4 * 2 * d * pairs, FP32_FLOP_PER_S),
-            None, max(err(dk, dk_p), err(dv, dv_p))),
+            plain_ms, None, max(err(dk, dk_p), err(dv, dv_p))),
         "flash_bwd_dq": (
             lambda: fa.bwd_dq_kernel(q, k, v, do, lse, delta, causal),
-            plain_ms,
-            dense_bound(tile * (3 * sq + 2 * sk) + 8 * h * sq,
-                        3 * 2 * d * pairs, FP32_FLOP_PER_S),
-            None, err(dq, dq_p))}
+            plain_ms, None, err(dq, dq_p))}
     out = {}
-    for name, (fn, p_ms, (b_ms, b_by), lib_ms, e) in cases.items():
+    for name, (fn, p_ms, lib_ms, e) in cases.items():
         ms = time_ms(fn)
+        b32, by32 = dense_bound(*work[name], FP32_FLOP_PER_S)
+        b_ms, b_by = dense_bound(*work[name], TF32X3_FLOP_PER_S)
         out[name] = dict(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms, max_abs_err=e)
         print(f"[train] (a) {name} alone, h={h} sq={sq} sk={sk} d={d} f32: "
-              f"{ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
-              f"({b_by}), share {b_ms / ms:.3f}, library "
+              f"{ms:.4f} ms, plain {p_ms:.4f} ms, bound {b32:.5f} ms "
+              f"({by32}) at 67 TFLOP/s, share {b32 / ms:.3f}; {b_ms:.5f} ms "
+              f"({b_by}) at 3xTF32, share {b_ms / ms:.3f}; library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, max abs "
               f"err against plain {e:.3e}")
     return out
@@ -3424,6 +3430,10 @@ def phase_train(device):
               f"{1 - summary['busy_s'] / n_prof / steady:.5f}); device ms "
               f"by name {({n: round(v / 1e3, 3) for n, v in top})}; "
               f"kernels recorded {sum(summary['count'].values())}")
+        flash = {n: round(v / 1e3, 3)
+                 for n, v in summary["by_name"].items() if "flash" in n}
+        print(f"[train] (c) flash kernels' device ms over steps "
+              f"{TRAIN_PROFILED}: {flash}")
     else:
         print("[train] (c) device idle share not measured (the profiler "
               "recorded no device activity)")
@@ -3609,9 +3619,10 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print("[train] flash backward f32 by shape (ms): " + "; ".join(
-        f"{r['label']}: {r['ms']:.4f} (bound {r['bound_ms']:.4f}, plain "
-        f"{r['plain_ms']:.4f}, SDPA fwd+bwd {r['library_ms']:.4f})"
-        for r in train_rows))
+        f"{r['label']}: {r['ms']:.4f} (bound {r['bound_fp32_ms']:.4f} FP32 "
+        f"units, {r['bound_ms']:.4f} 3xTF32; plain {r['plain_ms']:.4f}; SDPA "
+        f"bwd {r['library_bwd_ms']:.4f}, fwd+bwd {r['library_ms']:.4f}; ours "
+        f"fwd+bwd {r['fwd_ms'] + r['ms']:.4f})" for r in train_rows))
     print(nvidia_smi())                  # name, power limit: a line alone
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -151,10 +151,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // rows [row0, row0 + n) of a (rows, D) matrix into dst (row stride S
 // floats), zero past n_rows: float32 by cp.async (src-size 0 fills zeros),
 // bfloat16 loaded and converted by the threads
-template <typename T, int D, int S>
+template <typename T, int D, int S, int kThr = kThreads>
 __device__ __forceinline__ void stage_rows(float* dst, const T* src,
                                            int row0, int n, int n_rows) {
-  for (int idx = threadIdx.x; idx < n * (D / 4); idx += kThreads) {
+  for (int idx = threadIdx.x; idx < n * (D / 4); idx += kThr) {
     const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
     const int row = row0 + r;
     const bool ok = row < n_rows;
@@ -404,7 +404,7 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o,
 
 // ---------------------------------------------------------------------------
 // The backward: three kernels, deterministic (no atomics; every sum runs in
-// one fixed order), fp32 arithmetic, never TF32.
+// one fixed order, so two runs are bit-identical).
 //
 // Given q, k, v, the forward's o and lse (natural-log units) and dO:
 //   P  = exp(S scale - lse), 0 where the forward's mask is 0 (padded or
@@ -418,66 +418,98 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o,
 // counterpart of XLA's derivative, not of a TPU kernel's.
 //
 // Bound on the H100: operations, 5 products of 2 sq sk d (S once, dP, dV,
-// dK, dQ), halved under the causal mask, on the FP32 units. This design
-// recomputes S and dP in both kernels (7 products) so that each output is
-// summed by one block in registers: dK and dV by a block per key tile
-// looping over the query tiles that see it (the forward's causal skip
-// mirrored: query tiles that end before the key tile starts), dQ by a block
-// per query tile looping over the key tiles it sees. 64 x 64 tiles, 256
-// threads; thread (ty, tx) = (t / 16, t % 16) owns rows ty + 16 i (i < 4)
-// and columns tx + 16 j of a score tile, and rows ty + 16 i, columns
-// tx + 16 c (c < d / 16) of its block's output. Tiles lie in shared memory
-// as float32 rows of d + 1 (odd, so the 16 rows a warp reads at one column
-// fall on distinct banks); the scalar products read shared memory once per
-// FMA pair, a simple design that later work can move to mma.
+// dK, dQ), halved under the causal mask. On the FP32 units (67 TFLOP/s) at
+// minicpm-2b's training shape (h = 144, sq = sk = 512, d = 64, causal) that
+// is 0.1806 ms (dkdv's 4 products 0.1445, dq's 3 products 0.1084). These
+// kernels run the products on the TF32 tensor cores in three passes, so
+// the bound is the same five products at 495 / 3 = 165 TFLOP/s: 0.0733 ms
+// (dkdv 0.0587, dq 0.0440). The design recomputes S and dP in both kernels
+// (7 products where 5 suffice) so that each output is summed by one block
+// in registers: dK and dV by a block per key tile looping over the query
+// tiles that see it (the forward's causal skip mirrored: query tiles that
+// end before the key tile starts), dQ by a block per query tile looping
+// over the key tiles it sees. 3xTF32 pays for the recomputation 2.5 times.
+//
+// Why 3xTF32. One TF32 pass keeps 10 mantissa bits of each operand, a
+// relative error of 2^-11 per product, which puts the backward out of its
+// 1e-4 limit against float32. Each float32 x splits into hi = tf32_rna(x)
+// and lo = tf32_rna(x - hi) (cvt.rna.tf32.f32: round to nearest, ties away
+// from zero), and a b = lo_a hi_b + hi_a lo_b + hi_a hi_b to about 2^-21
+// relative (lo_a lo_b, 2^-22, is dropped): three mma.sync.m16n8k8 TF32
+// products into one float32 accumulator, small terms first, in k order.
+// (The tensor cores add each product into the accumulator truncating, so
+// the error grows with the length of the sum: 7e-6 of max |dK| at 512
+// queries, 2.2e-5 at 1500, against the 1e-4 limit.)
+//
+// Where the split happens. The streamed tile (Q and dO in dkdv, K and V in
+// dq) is read by every warp of the block, twice for Q and K: it is split
+// once, at staging, into hi and lo planes in shared memory (split_tile),
+// which the warps read as B fragments. Splitting it at fragment load
+// instead cost every warp the same splits again, and measured 13-16%
+// slower at minicpm-2b's and zamba2-2.7b's shapes. The block's own tile
+// (K and V in dkdv, Q and dO in dq, 16 rows a warp) is split at fragment
+// load, as are P and dS in registers. A split costs four instructions
+// (split_tf32: hi by an integer add and mask, lo by a subtract and
+// cvt.rna; two cvt.rna a value were 15-19% slower, the conversion pipe
+// being the bottleneck).
+//
+// Warp layout. Each warp owns 16 rows of the block's own tile. dkdv: a
+// warp computes S^T = K Q^T and dP^T = V dO^T against the streamed query
+// tile (C fragments, 16 keys x QT queries), forms P^T and dS^T in place
+// with the forward's mask (a masked entry is exactly 0), and accumulates
+// dV += P^T dO and dK += dS^T Q in C fragments (16 keys x d). dq: a warp
+// computes S = Q K^T and dP = dO V^T against the streamed key tile, dS in
+// place, and accumulates dQ += dS K. A warp none of whose rows the tile
+// reaches (past the causal diagonal, past sq or sk) skips it, and a warp
+// whose tile has no masked entry forms P and dS without the mask's index
+// arithmetic; the sums are the same. mma.sync, not wgmma: TF32 wgmma
+// needs both operands K-major in shared memory, so P and dS would have to
+// go through shared memory, where mma.sync keeps them in registers.
+//
+// Permuted-k register reuse. An m16n8k8 C fragment holds columns 2t and
+// 2t + 1 (t = lane % 4) of rows g and g + 8 (g = lane / 4); an A fragment
+// wants columns t and t + 4. The k index is summed, so it is relabelled:
+// logical k = t is physical column 2t and k = t + 4 is 2t + 1. The C
+// fragment (c0, c1, c2, c3) becomes the next product's (a0, a2, a1, a3),
+// and the B fragment is loaded from rows 2t and 2t + 1 of each 8-row
+// group. P and dS feed dV, dK and dQ without a shuffle or shared memory.
+//
+// Tiles and shared memory (BwdLayout). Rows lie in shared memory with a
+// stride of d + 4 words: every fragment load (rows g at column t, and rows
+// 2t, 2t + 1 at column g) falls on 32 distinct banks at d = 16, 64, 80 and
+// 128, and rows stay 16-byte aligned for cp.async. A block has W = 8 warps
+// (4 at d = 128), so R = 16 W own rows, and streams tiles of QT queries
+// (dkdv) or KT keys (dq): 64, or 32 at d = 128, where 64 would put the
+// 2 x 64 accumulators, S^T and dP^T past the 255 registers a thread and
+// the planes past 227 KB. A tile lands by cp.async (bfloat16 inputs are
+// loaded and converted by the threads, as the forward does) in a landing
+// buffer while the warps compute on the previous tile's planes; then the
+// block splits it into the planes: two __syncthreads a tile. Bytes per
+// launch, one block an SM above d = 16:
+//   d      16      64       80       128
+//   dkdv   52,224  175,104  216,064  169,472
+//   dq     51,200  174,080  215,040  168,960
+// raised per launch with cudaFuncSetAttribute.
 // ---------------------------------------------------------------------------
 
-constexpr int kBB = 64;                  // queries and keys per tile
-constexpr int kBwdThreads = 256;         // 16 x 16
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct BwdLayout {
-  static constexpr int S = D + 1;        // row stride of Q, K, V, dO tiles
-  static constexpr int PS = kBB + 1;     // row stride of P and dS tiles
-  static constexpr int CPT = D / 16;     // output columns per thread
-  static constexpr int T = kBB * S, P = kBB * PS;
+  static constexpr int S = D + 4;        // row stride of every tile
+  static constexpr int W = D >= 128 ? 4 : 8;      // warps a block
+  static constexpr int R = 16 * W;       // a block's own keys (dkdv) or
+                                         // queries (dq), 16 a warp
+  static constexpr int QT = D >= 128 ? 32 : 64;   // dkdv's query tile
+  static constexpr int KT = D >= 128 ? 32 : 64;   // dq's key tile
   static constexpr size_t dkdv_bytes =
-      sizeof(float) * (4 * static_cast<size_t>(T) + 2 * P + 2 * kBB);
+      sizeof(float) * (2 * R * S + 6 * QT * S + 4 * QT);
   static constexpr size_t dq_bytes =
-      sizeof(float) * (4 * static_cast<size_t>(T) + P + 2 * kBB);
+      sizeof(float) * (2 * R * S + 6 * KT * S);
   static_assert(D % 16 == 0, "d must be a multiple of 16");
-  static_assert(dkdv_bytes <= 232448,
+  static_assert(dkdv_bytes <= 232448 && dq_bytes <= 232448,
                 "the block's shared memory passes 227 KB");
 };
-
-// rows [row0, row0 + kBB) of a (rows, D) matrix into dst as float32 with
-// row stride S, zero past n_rows
-template <typename T, int D, int S>
-__device__ __forceinline__ void stage_bwd(float* dst, const T* src, int row0,
-                                          int n_rows) {
-  for (int idx = threadIdx.x; idx < kBB * (D / 4); idx += kBwdThreads) {
-    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
-    const int row = row0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < n_rows) x = load4(src + static_cast<size_t>(row) * D + c);
-    float* d = dst + r * S + c;
-    d[0] = x.x;
-    d[1] = x.y;
-    d[2] = x.z;
-    d[3] = x.w;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store1(T* p, float v);
-template <>
-__device__ __forceinline__ void store1<float>(float* p, float v) { *p = v; }
-template <>
-__device__ __forceinline__ void store1<__nv_bfloat16>(__nv_bfloat16* p,
-                                                      float v) {
-  *p = __float2bfloat16(v);
-}
 
 template <typename T>
 __device__ __forceinline__ float load1(const T* p);
@@ -486,6 +518,123 @@ __device__ __forceinline__ float load1<float>(const float* p) { return *p; }
 template <>
 __device__ __forceinline__ float load1<__nv_bfloat16>(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
+}
+
+// one float of lse or D by a 4-byte cp.async, zero when !ok
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// x = hi + lo: hi = tf32_rna(x), lo = tf32_rna(x - hi). hi is rounded by
+// an integer add of half a TF32 unit and a mask, the bits cvt.rna gives
+// for every finite x, lo by cvt.rna itself: the two share the integer and
+// the conversion pipes, which all-cvt or all-integer splits saturate. A
+// NaN whose payload wraps the add (0x7fffffff) gives hi = -0, but its lo is
+// NaN, so the product is NaN as with cvt.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// rows [0, n) of a raw tile (stride S) into its hi and lo planes, once a
+// tile for every warp of the block
+template <int D, int S, int kThr>
+__device__ __forceinline__ void split_tile(uint32_t* hi, uint32_t* lo,
+                                           const float* raw, int n) {
+  for (int idx = threadIdx.x; idx < n * (D / 4); idx += kThr) {
+    const int at = idx / (D / 4) * S + idx % (D / 4) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(raw + at);
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + at) = h;
+    *reinterpret_cast<uint4*>(lo + at) = l;
+  }
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in three TF32 passes, small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+// c (16 x 8 NT) += A B^T over k = D in d order: A the warp's 16 raw rows
+// at a, split at load; B 8 NT rows as hi and lo planes at bh, bl; all
+// row-major in shared memory (stride D + 4)
+template <int D, int NT>
+__device__ __forceinline__ void mma_rows_rows(float (&c)[NT][4],
+                                              const float* a,
+                                              const uint32_t* bh,
+                                              const uint32_t* bl) {
+  constexpr int S = BwdLayout<D>::S;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  a += g * S + t;
+  bh += g * S + t;
+  bl += g * S + t;
+#pragma unroll 2
+  for (int k0 = 0; k0 < D; k0 += 8) {
+    uint32_t ah[4], al[4];
+    split_tf32(a[k0], ah[0], al[0]);
+    split_tf32(a[8 * S + k0], ah[1], al[1]);
+    split_tf32(a[k0 + 4], ah[2], al[2]);
+    split_tf32(a[8 * S + k0 + 4], ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const uint32_t h[2] = {bh[8 * j * S + k0], bh[8 * j * S + k0 + 4]};
+      const uint32_t l[2] = {bl[8 * j * S + k0], bl[8 * j * S + k0 + 4]};
+      mma_3xtf32(c[j], ah, al, h, l);
+    }
+  }
+}
+
+// c (16 x D) += P B over k = 8 NK rows in row order: P in registers as
+// the C fragments of an earlier product (permuted k), B as hi and lo
+// planes at bh, bl (row-major, stride D + 4)
+template <int D, int NK>
+__device__ __forceinline__ void mma_regs_rows(float (&c)[D / 8][4],
+                                              const float (&p)[NK][4],
+                                              const uint32_t* bh,
+                                              const uint32_t* bl) {
+  constexpr int S = BwdLayout<D>::S;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  bh += 2 * t * S + g;
+  bl += 2 * t * S + g;
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    uint32_t ah[4], al[4];
+    split_tf32(p[j][0], ah[0], al[0]);
+    split_tf32(p[j][2], ah[1], al[1]);
+    split_tf32(p[j][1], ah[2], al[2]);
+    split_tf32(p[j][3], ah[3], al[3]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const uint32_t h[2] = {bh[8 * j * S + 8 * n],
+                             bh[(8 * j + 1) * S + 8 * n]};
+      const uint32_t l[2] = {bl[8 * j * S + 8 * n],
+                             bl[(8 * j + 1) * S + 8 * n]};
+      mma_3xtf32(c[n], ah, al, h, l);
+    }
+  }
 }
 
 // D = rowsum(dO o O) over rows = h * sq rows of width d: one warp a row,
@@ -509,69 +658,10 @@ flash_bwd_preprocess(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) delta[row] = acc;
 }
 
-// S = Q K^T and dP = dO V^T for this thread's 4 x 4 of a 64 x 64 tile,
-// then P and dS with the forward's mask; P and dS into shared memory
-// (dkdv) or dS only (dq, Ps null)
-template <int D>
-__device__ __forceinline__ void scores_bwd(
-    const float* Qs, const float* dOs, const float* Ks, const float* Vs,
-    const float* lse2_s, const float* dl_s, float* Ps, float* dSs, int q0,
-    int k0, int sq, int sk, int q_off, float scale2, int causal) {
-  using L = BwdLayout<D>;
-  constexpr int S = L::S, PS = L::PS;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int dd = 0; dd < D; ++dd) {
-    float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = Qs[(ty + 16 * i) * S + dd];
-      ov[i] = dOs[(ty + 16 * i) * S + dd];
-      kv[i] = Ks[(tx + 16 * i) * S + dd];
-      vv[i] = Vs[(tx + 16 * i) * S + dd];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, qi = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j, ki = k0 + c;
-      const bool ok = qi < sq && ki < sk && (!causal || q_off + qi >= ki);
-      const float p = ok ? ex2(s[i][j] * scale2 - lse2_s[r]) : 0.f;
-      if (Ps != nullptr) Ps[r * PS + c] = p;
-      dSs[r * PS + c] = p * (dp[i][j] - dl_s[r]);
-    }
-  }
-}
-
-// lse (in log2 units) and D of query rows [q0, q0 + kBB), zero past sq
-__device__ __forceinline__ void stage_rows_stats(float* lse2_s, float* dl_s,
-                                                 const float* lse,
-                                                 const float* delta, int q0,
-                                                 int sq) {
-  const int t = threadIdx.x;
-  if (t < kBB) {
-    const int row = q0 + t;
-    lse2_s[t] = row < sq ? lse[row] * kLog2e : 0.f;
-    dl_s[t] = row < sq ? delta[row] : 0.f;
-  }
-}
-
+// dK and dV of the key tile [k0, k0 + R): warp w owns keys
+// k0 + 16 w + (g, g + 8) and their dK, dV rows as C fragments
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(32 * BwdLayout<D>::W)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
@@ -579,160 +669,252 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       T* __restrict__ dv, int sq, int sk, float scale,
                       int causal) {
   using L = BwdLayout<D>;
-  constexpr int S = L::S, PS = L::PS, CPT = L::CPT;
+  constexpr int S = L::S, R = L::R, QT = L::QT, NT = QT / 8, NC = D / 8;
+  constexpr int kThr = 32 * L::W;
   extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + L::T;
-  float* Qs = Vs + L::T;
-  float* dOs = Qs + L::T;
-  float* Ps = dOs + L::T;
-  float* dSs = Ps + L::P;
-  float* lse2_s = dSs + L::P;
-  float* dl_s = lse2_s + kBB;
+  float* Ks = smem;                      // [R][S]
+  float* Vs = Ks + R * S;                // [R][S]
+  float* Qraw = Vs + R * S;              // [QT][S], landing
+  float* dOraw = Qraw + QT * S;          // [QT][S], landing
+  uint32_t* Qh = reinterpret_cast<uint32_t*>(dOraw + QT * S);  // [QT][S]
+  uint32_t* Ql = Qh + QT * S;
+  uint32_t* dOh = Ql + QT * S;
+  uint32_t* dOl = dOh + QT * S;
+  float* lse_raw = reinterpret_cast<float*>(dOl + QT * S);     // [QT]
+  float* dl_raw = lse_raw + QT;
+  float* lse2_s = dl_raw + QT;           // lse in log2 units, this tile
+  float* dl_s = lse2_s + QT;
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const int head = blockIdx.y;
-  const int k0 = blockIdx.x * kBB;
+  const int k0 = blockIdx.x * R;
+  const int kr = k0 + 16 * warp + g;     // this thread's keys kr, kr + 8
   const int q_off = sk - sq;
   const float scale2 = scale * kLog2e;
   const size_t qoff = static_cast<size_t>(head) * sq;
   const size_t koff = static_cast<size_t>(head) * sk;
+  const T* qh = q + qoff * D;
+  const T* doh = dout + qoff * D;
 
-  stage_bwd<T, D, S>(Ks, k + koff * D, k0, sk);
-  stage_bwd<T, D, S>(Vs, v + koff * D, k0, sk);
+  // Q, dO, lse and D of query tile qb into the landing buffers
+  auto land = [&](int qb) {
+    const int q0 = qb * QT;
+    stage_rows<T, D, S, kThr>(Qraw, qh, q0, QT, sq);
+    stage_rows<T, D, S, kThr>(dOraw, doh, q0, QT, sq);
+    const int i = threadIdx.x % QT, row = q0 + i;
+    const bool ok = row < sq;
+    const float* src = (threadIdx.x < QT ? lse : delta) + qoff +
+                       (ok ? row : 0);
+    if (threadIdx.x < 2 * QT)
+      cp_async4((threadIdx.x < QT ? lse_raw : dl_raw) + i, src, ok);
+  };
 
-  float dk_acc[4][CPT], dv_acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
+  stage_rows<T, D, S, kThr>(Ks, k + koff * D, k0, R, sk);
+  stage_rows<T, D, S, kThr>(Vs, v + koff * D, k0, R, sk);
   // causal: query qi sees key ki when q_off + qi >= ki, so the first query
   // tile that sees this key tile holds query k0 - q_off
-  const int qb0 = causal ? max(0, k0 - q_off) / kBB : 0;
-  const int n_qb = (sq + kBB - 1) / kBB;
+  const int qb0 = causal ? max(0, k0 - q_off) / QT : 0;
+  const int n_qb = (sq + QT - 1) / QT;
+  land(qb0);
+  cp_async_commit();
+
+  float dk_acc[NC][4], dv_acc[NC][4];
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  const float* Kw = Ks + 16 * warp * S;
+  const float* Vw = Vs + 16 * warp * S;
+  const int kw0 = k0 + 16 * warp, kw_last = kw0 + 15;
+
   for (int qb = qb0; qb < n_qb; ++qb) {
-    const int q0 = qb * kBB;
-    __syncthreads();             // the last tile's Q, dO, P, dS are read
-    stage_bwd<T, D, S>(Qs, q + qoff * D, q0, sq);
-    stage_bwd<T, D, S>(dOs, dout + qoff * D, q0, sq);
-    stage_rows_stats(lse2_s, dl_s, lse + qoff, delta + qoff, q0, sq);
-    __syncthreads();
-    scores_bwd<D>(Qs, dOs, Ks, Vs, lse2_s, dl_s, Ps, dSs, q0, k0, sq, sk,
-                  q_off, scale2, causal);
-    __syncthreads();
-    // dV += P^T dO, dK += dS^T Q for keys ty + 16 i, columns tx + 16 c,
-    // in query order
-#pragma unroll 2
-    for (int qq = 0; qq < kBB; ++qq) {
-      float pr[4], dsr[4], oc[CPT], qc[CPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pr[i] = Ps[qq * PS + ty + 16 * i];
-        dsr[i] = dSs[qq * PS + ty + 16 * i];
-      }
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        oc[c] = dOs[qq * S + tx + 16 * c];
-        qc[c] = Qs[qq * S + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          dv_acc[i][c] = fmaf(pr[i], oc[c], dv_acc[i][c]);
-          dk_acc[i][c] = fmaf(dsr[i], qc[c], dk_acc[i][c]);
-        }
+    const int q0 = qb * QT;
+    cp_async_wait<0>();
+    __syncthreads();             // tile qb landed; every warp is done with
+                                 // the planes of tile qb - 1
+    split_tile<D, S, kThr>(Qh, Ql, Qraw, QT);
+    split_tile<D, S, kThr>(dOh, dOl, dOraw, QT);
+    if (threadIdx.x < QT) {
+      lse2_s[threadIdx.x] = lse_raw[threadIdx.x] * kLog2e;
+      dl_s[threadIdx.x] = dl_raw[threadIdx.x];
     }
+    __syncthreads();             // the planes are whole; landing is free
+    if (qb + 1 < n_qb) land(qb + 1);
+    cp_async_commit();
+    // a warp none of whose keys the tile's queries see adds only zeros
+    if (kw0 >= sk || (causal && q_off + q0 + QT - 1 < kw0)) continue;
+
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mma_rows_rows<D, NT>(s, Kw, Qh, Ql);     // S^T = K Q^T
+    mma_rows_rows<D, NT>(dp, Vw, dOh, dOl);  // dP^T = V dO^T
+    // P^T and dS^T in place: rows keys kr (+ 8), columns queries
+    // q0 + 8 j + 2 t (+ 1); a warp whose tile has no masked entry (every
+    // query sees its last key, none past sq or sk) skips the mask
+    const bool full = q0 + QT <= sq && kw_last < sk &&
+                      (!causal || q_off + q0 >= kw_last);
+    auto form = [&](auto masked) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1), qi = q0 + c;
+          const int ki = kr + 4 * (e & 2);
+          const bool ok = !decltype(masked)::value ||
+                          (qi < sq && ki < sk && (!causal || q_off + qi >= ki));
+          const float p = ok ? ex2(s[j][e] * scale2 - lse2_s[c]) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dl_s[c]);
+        }
+    };
+    if (full)
+      form(std::false_type{});
+    else
+      form(std::true_type{});
+    mma_regs_rows<D, NT>(dv_acc, s, dOh, dOl);   // dV += P^T dO
+    mma_regs_rows<D, NT>(dk_acc, dp, Qh, Ql);    // dK += dS^T Q
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = kr + 8 * r;
     if (row >= sk) continue;
-    T* dkrow = dk + (koff + row) * D;
-    T* dvrow = dv + (koff + row) * D;
+    T* dkrow = dk + (koff + row) * D + 2 * t;
+    T* dvrow = dv + (koff + row) * D + 2 * t;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      store1(dkrow + tx + 16 * c, dk_acc[i][c] * scale);
-      store1(dvrow + tx + 16 * c, dv_acc[i][c]);
+    for (int n = 0; n < NC; ++n) {
+      store2(dkrow + 8 * n, make_float2(dk_acc[n][2 * r] * scale,
+                                        dk_acc[n][2 * r + 1] * scale));
+      store2(dvrow + 8 * n, make_float2(dv_acc[n][2 * r],
+                                        dv_acc[n][2 * r + 1]));
     }
   }
 }
 
+// dQ of the query tile [q0, q0 + R): warp w owns queries
+// q0 + 16 w + (g, g + 8) and their dQ rows as C fragments
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(32 * BwdLayout<D>::W)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int sq, int sk, float scale, int causal) {
   using L = BwdLayout<D>;
-  constexpr int S = L::S, PS = L::PS, CPT = L::CPT;
+  constexpr int S = L::S, R = L::R, KT = L::KT, NT = KT / 8, NC = D / 8;
+  constexpr int kThr = 32 * L::W;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + L::T;
-  float* Ks = dOs + L::T;
-  float* Vs = Ks + L::T;
-  float* dSs = Vs + L::T;
-  float* lse2_s = dSs + L::P;
-  float* dl_s = lse2_s + kBB;
+  float* Qs = smem;                      // [R][S]
+  float* dOs = Qs + R * S;               // [R][S]
+  float* Kraw = dOs + R * S;             // [KT][S], landing
+  float* Vraw = Kraw + KT * S;           // [KT][S], landing
+  uint32_t* Kh = reinterpret_cast<uint32_t*>(Vraw + KT * S);   // [KT][S]
+  uint32_t* Kl = Kh + KT * S;
+  uint32_t* Vh = Kl + KT * S;
+  uint32_t* Vl = Vh + KT * S;
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const int head = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBB;   // heaviest first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;   // heaviest first
+  const int qr = q0 + 16 * warp + g;     // this thread's queries qr, qr + 8
   const int q_off = sk - sq;
   const float scale2 = scale * kLog2e;
   const size_t qoff = static_cast<size_t>(head) * sq;
   const size_t koff = static_cast<size_t>(head) * sk;
+  const T* kh = k + koff * D;
+  const T* vh = v + koff * D;
 
-  stage_bwd<T, D, S>(Qs, q + qoff * D, q0, sq);
-  stage_bwd<T, D, S>(dOs, dout + qoff * D, q0, sq);
-  stage_rows_stats(lse2_s, dl_s, lse + qoff, delta + qoff, q0, sq);
+  auto land = [&](int kb) {
+    stage_rows<T, D, S, kThr>(Kraw, kh, kb * KT, KT, sk);
+    stage_rows<T, D, S, kThr>(Vraw, vh, kb * KT, KT, sk);
+  };
 
-  float dq_acc[4][CPT];
+  stage_rows<T, D, S, kThr>(Qs, q + qoff * D, q0, R, sq);
+  stage_rows<T, D, S, kThr>(dOs, dout + qoff * D, q0, R, sq);
+  land(0);
+  cp_async_commit();
+  float lse2[2], dl[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) dq_acc[i][c] = 0.f;
-
-  // key tiles up to the first that starts past the tile's last query
-  const int n_kb = (sk + kBB - 1) / kBB;
-  const int n_tiles =
-      causal ? min(n_kb, (q_off + q0 + kBB - 1) / kBB + 1) : n_kb;
-  for (int kb = 0; kb < n_tiles; ++kb) {
-    const int k0 = kb * kBB;
-    __syncthreads();             // the last tile's K and dS are read
-    stage_bwd<T, D, S>(Ks, k + koff * D, k0, sk);
-    stage_bwd<T, D, S>(Vs, v + koff * D, k0, sk);
-    __syncthreads();
-    scores_bwd<D>(Qs, dOs, Ks, Vs, lse2_s, dl_s, nullptr, dSs, q0, k0, sq,
-                  sk, q_off, scale2, causal);
-    __syncthreads();
-    // dQ += dS K for queries ty + 16 i, columns tx + 16 c, in key order
-#pragma unroll 2
-    for (int kk = 0; kk < kBB; ++kk) {
-      float dsr[4], kc[CPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsr[i] = dSs[(ty + 16 * i) * PS + kk];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) kc[c] = Ks[kk * S + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c)
-          dq_acc[i][c] = fmaf(dsr[i], kc[c], dq_acc[i][c]);
-    }
+  for (int r = 0; r < 2; ++r) {
+    const int row = qr + 8 * r;
+    lse2[r] = row < sq ? lse[qoff + row] * kLog2e : 0.f;
+    dl[r] = row < sq ? delta[qoff + row] : 0.f;
   }
 
+  float dq_acc[NC][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int n = 0; n < NC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
+  const float* Qw = Qs + 16 * warp * S;
+  const float* dOw = dOs + 16 * warp * S;
+  const int qw0 = q0 + 16 * warp;
+
+  // key tiles up to the first that starts past the tile's last query
+  const int n_kb = (sk + KT - 1) / KT;
+  const int n_tiles =
+      causal ? min(n_kb, (q_off + q0 + R - 1) / KT + 1) : n_kb;
+  for (int kb = 0; kb < n_tiles; ++kb) {
+    const int k0 = kb * KT;
+    cp_async_wait<0>();
+    __syncthreads();             // tile kb landed; every warp is done with
+                                 // the planes of tile kb - 1
+    split_tile<D, S, kThr>(Kh, Kl, Kraw, KT);
+    split_tile<D, S, kThr>(Vh, Vl, Vraw, KT);
+    __syncthreads();             // the planes are whole; landing is free
+    if (kb + 1 < n_tiles) land(kb + 1);
+    cp_async_commit();
+    // a warp none of whose queries sees the tile's keys adds only zeros
+    if (qw0 >= sq || (causal && q_off + qw0 + 15 < k0)) continue;
+
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mma_rows_rows<D, NT>(s, Qw, Kh, Kl);     // S = Q K^T
+    mma_rows_rows<D, NT>(dp, dOw, Vh, Vl);   // dP = dO V^T
+    // dS in place: rows queries qr (+ 8), columns keys k0 + 8 j + 2 t
+    // (+ 1); a warp whose tile has no masked entry (its first query sees
+    // the tile's last key, none past sq or sk) skips the mask
+    const bool full = qw0 + 16 <= sq && k0 + KT <= sk &&
+                      (!causal || q_off + qw0 >= k0 + KT - 1);
+    auto form = [&](auto masked) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2, qi = qr + 8 * r;
+          const int ki = k0 + 8 * j + 2 * t + (e & 1);
+          const bool ok = !decltype(masked)::value ||
+                          (qi < sq && ki < sk && (!causal || q_off + qi >= ki));
+          const float p = ok ? ex2(s[j][e] * scale2 - lse2[r]) : 0.f;
+          dp[j][e] = p * (dp[j][e] - dl[r]);
+        }
+    };
+    if (full)
+      form(std::false_type{});
+    else
+      form(std::true_type{});
+    mma_regs_rows<D, NT>(dq_acc, dp, Kh, Kl);   // dQ += dS K
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qr + 8 * r;
     if (row >= sq) continue;
-    T* dqrow = dq + (qoff + row) * D;
+    T* dqrow = dq + (qoff + row) * D + 2 * t;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      store1(dqrow + tx + 16 * c, dq_acc[i][c] * scale);
+    for (int n = 0; n < NC; ++n)
+      store2(dqrow + 8 * n, make_float2(dq_acc[n][2 * r] * scale,
+                                        dq_acc[n][2 * r + 1] * scale));
   }
 }
 
@@ -747,13 +929,14 @@ struct BwdArgs {
 
 template <typename T, int D>
 int launch_dkdv(const BwdArgs& a, cudaStream_t stream) {
-  constexpr size_t bytes = BwdLayout<D>::dkdv_bytes;
+  using L = BwdLayout<D>;
+  constexpr size_t bytes = L::dkdv_bytes;
   const cudaError_t rc = cudaFuncSetAttribute(
       flash_bwd_dkdv_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const dim3 grid((a.sk + kBB - 1) / kBB, a.h);
-  flash_bwd_dkdv_kernel<T, D><<<grid, kBwdThreads, bytes, stream>>>(
+  const dim3 grid((a.sk + L::R - 1) / L::R, a.h);
+  flash_bwd_dkdv_kernel<T, D><<<grid, 32 * L::W, bytes, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq, a.sk,
@@ -763,13 +946,14 @@ int launch_dkdv(const BwdArgs& a, cudaStream_t stream) {
 
 template <typename T, int D>
 int launch_dq(const BwdArgs& a, cudaStream_t stream) {
-  constexpr size_t bytes = BwdLayout<D>::dq_bytes;
+  using L = BwdLayout<D>;
+  constexpr size_t bytes = L::dq_bytes;
   const cudaError_t rc = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const dim3 grid((a.sq + kBB - 1) / kBB, a.h);
-  flash_bwd_dq_kernel<T, D><<<grid, kBwdThreads, bytes, stream>>>(
+  const dim3 grid((a.sq + L::R - 1) / L::R, a.h);
+  flash_bwd_dq_kernel<T, D><<<grid, 32 * L::W, bytes, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, static_cast<T*>(a.dq), a.sq, a.sk, a.scale, a.causal);

@@ -35,15 +35,20 @@ runs the forward kernel with a float32 ``lse`` (each row's log-sum-exp in
 natural-log units) and saves q, k, v, o and lse; its backward runs three
 hand-written kernels of the same source, deterministic and without
 atomics: ``flash_bwd_preprocess`` (D = rowsum(dO o O)),
-``flash_bwd_dkdv_kernel`` (a block per key tile looping over the query
-tiles that see it) and ``flash_bwd_dq_kernel`` (a block per query tile
-looping over its key tiles), each recomputing P from q, k and lse. The
-Pallas kernel is forward only: the reference trains through XLA's
-derivative of its attention, which these kernels stand in for. Bound:
-operations, 5 products of 2 sq sk d, halved under the causal mask, at 67
-TFLOP/s. :func:`flash_attention` takes the Function whenever grad mode is
-on and an input requires a gradient; :func:`attention_kernel` raises
-then, since its output would carry no graph.
+``flash_bwd_dkdv_kernel`` (a block per 64-key tile looping over the query
+tiles that see it) and ``flash_bwd_dq_kernel`` (a block per 64-query tile
+looping over its key tiles), each recomputing P from q, k and lse. Their
+products run on the TF32 tensor cores (``mma.sync`` m16n8k8) in three
+passes on hi/lo splits of each float32 operand, which keeps them float32
+grade; P and dS stay in registers between products, and the streamed
+tiles arrive by ``cp.async`` into double buffers. The Pallas kernel is
+forward only: the reference trains through XLA's derivative of its
+attention, which these kernels stand in for. Bound: operations, 5
+products of 2 sq sk d, halved under the causal mask, at 495 / 3 TFLOP/s
+(67 on the FP32 units). :func:`flash_attention` takes the Function
+whenever grad mode is on and an input requires a gradient;
+:func:`attention_kernel` raises then, since its output would carry no
+graph.
 
 Beside them, the plain PyTorch versions (``ref.flash_attention``,
 ``ref.flash_attention_lse``, ``ref.flash_attention_backward``) run for

@@ -841,10 +841,17 @@ BWD_CASES = [(2, 5, 9, 16, True), (3, 130, 200, 16, False),
              (4, 70, 70, 16, True), (144, 512, 512, 64, True),
              (128, 512, 512, 80, True), (64, 512, 512, 128, True),
              (32, 1500, 1500, 64, False), (32, 512, 1500, 64, False)]
+# ragged tiles at d = 80 and 128 (blocks of 128 and 64 own rows, streamed
+# tiles of 64 and 32): a part-full last block and tile, one query, one
+# 63-row tile
+BWD_RAGGED = [(2, sq, sk, d, causal) for d in (80, 128)
+              for sq, sk, causal in ((130, 200, True), (1, 77, True),
+                                     (1, 77, False), (63, 63, True),
+                                     (63, 63, False))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,sq,sk,d,causal", BWD_CASES)
+@pytest.mark.parametrize("h,sq,sk,d,causal", BWD_CASES + BWD_RAGGED)
 def test_flash_backward_kernels_match_plain(cuda, h, sq, sk, d, causal,
                                             dtype):
     from repro_torch.kernels import ref
@@ -861,13 +868,43 @@ def test_flash_backward_kernels_match_plain(cuda, h, sq, sk, d, causal,
                                leaves, do)
     torch.cuda.synchronize()
     torch.testing.assert_close(lse, lse_p, atol=1e-5, rtol=0)
-    # max |kernel - plain| / max |plain|: float32 on the FP32 units; bf16
-    # outputs round to 8 bits and D uses the rounded o
+    # max |kernel - plain| / max |plain|: float32-grade products (three
+    # TF32 passes on the tensor cores, about 2^-21 relative a product;
+    # ex2.approx, other sums' order); bf16 outputs round to 8 bits and D
+    # uses the rounded o
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for a, b, w in zip(got, again, want):
         assert a.dtype == dtype and torch.equal(a, b)
         assert float((a.float() - w.float()).abs().max()) <= \
             tol * float(w.float().abs().max())
+
+
+@pytest.mark.parametrize("entry", ["strela_flash_bwd_dkdv",
+                                   "strela_flash_bwd_dq"])
+@pytest.mark.parametrize("d", [8, 32, 96, 256])
+def test_flash_backward_entry_points_refuse_an_unsupported_head_dim(
+        cuda, entry, d):
+    """The C entry points return cudaErrorInvalidValue (1) for a d the
+    kernels are not instantiated for, and launch nothing."""
+    from repro_torch.kernels import _build
+    h, sq, sk = 2, 8, 8
+    q, k, v, do = (torch.zeros((h, n, d), device=cuda)
+                   for n in (sq, sk, sk, sq))
+    lse, delta = (torch.zeros((h, sq), device=cuda) for _ in range(2))
+    out = [torch.full((h, n, d), 7.0, device=cuda) for n in (sq, sk)]
+    lib = _build.load()
+    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    outs = ([out[1].data_ptr(), out[1].data_ptr()] if entry.endswith("dkdv")
+            else [out[0].data_ptr()])
+    rc = getattr(lib, entry)(*ptrs, *outs, h, sq, sk, d, 0, 1,
+                             1.0 / d ** 0.5,
+                             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 1
+    assert all(bool((t == 7.0).all()) for t in out)
+    with pytest.raises(ValueError, match="head_dim"):
+        (fa.bwd_dkdv_kernel if entry.endswith("dkdv") else fa.bwd_dq_kernel)(
+            q, k, v, do, lse, delta, True)
 
 
 def test_flash_attention_fn_on_the_card_runs_the_kernels_only(cuda):
