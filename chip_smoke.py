@@ -159,9 +159,21 @@ exactly 40 forward and 40 of each backward kernel's launches a step and
 no plain call, s/step, tokens/s, peak memory, and 2 profiled steps (idle
 share, launches a step split into forward, backward and optimizer); (d)
 a resume at reduced size (4 steps with a checkpoint at step 2, then a
-restart to 6) against 6 uninterrupted steps. Phases 5, 11, 12, 13, 14,
-15, 16, 17 and 18 set the counts to 0 before their runs and read them
-after, and allow no plain call, fold or failed lane grid there.
+restart to 6) against 6 uninterrupted steps; (19) the mesh: (a)
+minicpm-2b at full width through ``launch.train.main --model-axis 1`` on
+a one-rank NCCL ("data", "model") mesh, every parameter a DTensor (batch
+4 x 512, 3 steps): losses equal to phase 18's first 3 within 1e-5
+relative, 40 forward and 40 of each backward kernel's launches a step, no
+plain call, s/step beside phase 18's, peak memory, launches of a
+profiled step by range; (b) a reduced run resumed from its step-1
+checkpoint with ``elastic_remesh`` onto a fresh one-rank mesh, step 2
+and its checkpoint bit-equal to the uninterrupted run's; (c) meshes
+larger than one as 4 ``gloo`` ranks on the CPU (the machine has one
+card): the reduced trainer on (2, 2) against (1, 1), the expert-parallel
+MoE against its global path and no mesh, and the 4-stage pipeline
+against the serial loop. Phases 5, 11, 12, 13, 14, 15, 16, 17, 18 and 19
+set the counts to 0 before their runs and read them after, and allow no
+plain call, fold or failed lane grid there.
 It exits non-zero, printing no result line, when there is no CUDA
 device, when the port is missing, or when any phase fails. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -3448,7 +3460,8 @@ def phase_train(device):
 
     train_resume(device)
     print(f"[train] card: {nvidia_smi()}")
-    return rows, kernel_rows, counts
+    return rows, kernel_rows, counts, {"losses": losses, "s_per_step": steady,
+                                       "peak_gib": peak}
 
 
 def train_resume(device):
@@ -3493,6 +3506,304 @@ def train_resume(device):
               f"step-2 checkpoint: {resumed}; losses bit-equal {same_loss}; "
               f"step-4 checkpoints byte-equal {same_ckpt}"
               + ("" if same_ckpt else f" (max abs diff {dmax:.3e})"))
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the mesh — the sharded trainer on one NCCL rank, elastic resume
+# on the card, meshes larger than one on the CPU
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3                   # (a): steps 0 (warm), 1 (timed), 2 (profiled)
+MESH_CPU_RANKS = 4               # (c): gloo ranks on the machine's CPU
+MESH_CPU_THREADS = 2             # each, of the machine's 8 cores
+MESH_CPU_TIMEOUT = 300.0         # s, for the whole of (c)
+MESH_REDUCED = ["--reduced", "--steps", "3", "--batch", "4", "--seq", "32",
+                "--log-every", "1", "--save-every", "1"]
+
+
+def phase_mesh(device, phase18):
+    """Phase 19: (a) minicpm-2b at full width through ``launch.train.main``
+    with ``--model-axis 1`` on a one-rank NCCL ("data", "model") mesh, every
+    parameter a DTensor; (b) a resume with ``elastic_remesh`` on the card;
+    (c) meshes of ``gloo`` ranks on the CPU."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.runtime import partition as PT
+
+    full_layers = 40
+    placed, marks, prof = [], {}, {}
+    real_place = PT.place_model
+
+    def place(model, cfg, mesh):
+        placed.append(real_place(model, cfg, mesh))
+        return placed[-1]
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        marks[step] = time.perf_counter()
+        if step == 1:
+            from torch.profiler import ProfilerActivity, profile
+            prof["p"] = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            prof["p"].start()
+        elif step == MESH_STEPS - 1:
+            prof["p"].stop()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.plain_calls = fa.backward_plain_calls = 0
+    fa.bwd_preprocess_launches = fa.bwd_dkdv_launches = \
+        fa.bwd_dq_launches = 0
+    PT.place_model = place
+    try:
+        losses = train.main(["--arch", TRAIN_ARCH, "--steps",
+                             str(MESH_STEPS), "--batch", str(TRAIN_BATCH),
+                             "--seq", str(TRAIN_SEQ), "--log-every", "1",
+                             "--seed", str(SEED), "--device", str(device),
+                             "--model-axis", "1"], on_step=on_step)
+    finally:
+        PT.place_model = real_place
+    counts = {"flash_kernel": fa.launches,
+              "flash_bwd_preprocess": fa.bwd_preprocess_launches,
+              "flash_bwd_dkdv": fa.bwd_dkdv_launches,
+              "flash_bwd_dq": fa.bwd_dq_launches}
+    plain = (fa.plain_calls, fa.backward_plain_calls)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model = placed[0]
+    mesh = next(model.parameters()).device_mesh
+    n_params = sum(1 for _ in model.parameters())
+    n_dt = sum(isinstance(p, DTensor) for p in model.parameters())
+    want = full_layers * MESH_STEPS
+    ref = np.asarray(phase18["losses"][:MESH_STEPS])
+    e_loss = float(np.abs(np.asarray(losses) / ref - 1).max())
+    check(len(losses) == MESH_STEPS and e_loss <= 1e-5,
+          f"mesh (a): losses {losses} against phase 18's {ref.tolist()} "
+          f"(rel {e_loss}, limit 1e-5)")
+    check(all(n == want for n in counts.values()) and plain == (0, 0),
+          f"mesh (a): launches {counts} (want {want} each), plain calls "
+          f"{plain} (want 0)")
+    check(n_dt == n_params and tuple(mesh.mesh.shape) == (1, 1)
+          and tuple(mesh.mesh_dim_names) == ("data", "model")
+          and dist.get_backend() == "nccl",
+          f"mesh (a): {n_dt} of {n_params} parameters DTensors on a "
+          f"{tuple(mesh.mesh.shape)} {mesh.mesh_dim_names} mesh, backend "
+          f"{dist.get_backend()}")
+    s_step = marks[1] - marks[0]
+    split = launches_in(prof["p"].events(), train.RANGES)
+    print(f"[mesh] (a) launch.train.main --arch {TRAIN_ARCH} --model-axis 1 "
+          f"(full width, {full_layers} layers, bfloat16; a (1, 1) ('data', "
+          f"'model') mesh on one NCCL rank, {n_dt} of {n_params} parameters "
+          f"DTensors), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {MESH_STEPS} "
+          f"steps: losses {losses} (phase 18's first {MESH_STEPS}: "
+          f"{ref.tolist()}, rel {e_loss:.3e}); step 1 {s_step:.4f} s/step "
+          f"unprofiled against phase 18's median {phase18['s_per_step']:.4f} "
+          f"s/step in this call ({s_step / phase18['s_per_step']:.3f}x); "
+          f"peak memory {peak:.2f} GiB (phase 18: "
+          f"{phase18['peak_gib']:.2f} GiB); launches {counts} "
+          f"({want // MESH_STEPS} a step each), plain calls {plain}")
+    print(f"[mesh] (a) kernel launches (host calls) in profiled step 2: "
+          f"{split['all']}: forward {split[train.RANGES[0]]}, backward "
+          f"{split[train.RANGES[1]]}, optimizer {split[train.RANGES[2]]}")
+    del prof, placed, model
+    torch.cuda.empty_cache()
+
+    # (b) a resume on a fresh one-rank mesh, at reduced width: a
+    # full-width checkpoint holds 27 GB (bfloat16 parameters and float32
+    # moments), whose write and read alone would take most of the limit
+    import shutil
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--arch", TRAIN_ARCH, "--reduced", "--batch", "4", "--seq",
+                "64", "--save-every", "1", "--log-every", "1", "--seed",
+                str(SEED), "--device", str(device), "--model-axis", "1",
+                "--steps", "3"]
+        a_dir, b_dir = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        whole = train.main(args + ["--ckpt-dir", a_dir])
+        os.makedirs(b_dir)
+        shutil.copytree(os.path.join(a_dir, "step_00000001"),
+                        os.path.join(b_dir, "step_00000001"))
+        resumed = train.main(args + ["--ckpt-dir", b_dir])
+        blobs = [open(os.path.join(d, "step_00000002", "data.msgpack.zst"),
+                      "rb").read() for d in (a_dir, b_dir)]
+        check(resumed == whole[2:] and blobs[0] == blobs[1],
+              f"mesh (b): step 2 after the resume {resumed} against "
+              f"{whole[2:]}; step-2 checkpoints byte-equal "
+              f"{blobs[0] == blobs[1]}")
+        print(f"[mesh] (b) {TRAIN_ARCH} reduced, bfloat16, batch 4 x 64, "
+              f"one NCCL rank: losses {whole}; resumed from the step-1 "
+              f"checkpoint with elastic_remesh onto a fresh (1, 1) mesh: "
+              f"step 2 {resumed}, bit-equal; the step-2 checkpoints "
+              f"byte-equal ({len(blobs[0])} bytes)")
+    dist.destroy_process_group()
+    mesh_cpu()
+    print(f"[mesh] card: {nvidia_smi()}")
+    return counts
+
+
+def mesh_cpu():
+    """Phase 19 (c): meshes larger than one, on the CPU."""
+    import torch
+    import tempfile
+    print(f"[mesh] (c) this machine has {torch.cuda.device_count()} CUDA "
+          f"device(s) and NCCL puts one rank on a card, so meshes larger "
+          f"than one run as {MESH_CPU_RANKS} gloo ranks on the CPU")
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(mesh_cpu_worker,
+                                 args=(MESH_CPU_RANKS, tmp),
+                                 nprocs=MESH_CPU_RANKS, join=False,
+                                 start_method="spawn")
+        deadline = t0 + MESH_CPU_TIMEOUT
+        while not ctx.join(timeout=max(deadline - time.perf_counter(), 0.1)):
+            if time.perf_counter() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise SmokeFailure(f"mesh (c): the gloo ranks ran past "
+                                   f"{MESH_CPU_TIMEOUT} s")
+        with open(os.path.join(tmp, "mesh.json")) as f:
+            out = json.load(f)
+        wall = time.perf_counter() - t0
+    tr = out["train"]
+    check(tr["loss_rel"] <= 1e-5 and tr["gnorm_rel"] <= 1e-4
+          and tr["param_max"] <= TRAIN_PARAM_TOL
+          and tr["param_past"] <= TRAIN_PARAM_FRAC * tr["param_n"],
+          f"mesh (c): the (2, 2) trainer against (1, 1): {tr}")
+    print(f"[mesh] (c) {TRAIN_ARCH} reduced float32, batch 4 x 32, 3 "
+          f"steps, (2, 2) against (1, 1): losses {tr['losses']} against "
+          f"{tr['want']} (rel {tr['loss_rel']:.3e}, limit 1e-5), gnorm rel "
+          f"{tr['gnorm_rel']:.3e} (1e-4), parameters max abs "
+          f"{tr['param_max']:.3e} ({TRAIN_PARAM_TOL}), {tr['param_past']} "
+          f"of {tr['param_n']} entries past 1e-6")
+    moe = out["moe"]
+    check(max(moe.values()) < 1e-4,
+          f"mesh (c): the expert-parallel MoE on (2, 2): {moe}")
+    print(f"[mesh] (c) MoE E=4 top-2 capacity 8, x (4, 8, 32) float32 on "
+          f"(2, 2): max abs shard_map - gspmd {moe['ep_vs_global_path']:.3e}"
+          f", gspmd - no mesh {moe['global_vs_plain']:.3e}, shard_map - no "
+          f"mesh {moe['ep_vs_plain']:.3e} (limit 1e-4)")
+    pipe = out["pipe"]
+    check(max(pipe["forward"] + pipe["grads"]) < 1e-5,
+          f"mesh (c): the pipeline on 4 stages: {pipe}")
+    print(f"[mesh] (c) pipeline_forward on a (4,) ('pod',) mesh, L=8 D=16 "
+          f"B=12, 6 microbatches, tanh: max abs against the serial loop, "
+          f"forward {max(pipe['forward']):.3e}, gradients "
+          f"{max(pipe['grads']):.3e} over every stage (limit 1e-5); (c) "
+          f"wall {wall:.2f} s")
+
+
+def mesh_cpu_worker(rank, world, tmp):
+    """Phase 19 (c) on one of ``world`` gloo ranks: the reduced trainer on
+    (2, 2), the MoE layer's two impls on (2, 2), the pipeline on (4,);
+    then on rank 0 alone the trainer on (1, 1), and the comparisons."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.checkpoint import ckpt as C
+    from repro_torch.configs.base import MoESpec
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import compat_make_mesh, make_local_mesh
+    from repro_torch.models.moe import moe_apply, moe_init
+    from repro_torch.runtime import partition as PT
+    from repro_torch.runtime import tp
+    from repro_torch.runtime.pipeline import pipeline_forward
+    torch.set_num_threads(MESH_CPU_THREADS)
+
+    def group(name, n):
+        dist.init_process_group("gloo", init_method="file://" + os.path.join(
+            tmp, "store_" + name), rank=rank, world_size=n)
+
+    # float32 parameters: the arch re-registered in this process
+    from repro_torch.configs import base
+    base.register(dataclasses.replace(base.get_arch(TRAIN_ARCH),
+                                      dtype="float32"))
+
+    def run(tag, model_axis):
+        gn = []
+        losses = train.main(["--arch", TRAIN_ARCH, "--device", "cpu",
+                             "--model-axis", str(model_axis), "--ckpt-dir",
+                             os.path.join(tmp, tag)] + MESH_REDUCED,
+                            on_step=lambda s, m: gn.append(float(
+                                m["gnorm"])))
+        dist.barrier()
+        return losses, gn
+
+    group("four", world)
+    got = run("2x2", 2)
+    # the MoE layer: E = 4, top-2, capacity factor 8, x (4, 8, 32)
+    spec = MoESpec(n_experts=4, top_k=2, capacity_factor=8.0)
+    p = moe_init(torch.Generator().manual_seed(SEED), 32, 64, spec,
+                 torch.float32)
+    x = torch.randn(4, 8, 32, generator=torch.Generator().manual_seed(1))
+    plain, _ = moe_apply(p, spec, 64, x)
+    mesh = make_local_mesh(2, "cpu")
+    ys = {}
+    for impl in ("gspmd", "shard_map"):
+        placed = {k: distribute_tensor(v, mesh, PT.placements(PT.spec_for(
+            k, v.ndim, False, tuple(v.shape)), mesh)) for k, v in p.items()}
+        with PT.use_mesh(mesh):
+            i, _ = tp.batch_split()
+            y, _ = moe_apply(placed, spec, 64, x[2 * i:2 * i + 2], impl)
+            ys[impl] = torch.cat(tp.all_gather_batch(y))
+    moe = {"ep_vs_global_path": float((ys["shard_map"] - ys["gspmd"])
+                                      .abs().max()),
+           "global_vs_plain": float((ys["gspmd"] - plain).abs().max()),
+           "ep_vs_plain": float((ys["shard_map"] - plain).abs().max())}
+    # the pipeline: L = 8, D = 16, B = 12, 6 microbatches
+    rng = np.random.default_rng(SEED)
+    data = {"w": rng.standard_normal((8, 16, 16)) * 0.3,
+            "b": rng.standard_normal((8, 16)) * 0.1,
+            "x": rng.standard_normal((12, 16))}
+
+    def fresh():
+        t = {k: torch.tensor(v, dtype=torch.float32, requires_grad=True)
+             for k, v in data.items()}
+        return {"w": t["w"], "b": t["b"]}, t["x"]
+
+    def layer(lp, h):
+        return torch.tanh(h @ lp["w"] + lp["b"])
+    ps, xs = fresh()
+    serial = pipeline_forward(layer, ps, xs, 6)
+    gs = torch.autograd.grad((serial ** 2).mean(), [ps["w"], ps["b"], xs])
+    pp, xp = fresh()
+    with PT.use_mesh(compat_make_mesh((world,), ("pod",))):
+        piped = pipeline_forward(layer, pp, xp, 6)
+        gp = torch.autograd.grad((piped ** 2).mean(), [pp["w"], pp["b"], xp])
+    errs = [float((piped - serial).detach().abs().max()),
+            max(float((a - b).abs().max()) for a, b in zip(gp, gs))]
+    every = [None] * world
+    dist.all_gather_object(every, errs)
+    dist.destroy_process_group()
+    if rank:
+        return
+    group("one", 1)
+    want = run("1x1", 1)
+    dist.destroy_process_group()
+
+    def params(tag):
+        path = os.path.join(tmp, tag, "step_00000002")
+        man = json.load(open(os.path.join(path, "manifest.json")))["tensors"]
+        blob = open(os.path.join(path, "data.msgpack.zst"), "rb").read()
+        flat = C.unpackb(C._ZD.decompress(blob) if blob[:4] == C.ZSTD_MAGIC
+                         else blob)
+        return {k: C._decode_array(flat[k], m["dtype"], m["shape"])
+                for k, m in man.items() if k.startswith("params/")}
+    pg, pw = params("2x2"), params("1x1")
+    d = torch.cat([(pg[k] - pw[k]).abs().reshape(-1) for k in sorted(pw)])
+    train_out = {
+        "losses": got[0], "want": want[0],
+        "loss_rel": float(np.abs(np.asarray(got[0]) / want[0] - 1).max()),
+        "gnorm_rel": float(np.abs(np.asarray(got[1]) / want[1] - 1).max()),
+        "param_max": float(d.max()), "param_past": int((d > 1e-6).sum()),
+        "param_n": d.numel()}
+    with open(os.path.join(tmp, "mesh.json"), "w") as f:
+        json.dump({"train": train_out, "moe": moe,
+                   "pipe": {"forward": [e[0] for e in every],
+                            "grads": [e[1] for e in every]}}, f)
 
 
 def nvidia_smi() -> str:
@@ -3552,7 +3863,10 @@ def main() -> int:
     moe_rows = phase_moe(device)
     ssm_row = phase_ssm(device)
     audio_rows = phase_whisper(device)
-    train_rows, bwd_rows, train_launches = phase_train(device)
+    train_rows, bwd_rows, train_launches, train18 = phase_train(device)
+    mesh_launches = phase_mesh(device, train18)
+    for k, n in mesh_launches.items():
+        train_launches[k] += n
 
     from repro_torch.bench_kernels import ROTATE
     main_rows = {"fabric_reduce_lanes": (

@@ -15,8 +15,12 @@ port module names the reference module it is held against:
   repro_torch.serve     — the always-on kernel serving loop (virtual and
                           wall clocks, admission, preemption)
   repro_torch.runtime   — fault tolerance: heartbeats, the health
-                          monitor, the straggler detector and the
-                          trainer's supervisor
+                          monitor, the straggler detector, the
+                          trainer's supervisor and ``elastic_remesh``;
+                          ``partition`` (the sharding specs, their
+                          placements on a ``DeviceMesh``,
+                          ``place_model``), ``tp`` (tensor-parallel
+                          compute on a mesh) and ``pipeline`` (GPipe)
   repro_torch.workloads — model-layer compute as served request classes
   repro_torch.fleet     — N fabrics behind one router, with fault-drain
   repro_torch.kernels   — hand-written CUDA kernels for Hopper
@@ -34,7 +38,9 @@ port module names the reference module it is held against:
   repro_torch.data      — ``pipeline``: synthetic token batches and the
                           audio frontend's stub frames (copied verbatim)
   repro_torch.launch    — ``serve_lm``: prefill and greedy decode with KV
-                          caches and SSM states; ``train``: the trainer
+                          caches and SSM states; ``train``: the trainer,
+                          on one device or a ("data", "model") mesh;
+                          ``mesh``: the production and local meshes
   repro_torch.optim     — AdamW with its schedules, int8 gradient
                           compression with error feedback
   repro_torch.checkpoint — checkpoints in the reference's on-disk format

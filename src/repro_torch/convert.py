@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from typing import Dict, List, Sequence, Tuple
 
@@ -29,6 +30,7 @@ from repro_torch.models.hybrid import Hybrid
 from repro_torch.models.ssm import Mamba2LM
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim.adamw import AdamWState
+from repro_torch.runtime.partition import STACKED
 
 
 def _op(kind: str, op):
@@ -101,10 +103,6 @@ def lm_params_from_reference(tree, cfg, device="cuda"):
     return model(cfg, out)
 
 
-# the reference's leading-L layer stacks
-STACKED = ("layers", "enc_layers", "dec_layers")
-
-
 def _path(name: str) -> Tuple[Tuple[str, ...], int]:
     """A port parameter name (``layers.3.attn.wq``) as the reference
     tree's key path (``layers/attn/wq``) and its layer, -1 if unstacked."""
@@ -116,11 +114,14 @@ def _path(name: str) -> Tuple[Tuple[str, ...], int]:
 
 def _to_reference(named: Sequence[Tuple[str, torch.Tensor]]) -> Dict:
     """Tensors named as the port's parameters, as the reference's tree on
-    the host: each leaf copied to the CPU, layer leaves stacked there along
-    a leading L axis."""
+    the host: each leaf copied to the CPU (a DTensor gathered whole first,
+    a collective every rank of its mesh joins), layer leaves stacked there
+    along a leading L axis."""
     tree: Dict = {}
     stacks: Dict[Tuple[str, ...], List[Tuple[int, torch.Tensor]]] = {}
     for name, t in named:
+        if isinstance(t, DTensor):
+            t = t.detach().full_tensor()
         path, layer = _path(name)
         if layer < 0:               # a copy, never an alias of the model
             _set(tree, path, t.detach().to("cpu", copy=True))

@@ -1,4 +1,5 @@
 """repro_torch.launch — launch drivers (counterpart of ``repro.launch``):
 ``serve_lm``, prefill and greedy decode of an LM with KV caches, and its
-old name ``serve``; ``train``, the one-card trainer. The dry run and the
-mesh come with later slices (``ROADMAP.md`` queue 1 items 2d-2e)."""
+old name ``serve``; ``train``, the trainer, on one device or on a mesh;
+``mesh``, the production and local ``DeviceMesh``es. The dry run comes
+with a later slice (``ROADMAP.md`` queue 1 item 2e)."""

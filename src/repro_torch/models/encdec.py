@@ -21,6 +21,12 @@ As in the reference:
   * the KV caches are in the config's dtype (float32 in a float32
     config, where the transformer's default is bfloat16).
 
+On a mesh the LayerNorms, positions and the embedding run whole on every
+'model' rank, self-attention and the MLPs tensor parallel (``layers``),
+and cross-attention splits its heads over 'model' when they divide, else
+its query rows (the reference's test, ``encdec.py:101-105``); the hidden
+states between layers are DTensors whose rows lie over the batch axes.
+
 Deliberate differences: a write past the cache raises ``ValueError``
 (``layers.attention``), and so do decoder positions past the learned
 table (``MAX_DEC_POS``), where JAX clamps both silently.
@@ -36,6 +42,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import Caches
+from repro_torch.runtime import tp
 
 MAX_DEC_POS = 32768 + 8          # decode_32k support
 F32 = torch.float32
@@ -53,26 +60,36 @@ def _mlp_cfg(cfg: ArchConfig) -> L.MlpCfg:
 
 
 def _ln(x: torch.Tensor, p: nn.ParameterDict) -> torch.Tensor:
-    return L.layernorm(x, p["g"], p["b"])
+    return L.layernorm(x, tp.whole(p["g"]), tp.whole(p["b"]))
 
 
 def cross_attention(p: L.Params, cfg: ArchConfig, x: torch.Tensor,
                     enc_out: torch.Tensor) -> torch.Tensor:
     """Full attention of the decoder's x over the encoder's output: q from
     x, k and v recomputed from ``enc_out``, no rope and no mask; softmax
-    in float32, the output cast to x's dtype before ``wo``."""
+    in float32, the output cast to x's dtype before ``wo``. On a mesh each
+    'model' rank takes its heads (or its query rows)."""
     b, s, _ = x.shape
     t = enc_out.shape[1]
-    group = cfg.n_heads // cfg.n_kv_heads
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-    k = (enc_out @ p["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.hd)
-    v = (enc_out @ p["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.hd)
-    out = flash_attention(L._heads_first(q.to(F32)),
-                          L._heads_first(L.repeat_kv(k, group).to(F32)),
-                          L._heads_first(L.repeat_kv(v, group).to(F32)),
-                          causal=False)
-    out = out.reshape(b, cfg.n_heads, s, cfg.hd).permute(0, 2, 1, 3)
-    return out.reshape(b, s, cfg.n_heads * cfg.hd).to(x.dtype) @ p["wo"]
+    r, _ = tp.model_split()
+    group, hd = cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    heads, rows = L.head_layout(cfg.n_heads, s, divisible_only=True)
+    kvs = L._kv_bounds(heads, group)
+    (lo, hi), (klo, khi) = heads[r], kvs[r]
+    q = tp.enter_model(x) @ tp.part(p["wq"], 1, L._scaled(heads, hd))
+    e = tp.enter_model(enc_out)
+    k = e @ tp.part(p["wk"], 1, L._scaled(kvs, hd))
+    v = e @ tp.part(p["wv"], 1, L._scaled(kvs, hd))
+    q = q.reshape(b, s, hi - lo, hd)
+    k = k.reshape(b, t, khi - klo, hd)
+    v = v.reshape(b, t, khi - klo, hd)
+    row = None if rows is None else rows[r]
+    if row is not None:
+        q = q[:, row[0]:row[1]]
+    out = L._attend(q, k, v, heads[r], klo, group, False,
+                    flash_attention).to(x.dtype)
+    out = out @ tp.part(p["wo"], 0, L._scaled(heads, hd))
+    return tp.leave_model(L._rows_out(out, row, s))
 
 
 class EncoderLayer(nn.Module):
@@ -146,11 +163,12 @@ class EncDec(nn.Module):
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, T, D), the stub frontend's output -> (B, T, D)."""
         B, T, _ = frames.shape
-        x = frames + self.enc_pos_embed[:T][None]
+        x = frames + tp.whole(self.enc_pos_embed)[:T][None]
         positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+        x = tp.activations(x)
         for layer in self.enc_layers:
-            x = layer(x, positions)
-        return _ln(x, self.enc_final_ln)
+            x = tp.activations(layer(tp.local(x), positions))
+        return _ln(tp.local(x), self.enc_final_ln)
 
     def forward(self, tokens: torch.Tensor, enc_out: torch.Tensor,
                 caches: Optional[Caches] = None, cache_len: int = 0
@@ -164,14 +182,18 @@ class EncDec(nn.Module):
             raise ValueError(f"decode: positions {cache_len}..{end} are "
                              f"past the {self.pos_embed.shape[0]} learned "
                              f"decoder positions")
-        x = self.embed[tokens.long()] + self.pos_embed[cache_len:end][None]
+        embed = tp.whole(self.embed)
+        pos = tp.whole(self.pos_embed)[cache_len:end]
+        x = embed[tokens.long()] + pos[None]
         positions = torch.arange(cache_len, end, device=x.device,
                                  dtype=torch.int32)[None, :].expand(B, S)
+        x = tp.activations(x)
         for i, layer in enumerate(self.dec_layers):
-            x = layer(x, enc_out, positions, None if caches is None
-                      else (caches[0][i], caches[1][i]), cache_len)
-        x = _ln(x, self.dec_final_ln)
-        return (x @ self.embed.T, caches,
+            x = tp.activations(layer(
+                tp.local(x), enc_out, positions, None if caches is None
+                else (caches[0][i], caches[1][i]), cache_len))
+        x = _ln(tp.local(x), self.dec_final_ln)
+        return (x @ embed.T, caches,
                 torch.zeros((), dtype=F32, device=x.device))
 
 

@@ -10,7 +10,9 @@ share_every`` sites; each site has its own KV cache. Its attention is
 CUDA tensors. As in the reference, the layers past ``sites *
 share_every`` are never run, and the KV caches are in the config's dtype
 (a float32 config attends over float32 caches, where the transformer's
-default is bfloat16). Decode states and caches are written in place.
+default is bfloat16). Decode states and caches are written in place. On
+a mesh the SSD layers run whole on every 'model' rank and the shared
+block's attention and MLP tensor parallel, as in ``transformer``.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.runtime import tp
 from repro_torch.models.transformer import Caches, _attn_cfg, _mlp_cfg
 
 
@@ -47,12 +50,13 @@ class SharedBlock(nn.Module):
                 positions: torch.Tensor, cache: Optional[Caches] = None,
                 cache_len: int = 0
                 ) -> Tuple[torch.Tensor, Optional[Caches]]:
-        h = torch.cat([x, x0], dim=-1) @ self.concat_proj
+        h = torch.cat([x, x0], dim=-1) @ tp.whole(self.concat_proj)
         a, new_cache = L.attention(self.attn, self.attn_cfg,
-                                   L.rmsnorm(h, self.ln1), positions, cache,
-                                   cache_len)
+                                   L.rmsnorm(h, tp.whole(self.ln1)),
+                                   positions, cache, cache_len)
         h = h + a
-        h = h + L.mlp(self.mlp, self.mlp_cfg, L.rmsnorm(h, self.ln2))
+        h = h + L.mlp(self.mlp, self.mlp_cfg,
+                      L.rmsnorm(h, tp.whole(self.ln2)))
         return x + h, new_cache
 
 
@@ -83,23 +87,28 @@ class Hybrid(nn.Module):
         tokens given). The states returned are the first ``sites *
         share_every`` layers' (views), as the reference returns."""
         cfg = self.cfg
-        x = self.embed[tokens.long()]
+        embed = tp.whole(self.embed)
+        x = embed[tokens.long()]
         x0 = x
         B, S_len = tokens.shape
         positions = cache_len + torch.arange(S_len, device=x.device,
                                              dtype=torch.int32)
         positions = positions[None, :].expand(B, S_len)
         k, sites = cfg.share_every, n_shared_sites(cfg)
+        x = tp.activations(x)
         for g in range(sites):
             for i in range(g * k, (g + 1) * k):
-                x, _ = self.layers[i](x, None if states is None
+                x, _ = self.layers[i](tp.local(x), None if states is None
                                       else (states[0][i], states[1][i]))
-            x, _ = self.shared(x, x0, positions, None if caches is None
+                x = tp.activations(x)
+            x, _ = self.shared(tp.local(x), x0, positions,
+                               None if caches is None
                                else (caches[0][g], caches[1][g]), cache_len)
-        x = L.rmsnorm(x, self.final_norm)
+            x = tp.activations(x)
+        x = L.rmsnorm(tp.local(x), tp.whole(self.final_norm))
         ns = (None if states is None
               else (states[0][:sites * k], states[1][:sites * k]))
-        return (x @ self.embed.T, (ns, caches),
+        return (x @ embed.T, (ns, caches),
                 torch.zeros((), dtype=torch.float32, device=x.device))
 
 

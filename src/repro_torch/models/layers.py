@@ -7,8 +7,14 @@ Conventions, as in the reference:
   * dtype policy: parameters and activations in the config's dtype,
     reductions and softmax in float32.
 
-The reference's ``shard(...)`` constraints are dropped: they are no-ops
-outside a mesh, and the port has no partitioning yet.
+On a mesh (``runtime.partition.use_mesh``) attention and the MLP are
+tensor parallel over 'model' (``runtime.tp``): attention splits its
+heads over the 'model' ranks when ``n_heads % msize == 0 or n_heads >=
+msize`` (the reference's rule, ``layers.py:165-169``), else the query
+sequence; the MLP splits its ff dim. Each region enters through
+``tp.enter_model`` and leaves through ``tp.leave_model``, and the flash
+kernel sees the rank's local ``(b_loc*h_loc, s, d)`` tensors. Outside a
+mesh they run the one-device operations unchanged.
 
 Attention's softmax-times-V core runs in
 ``repro_torch.kernels.flash_attention.flash_attention``: the hand-written
@@ -20,12 +26,13 @@ so ``AttnCfg`` carries no ``impl``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.runtime import tp
 
 Params = Dict[str, torch.Tensor]
 F32 = torch.float32
@@ -133,6 +140,62 @@ def _heads_first(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 1, 3).reshape(b * h, s, d).contiguous()
 
 
+def head_layout(n_heads: int, seq: int, divisible_only: bool = False
+                ) -> Tuple[List[Tuple[int, int]],
+                           Optional[List[Tuple[int, int]]]]:
+    """Every 'model' rank's (head range, query-row range or None). Heads
+    split when ``n_heads % msize == 0 or n_heads >= msize`` (the second
+    test dropped with ``divisible_only``, as whisper's cross-attention),
+    else every rank takes all heads and its rows of the query sequence."""
+    _, m = tp.model_split()
+    if n_heads % m == 0 or (n_heads >= m and not divisible_only):
+        return tp.ranges(n_heads, m), None
+    if seq < m:
+        raise ValueError(f"attention: {n_heads} heads and {seq} query rows "
+                         f"cannot split over a model axis of {m}")
+    return [(0, n_heads)] * m, tp.ranges(seq, m)
+
+
+def _kv_bounds(heads: List[Tuple[int, int]], group: int
+               ) -> List[Tuple[int, int]]:
+    """The kv heads each rank's query heads read."""
+    return [(lo // group, (hi - 1) // group + 1) for lo, hi in heads]
+
+
+def _scaled(bounds: List[Tuple[int, int]], c: int) -> List[Tuple[int, int]]:
+    return [(lo * c, hi * c) for lo, hi in bounds]
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            heads: Tuple[int, int], kv_lo: int, group: int,
+            causal: bool, kernel=None) -> torch.Tensor:
+    """q (b, sq, h_loc, d); k, v (b, sk, kv_loc, d) from kv head
+    ``kv_lo``: the kv heads broadcast to the query heads and cut to this
+    rank's, then ``kernel`` (default ``flash_attention``) on ``(b*h_loc,
+    s, d)``; returns (b, sq, h_loc*d) in float32."""
+    kernel = kernel or flash_attention
+    b, sq, nh, hd = q.shape
+    kf, vf = repeat_kv(k, group), repeat_kv(v, group)
+    off = heads[0] - kv_lo * group
+    if (off, nh) != (0, kf.shape[2]):
+        kf, vf = kf.narrow(2, off, nh), vf.narrow(2, off, nh)
+    out = kernel(_heads_first(q.to(F32)), _heads_first(kf.to(F32)),
+                 _heads_first(vf.to(F32)), causal=causal)
+    out = out.reshape(b, nh, sq, hd).permute(0, 2, 1, 3)
+    return out.reshape(b, sq, nh * hd)
+
+
+def _rows_out(out: torch.Tensor, rows: Optional[Tuple[int, int]],
+              seq: int) -> torch.Tensor:
+    """A rank's rows of the output at their place in the sequence, zeros
+    elsewhere, for ``tp.leave_model`` to sum."""
+    if rows is None:
+        return out
+    b, _, d = out.shape
+    return torch.cat([out.new_zeros(b, rows[0], d), out,
+                      out.new_zeros(b, seq - rows[1], d)], dim=1)
+
+
 def attention(p: Params, cfg: AttnCfg, x: torch.Tensor,
               positions: torch.Tensor,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -143,16 +206,29 @@ def attention(p: Params, cfg: AttnCfg, x: torch.Tensor,
     token block at positions ``cache_len ..``; the caches (k, v) of shape
     (b, S_max, n_kv, hd) are written at ``cache_len`` in the caches' dtype
     (in place; the reference returns updated copies) and attention runs
-    over their first ``cache_len + s`` positions."""
+    over their first ``cache_len + s`` positions. On a mesh each 'model'
+    rank computes its heads (or query rows) and the ranks' out-projections
+    are summed; decode on a mesh raises."""
     b, s, _ = x.shape
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    r, m = tp.model_split()
+    if kv_cache is not None and m > 1:
+        raise ValueError("attention: decode with KV caches on a model axis "
+                         "is not ported")
+    hd, group = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    heads, rows = head_layout(cfg.n_heads, s)
+    kvs = _kv_bounds(heads, group)
+    xin = tp.enter_model(x)
+    q = xin @ tp.part(p["wq"], 1, _scaled(heads, hd))
+    k = xin @ tp.part(p["wk"], 1, _scaled(kvs, hd))
+    v = xin @ tp.part(p["wv"], 1, _scaled(kvs, hd))
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = rope(q.reshape(b, s, cfg.n_heads, cfg.head_dim), positions,
-             cfg.rope_theta)
-    k = rope(k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim), positions,
-             cfg.rope_theta)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        q = q + tp.part(p["bq"], 0, _scaled(heads, hd))
+        k = k + tp.part(p["bk"], 0, _scaled(kvs, hd))
+        v = v + tp.part(p["bv"], 0, _scaled(kvs, hd))
+    (lo, hi), (klo, khi) = heads[r], kvs[r]
+    q = rope(q.reshape(b, s, hi - lo, hd), positions, cfg.rope_theta)
+    k = rope(k.reshape(b, s, khi - klo, hd), positions, cfg.rope_theta)
+    v = v.reshape(b, s, khi - klo, hd)
 
     if kv_cache is not None:
         ck, cv = kv_cache
@@ -169,15 +245,17 @@ def attention(p: Params, cfg: AttnCfg, x: torch.Tensor,
 
     # the keys are the first cache_len + s positions, so the kernel's
     # end-aligned causal mask (query i sees keys up to cache_len + i) is the
-    # reference's position mask together with its cache-length mask
-    group = cfg.n_heads // cfg.n_kv_heads
-    qf = _heads_first(q.to(F32))
-    kf = _heads_first(repeat_kv(k, group).to(F32))
-    vf = _heads_first(repeat_kv(v, group).to(F32))
-    out = flash_attention(qf, kf, vf, causal=cfg.causal)
-    out = out.reshape(b, cfg.n_heads, s, cfg.head_dim).permute(0, 2, 1, 3)
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim).to(x.dtype)
-    return out @ p["wo"], new_cache
+    # reference's position mask together with its cache-length mask; a
+    # rank with query rows [r0, r1) takes the keys before r1, which keeps
+    # that alignment
+    row = None if rows is None else rows[r]
+    if row is not None:
+        q = q[:, row[0]:row[1]]
+        if cfg.causal:
+            k, v = k[:, :row[1]], v[:, :row[1]]
+    out = _attend(q, k, v, heads[r], klo, group, cfg.causal).to(x.dtype)
+    out = out @ tp.part(p["wo"], 0, _scaled(heads, hd))
+    return tp.leave_model(_rows_out(out, row, s)), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -203,12 +281,18 @@ def mlp_init(gen: torch.Generator, cfg: MlpCfg,
 
 def mlp(p: Params, cfg: MlpCfg, x: torch.Tensor) -> torch.Tensor:
     """The activation in float32, cast back before the gate's product;
-    ``jax.nn.gelu`` defaults to the tanh form."""
+    ``jax.nn.gelu`` defaults to the tanh form. On a mesh each 'model'
+    rank computes its range of the ff dim."""
+    _, m = tp.model_split()
+    ff = tp.ranges(cfg.d_ff, m)
+    xin = tp.enter_model(x)
     if cfg.activation == "swiglu":
-        h = F.silu((x @ p["wg"]).to(F32)).to(x.dtype) * (x @ p["wu"])
+        h = F.silu((xin @ tp.part(p["wg"], 1, ff)).to(F32)).to(x.dtype) \
+            * (xin @ tp.part(p["wu"], 1, ff))
     else:
-        h = F.gelu((x @ p["wu"]).to(F32), approximate="tanh").to(x.dtype)
-    return h @ p["wd"]
+        h = F.gelu((xin @ tp.part(p["wu"], 1, ff)).to(F32),
+                   approximate="tanh").to(x.dtype)
+    return tp.leave_model(h @ tp.part(p["wd"], 0, ff))
 
 
 # ---------------------------------------------------------------------------
@@ -217,13 +301,14 @@ def mlp(p: Params, cfg: MlpCfg, x: torch.Tensor) -> torch.Tensor:
 
 def xent_loss(logits: torch.Tensor, targets: torch.Tensor,
               vocab: Optional[int] = None) -> torch.Tensor:
-    """Cross-entropy; columns >= ``vocab`` (embedding padding) are masked."""
+    """Cross-entropy; columns >= ``vocab`` (embedding padding) are masked.
+    On a mesh, each rank's mean over its rows made the global batch's."""
     lf = logits.to(F32)
     if vocab is not None and vocab < logits.shape[-1]:
         lf = mask_padded_vocab(lf, vocab)
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
-    return torch.mean(logz - gold)
+    return tp.batch_mean(torch.mean(logz - gold))
 
 
 def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:

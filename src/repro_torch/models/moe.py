@@ -30,19 +30,31 @@ turn into an overwrite of the kept token), and the combine adds in a
 ``(N, k)`` layout without atomics, so two runs on the card give the same
 bits. Nothing here reads a value back to the host.
 
-``impl``: without a mesh the reference runs this global path for both
-"gspmd" and "shard_map"; so does the port (the expert-parallel path waits
-for ``runtime/partition``).
+``impl``: without a mesh, or with a 'model' axis of one, both "gspmd" and
+"shard_map" run the global path, as in the reference. On a mesh the
+global path keeps the global batch's semantics while each rank holds its
+rows: the capacity counts every rank's tokens, a pair's slot counts the
+pairs of the rows before it on other ranks, and the aux loss takes the
+global means; every 'model' rank computes it whole. "shard_map" on a
+'model' axis larger than one is expert parallel (the reference's
+``_moe_shard_map``): each 'model' rank routes its batch rows in float32,
+dispatches them into its ``E_loc = ceil(E / msize)`` experts of the
+zero-padded ``E_pad`` with this rank's capacity, runs the three products,
+combines its rows in ascending expert order, and one all-reduce over
+'model' adds the ranks' rows; the aux loss is this rank's, averaged over
+the batch axes.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoESpec
 from repro_torch.models import layers as L
+from repro_torch.runtime import tp
+from repro_torch.runtime.partition import current_mesh
 
 F32 = torch.float32
 IMPLS = ("gspmd", "shard_map")
@@ -80,18 +92,28 @@ def route(p: Dict, spec: MoESpec, x: torch.Tensor
     return probs, gate_vals, gate_idx
 
 
-def dispatch_slots(gate_idx: torch.Tensor, n_experts: int, cap: int
+def expert_counts(gate_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """How many routed pairs each expert has, int64 (E,)."""
+    flat_e = gate_idx.reshape(-1)
+    counts = torch.zeros(n_experts, dtype=torch.int64, device=flat_e.device)
+    return counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+
+
+def dispatch_slots(gate_idx: torch.Tensor, n_experts: int, cap: int,
+                   before: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each routed pair's slot in its expert, in ``gate_idx``'s (N, k)
     layout: its position in the expert's run after a stable sort by expert
-    (so by token within an expert), or ``cap`` where that position is
-    past the capacity. Returns (slot, keep)."""
+    (so by token within an expert), plus ``before[e]`` pairs of earlier
+    rows held elsewhere, or ``cap`` where that position is past the
+    capacity. Returns (slot, keep)."""
     flat_e = gate_idx.reshape(-1)
     order = torch.sort(flat_e, stable=True).indices
     se = flat_e[order]
-    counts = torch.zeros(n_experts, dtype=torch.int64, device=flat_e.device)
-    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    counts = expert_counts(gate_idx, n_experts)
     starts = torch.cumsum(counts, 0) - counts
+    if before is not None:
+        starts = starts - before
     pos_sorted = torch.arange(flat_e.numel(), device=flat_e.device) \
         - starts[se]
     pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
@@ -114,37 +136,106 @@ def combine(rows: torch.Tensor, gate_vals: torch.Tensor,
     return out
 
 
+def _pairs_before(gate_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Per expert, the pairs routed by the rows the ranks before this one
+    along the batch axes hold (zeros on the first)."""
+    counts = tp.all_gather_batch(expert_counts(gate_idx, n_experts))
+    idx, _ = tp.batch_split()
+    return sum(counts[:idx], torch.zeros_like(counts[0]))
+
+
 def moe_apply(p: Dict, spec: MoESpec, d_ff: int, x: torch.Tensor,
               impl: str = "gspmd") -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out in x's dtype, float32 aux loss)."""
     if impl not in IMPLS:
         raise ValueError(f"moe_apply: impl must be one of {IMPLS}, got "
                          f"{impl!r}")
+    if impl == "shard_map" and current_mesh() is not None \
+            and tp.model_split()[1] > 1:
+        return _moe_expert_parallel(p, spec, d_ff, x)
     B, S, D = x.shape
     N = B * S
     E, k = spec.n_experts, spec.top_k
     xf = x.reshape(N, D)
-    probs, gate_vals, gate_idx = route(p, spec, x)
+    probs, gate_vals, gate_idx = route({"router": tp.whole(p["router"])},
+                                       spec, x)
 
-    # aux load-balance loss: E * mean(density_e * mean_prob_e)
-    density = F.one_hot(gate_idx, E).sum(1).to(F32).mean(0)
-    aux = spec.aux_coef * E * torch.mean(density * probs.mean(0))
+    # aux load-balance loss: E * mean(density_e * mean_prob_e), the means
+    # over the global batch
+    _, nb = tp.batch_split()
+    one_hot = F.one_hot(gate_idx, E).sum(1).to(F32)
+    if nb == 1:
+        density, mean_p = one_hot.mean(0), probs.mean(0)
+    else:
+        density = tp.reduce_batch(one_hot.sum(0)) / (N * nb)
+        mean_p = tp.reduce_batch(probs.sum(0)) / (N * nb)
+    aux = spec.aux_coef * E * torch.mean(density * mean_p)
 
     # ---- sort-based capacity dispatch, dropped pairs to spare slot C ----
-    C = capacity(spec, N)
-    slot, _ = dispatch_slots(gate_idx, E, C)
+    C = capacity(spec, N * nb)
+    before = _pairs_before(gate_idx, E) if nb > 1 else None
+    slot, _ = dispatch_slots(gate_idx, E, C, before)
     dispatch = torch.zeros(E, C + 1, D, dtype=x.dtype, device=x.device)
     dispatch[gate_idx, slot] = xf[:, None, :].expand(N, k, D)
     dispatch = dispatch[:, :C]
 
-    h_g = torch.bmm(dispatch, p["w_experts_gate"])
-    h_u = torch.bmm(dispatch, p["w_experts_up"])
+    h_g = torch.bmm(dispatch, tp.whole(p["w_experts_gate"]))
+    h_u = torch.bmm(dispatch, tp.whole(p["w_experts_up"]))
     h = F.silu(h_g.to(F32)).to(x.dtype) * h_u
-    eout = torch.bmm(h, p["w_experts_down"])            # (E, C, D)
+    eout = torch.bmm(h, tp.whole(p["w_experts_down"]))   # (E, C, D)
 
     # ---- combine: the spare slot reads zeros ----
     eout = F.pad(eout, (0, 0, 0, 1))
     out = combine(eout[gate_idx, slot], gate_vals, gate_idx).view(B, S, D)
+    if "shared" in p:
+        out = out + L.mlp(p["shared"], L.MlpCfg(D, d_ff), x)
+    return out, aux
+
+
+def _moe_expert_parallel(p: Dict, spec: MoESpec, d_ff: int, x: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_moe_shard_map`` on this rank's rows: its
+    experts only, the rows summed over 'model'. The router's gradient is
+    summed over 'model' (each rank's gate gradient covers its experts), so
+    the aux loss, which every 'model' rank computes alike, passes each
+    rank an even share of its gradient."""
+    r, msize = tp.model_split()
+    E, k = spec.n_experts, spec.top_k
+    E_loc = -(-E // msize)
+    lo = r * E_loc
+    B, S, D = x.shape
+    N = B * S
+    xin = tp.enter_model(x)
+    xf = xin.reshape(N, D)
+    router = tp.part(p["router"], 1, [(0, E)] * msize)
+    probs, gate_vals, gate_idx = route({"router": router}, spec, xin)
+    density = F.one_hot(gate_idx, E).sum(1).to(F32).mean(0)
+    aux = spec.aux_coef * E * torch.mean(density * probs.mean(0))
+    aux = tp.share_grad_over_model(tp.batch_mean(aux))
+
+    C = capacity(spec, N)
+    slot, _ = dispatch_slots(gate_idx, E, C)
+    # this rank's experts [lo, lo + E_loc) of the padded E_pad; every other
+    # pair goes to the spare slot C of local expert 0, which reads zeros
+    mine = (gate_idx >= lo) & (gate_idx < lo + E_loc)
+    le = torch.where(mine, gate_idx - lo, 0)
+    slot = torch.where(mine, slot, C)
+    dispatch = torch.zeros(E_loc, C + 1, D, dtype=x.dtype, device=x.device)
+    dispatch[le, slot] = xf[:, None, :].expand(N, k, D)
+    dispatch = dispatch[:, :C]
+
+    bounds = [(min(j * E_loc, E), min((j + 1) * E_loc, E))
+              for j in range(msize)]
+
+    def experts(name: str) -> torch.Tensor:
+        w = tp.part(p[name], 0, bounds)     # zero-padded to E_loc experts
+        return F.pad(w, (0, 0, 0, 0, 0, E_loc - w.shape[0]))
+    h_g = torch.bmm(dispatch, experts("w_experts_gate"))
+    h_u = torch.bmm(dispatch, experts("w_experts_up"))
+    h = F.silu(h_g.to(F32)).to(x.dtype) * h_u
+    eout = F.pad(torch.bmm(h, experts("w_experts_down")), (0, 0, 0, 1))
+    out = combine(eout[le, slot], gate_vals, gate_idx)
+    out = tp.leave_model(out).view(B, S, D)
     if "shared" in p:
         out = out + L.mlp(p["shared"], L.MlpCfg(D, d_ff), x)
     return out, aux

@@ -18,8 +18,11 @@ float32; the decode recurrence and the chunked form in float32, whatever
 the config's dtype; the D skip in float32, then the gated RMSNorm. The
 decode states are written in place (the reference returns new arrays;
 its ``serve_lm`` donates them), and the layers are a Python loop over
-:class:`SSMBlock` modules in place of ``lax.scan``. The reference's
-``shard(...)`` constraints are dropped: they are no-ops outside a mesh.
+:class:`SSMBlock` modules in place of ``lax.scan``. On a mesh the SSD
+layer runs whole on every 'model' rank, on the rank's batch rows
+(``runtime.tp.whole``): its ``in_proj`` columns are the z / x / B / C /
+dt segments, which a column shard over 'model' does not align with, and
+the gated RMSNorm reduces over every head (``ROADMAP.md`` queue 3).
 Nothing here reads ``cfg.hd``, which divides by mamba2's zero heads.
 """
 from __future__ import annotations
@@ -32,6 +35,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.runtime import tp
 
 F32 = torch.float32
 State = Tuple[torch.Tensor, torch.Tensor]     # (conv state, ssm state)
@@ -186,6 +190,7 @@ def ssm_forward(p, cfg: ArchConfig, x: torch.Tensor,
     s = cfg.ssm
     dI, H, _, N = dims(cfg)
     B, S, _ = x.shape
+    p = {k: tp.whole(v) for k, v in p.items()}
     z, xBC, dt = _split_proj(cfg, x @ p["in_proj"])
     xBC, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"],
                                    None if state is None else state[0])
@@ -244,7 +249,7 @@ class SSMBlock(nn.Module):
     def forward(self, x: torch.Tensor, state: Optional[State] = None
                 ) -> Tuple[torch.Tensor, State]:
         h, new_state = ssm_forward(self.ssm, self.cfg,
-                                   L.rmsnorm(x, self.norm), state)
+                                   L.rmsnorm(x, tp.whole(self.norm)), state)
         return x + h, new_state
 
 
@@ -268,12 +273,14 @@ class Mamba2LM(nn.Module):
         """Returns (logits, states, aux = 0). ``states`` are the stacked
         per-layer decode states, updated in place; None runs the chunked
         form."""
-        x = self.embed[tokens.long()]
+        embed = tp.whole(self.embed)
+        x = tp.activations(embed[tokens.long()])
         for i, block in enumerate(self.layers):
-            x, _ = block(x, None if states is None
+            x, _ = block(tp.local(x), None if states is None
                          else (states[0][i], states[1][i]))
-        x = L.rmsnorm(x, self.final_norm)
-        return (x @ self.embed.T, states,
+            x = tp.activations(x)
+        x = L.rmsnorm(tp.local(x), tp.whole(self.final_norm))
+        return (x @ embed.T, states,
                 torch.zeros((), dtype=F32, device=x.device))
 
 

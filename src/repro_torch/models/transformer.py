@@ -11,7 +11,11 @@ tree layout and names (``layers.<i>.attn.wq``, ``layers.<i>.moe.router``,
 ...), so ``repro_torch.convert.lm_params_from_reference`` carries a
 reference tree across by unstacking the L axis. ``remat`` (activation
 checkpointing) has no effect: training keeps every layer's activations
-for the backward.
+for the backward. On a mesh (``runtime.partition.use_mesh``, parameters
+placed by ``partition.place_model``) the hidden state between blocks is
+a DTensor whose rows lie over the batch axes; norms, the embedding and
+the logits run whole on every 'model' rank, attention and the MLP
+tensor parallel (``layers``), the MoE layer as its ``impl`` says.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.runtime import tp
 
 Caches = Tuple[torch.Tensor, torch.Tensor]
 
@@ -84,14 +89,15 @@ class Block(nn.Module):
         """Returns (x, cache, aux): aux is the MoE layer's float32 loss,
         None for a dense layer."""
         h, new_cache = L.attention(self.attn, self.attn_cfg,
-                                   L.rmsnorm(x, self.ln1), positions, cache,
-                                   cache_len)
+                                   L.rmsnorm(x, tp.whole(self.ln1)),
+                                   positions, cache, cache_len)
         x = x + L.scale_by(h, self.residual_scale)
         aux = None
+        ln2 = tp.whole(self.ln2)
         if hasattr(self, "moe"):
-            h, aux = self.moe(L.rmsnorm(x, self.ln2))
+            h, aux = self.moe(L.rmsnorm(x, ln2))
         else:
-            h = L.mlp(self.mlp, self.mlp_cfg, L.rmsnorm(x, self.ln2))
+            h = L.mlp(self.mlp, self.mlp_cfg, L.rmsnorm(x, ln2))
         return x + L.scale_by(h, self.residual_scale), new_cache, aux
 
 
@@ -123,8 +129,9 @@ class Transformer(nn.Module):
         place at ``cache_len``. aux sums the MoE layers' losses in
         float32."""
         cfg = self.cfg
+        embed = tp.whole(self.embed)
         if tokens is not None:
-            x = self.embed[tokens.long()]
+            x = embed[tokens.long()]
             # minicpm scales its tied embedding (the reference's rule, by
             # name)
             if cfg.tie_embeddings and cfg.arch_id.startswith("minicpm"):
@@ -138,14 +145,17 @@ class Transformer(nn.Module):
                                               dtype=torch.int32))
         positions = positions[None, :].expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x = tp.activations(x)
         for i, block in enumerate(self.layers):
             layer_cache = None if caches is None else (caches[0][i],
                                                        caches[1][i])
-            x, _, a = block(x, positions, layer_cache, cache_len)
+            x, _, a = block(tp.local(x), positions, layer_cache, cache_len)
+            x = tp.activations(x)
             if a is not None:
                 aux = aux + a
-        x = L.rmsnorm(x, self.final_norm)
-        logits = x @ (self.embed.T if self.lm_head is None else self.lm_head)
+        x = L.rmsnorm(tp.local(x), tp.whole(self.final_norm))
+        logits = x @ (embed.T if self.lm_head is None
+                      else tp.whole(self.lm_head))
         return logits, caches, aux
 
 

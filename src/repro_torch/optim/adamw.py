@@ -25,6 +25,7 @@ import math
 from typing import Callable, List, NamedTuple, Sequence, Tuple
 
 import torch
+import torch.distributed
 
 F32 = torch.float32
 
@@ -119,6 +120,32 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float
     total = torch.zeros((), dtype=F32, device=grads[0].device)
     for g in grads:
         total = total + torch.sum(g.to(F32) ** 2)
+    return _scale(grads, total, max_norm)
+
+
+def _scale(grads: Sequence[torch.Tensor], total: torch.Tensor,
+           max_norm: float) -> Tuple[List[torch.Tensor], torch.Tensor]:
     norm = torch.sqrt(total)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return [(g.to(F32) * scale).to(g.dtype) for g in grads], norm
+
+
+@torch.no_grad()
+def clip_by_global_norm_on_mesh(grads: Sequence[torch.Tensor],
+                                placements: Sequence[Sequence],
+                                mesh, max_norm: float
+                                ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """:func:`clip_by_global_norm` of sharded gradients: ``grads`` are
+    this rank's local shards, ``placements`` their DTensor placements on
+    ``mesh``. Each shard's squares count once (on the ranks at index 0 of
+    every mesh dim that replicates it), in leaf order, and one all-reduce
+    over the mesh's ranks sums them; on one rank it is
+    :func:`clip_by_global_norm` exactly."""
+    coord = mesh.get_coordinate()
+    total = torch.zeros((), dtype=F32, device=grads[0].device)
+    for g, pl in zip(grads, placements):
+        if all(c == 0 for c, p in zip(coord, pl) if p.is_replicate()):
+            total = total + torch.sum(g.to(F32) ** 2)
+    if mesh.size() > 1:
+        torch.distributed.all_reduce(total)
+    return _scale(grads, total, max_norm)

@@ -16,8 +16,9 @@ loop's :class:`repro_torch.serve.LivenessProbe` is built on both. One
 deliberate difference from the reference: ``TrainSupervisor.on_step``
 takes the state as a zero-argument callable, called only on a save step,
 so the trainer builds the reference-layout host tree only when a save is
-due. ``elastic_remesh`` (a restore onto another mesh) comes with the
-port's partitioning (``runtime/partition``).
+due. :func:`elastic_remesh` places a restored host tree on a mesh of any
+shape as DTensors: the checkpoint holds the global layout, so a restore
+onto another mesh is pure data movement.
 """
 from __future__ import annotations
 
@@ -28,6 +29,10 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+import torch
+from torch.distributed.tensor import distribute_tensor
+
+from repro_torch.runtime.partition import P, filter_spec, placements
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +142,37 @@ class StragglerDetector:
         if is_straggler:
             self.events.append({"step": step, "dt": dt, "median": med})
         return is_straggler
+
+
+# ---------------------------------------------------------------------------
+# elastic re-mesh
+# ---------------------------------------------------------------------------
+
+def elastic_remesh(host_tree: Any, new_mesh, specs: Any) -> Any:
+    """Re-shard a host-memory checkpoint onto a (possibly different) mesh.
+
+    Because checkpoints are stored in global layout, scaling from N to M
+    ranks is a ``distribute_tensor`` of each leaf (rank 0's values) with
+    the new mesh's placements of its spec. ``None`` leaves stay None;
+    ``specs`` has the tree's structure with a :class:`P` at each leaf."""
+    names = tuple(new_mesh.mesh_dim_names)
+
+    def put(x, spec):
+        if x is None:
+            return None
+        t = torch.as_tensor(x).to(new_mesh.device_type)
+        return distribute_tensor(t, new_mesh,
+                                 placements(filter_spec(spec, names),
+                                            new_mesh))
+
+    def walk(x, spec):
+        if isinstance(x, dict):
+            return {k: walk(v, spec[k]) for k, v in x.items()}
+        if isinstance(x, (list, tuple)) and not isinstance(spec, P):
+            out = [walk(v, s) for v, s in zip(x, spec)]
+            return type(x)(*out) if hasattr(x, "_fields") else type(x)(out)
+        return put(x, spec)
+    return walk(host_tree, specs)
 
 
 # ---------------------------------------------------------------------------

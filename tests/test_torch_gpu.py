@@ -995,3 +995,49 @@ def test_train_steps_on_the_card_match_the_cpu(cuda, arch):
     assert max(float(d.max()) for d in diffs) <= 3.6e-4
     assert sum(int((d > 1e-6).sum()) for d in diffs) <= \
         1e-3 * sum(d.numel() for d in diffs)
+
+
+@pytest.fixture
+def nccl_rank(cuda):
+    """The trainer's one-rank NCCL group, destroyed after the test."""
+    import torch.distributed as dist
+    yield cuda
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_sharded_trainer_on_one_nccl_rank_equals_the_unsharded(nccl_rank):
+    """``--model-axis 1``: every parameter a DTensor on a (1, 1) mesh of
+    one NCCL rank, the same losses bit for bit as the trainer with no
+    mesh, the flash kernels launched per layer and step, no plain call."""
+    from repro_torch.launch import train
+    args = ["--arch", "minicpm-2b", "--reduced", "--steps", "3", "--batch",
+            "4", "--seq", "64", "--log-every", "1", "--device", "cuda"]
+    want = train.main(args)
+    fa.launches = fa.plain_calls = fa.backward_plain_calls = 0
+    fa.bwd_preprocess_launches = fa.bwd_dkdv_launches = \
+        fa.bwd_dq_launches = 0
+    got = train.main(args + ["--model-axis", "1"])
+    assert got == want
+    assert [fa.launches, fa.bwd_preprocess_launches, fa.bwd_dkdv_launches,
+            fa.bwd_dq_launches] == [2 * 3] * 4
+    assert (fa.plain_calls, fa.backward_plain_calls) == (0, 0)
+
+
+def test_elastic_resume_on_one_nccl_rank_is_bit_equal(nccl_rank, tmp_path):
+    """A run's step-1 checkpoint, restored with ``elastic_remesh`` onto a
+    fresh one-rank mesh, continues to a step 2 and a step-2 checkpoint
+    bit-equal to the uninterrupted run's."""
+    import shutil
+    from repro_torch.launch import train
+    args = ["--arch", "minicpm-2b", "--reduced", "--steps", "3", "--batch",
+            "4", "--seq", "64", "--log-every", "1", "--device", "cuda",
+            "--model-axis", "1", "--save-every", "1"]
+    whole = train.main(args + ["--ckpt-dir", str(tmp_path / "a")])
+    shutil.copytree(tmp_path / "a" / "step_00000001",
+                    tmp_path / "b" / "step_00000001")
+    resumed = train.main(args + ["--ckpt-dir", str(tmp_path / "b")])
+    assert resumed == whole[2:]
+    blobs = [(tmp_path / d / "step_00000002" / "data.msgpack.zst"
+              ).read_bytes() for d in ("a", "b")]
+    assert blobs[0] == blobs[1]

@@ -37,7 +37,9 @@ def test_port_imports_neither_jax_nor_the_reference():
              "repro_torch.data.pipeline", "repro_torch.launch.serve_lm",
              "repro_torch.launch.train", "repro_torch.optim.adamw",
              "repro_torch.optim.grad_compress", "repro_torch.checkpoint.ckpt",
-             "repro_torch.runtime.fault_tolerance"]
+             "repro_torch.runtime.fault_tolerance",
+             "repro_torch.launch.mesh", "repro_torch.runtime.partition",
+             "repro_torch.runtime.pipeline", "repro_torch.runtime.tp"]
     for m in named:
         assert m in mods, m
         mods.remove(m)

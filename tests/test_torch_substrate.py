@@ -576,9 +576,19 @@ def test_checkpoints_cross_between_the_two_trainers(tmp_path):
 
 
 def test_trainer_refuses_a_model_axis_and_a_missing_card():
-    with pytest.raises(ValueError, match="runtime/partition"):
-        train.main(["--arch", "minicpm-2b", "--reduced", "--model-axis",
-                    "2", "--device", "cpu"])
+    """A model axis that does not divide the world (2 ranks of torch's
+    fake process group) raises and names both numbers; without a card
+    and without ``--device cpu`` the trainer raises."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        with pytest.raises(ValueError, match=r"model axis of 3 .* world "
+                                             r"size 2"):
+            train.main(["--arch", "minicpm-2b", "--reduced", "--model-axis",
+                        "3", "--device", "cpu"])
+    finally:
+        dist.destroy_process_group()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train.main(["--arch", "minicpm-2b", "--reduced"])
