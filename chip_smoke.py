@@ -42,22 +42,29 @@ against their plain versions at the reference tests' shapes and ragged
 ones (for the float32 SGEMM: K around its 16-deep k tile, M and N around
 its 128 x 128 tile, A or B one float past 16-byte alignment), the
 bfloat16 product at the edges of its ``wgmma`` route (K = 8,
-K = 72, ragged M and N, N = 8) and on a misaligned A, which must take the
-``mma_sync`` route, with the route counters read around each call, and
-attention at the edges of its 128-query tile; (9) the dense path through
-``repro_torch.kernels.ops`` at realistic widths (minicpm-2b's gate/up
-projection over 4,096 tokens in float32 and bfloat16, its causal
-attention at 4k context, a 16-megapixel frame), with the launch counts
-and the matmul's route counters read around it (the bfloat16 product goes
-through ``wgmma`` once, ``mma_sync`` never) and each result then held
-against its plain version; (10) the dense kernels' times beside their plain
-versions', their bounds and one PyTorch library call each, the bfloat16
-product's ``wgmma`` and ``mma_sync`` routes timed in turns on the same
-inputs, and its bf16-out time beside ``torch.matmul``'s, each of those two
-results then held against the plain version; (11, run after (5)) the
-traced frontend: torch functions (the one-shot mix at length 4096, a
-two-way ``torch.cond``, the demo's epilogue also at 2^22 elements, a graph
-larger than the fabric) traced on this machine's torch and run through
+K = 72, ragged M and N, N = 8) and where TMA cannot address its rows as
+they lie (K % 8 != 0, N % 8 != 0, A or B one element off alignment, both
+out dtypes), which must take the ``wgmma_realign`` route, with the route
+counters read around each call, and attention at the edges of its
+128-query tile; (9) the dense path through ``repro_torch.kernels.ops`` at
+realistic widths (minicpm-2b's gate/up projection over 4,096 tokens in
+float32 and bfloat16, the bfloat16 one again with A one element off
+alignment, granite-moe-3b-a800m's LM head at its unpadded vocabulary
+4096 x 1536 x 49155 with a bf16 result, its causal attention at 4k
+context, a 16-megapixel frame), with the launch counts and the matmul's
+route counters read around it (``sgemm`` once, ``wgmma`` once,
+``wgmma_realign`` twice) and each result then held against its plain
+version; (10) the dense kernels' times beside their plain versions', their
+bounds and one PyTorch library call each, the bfloat16 product with A one
+element off alignment (``wgmma_realign``: the copy of A, then the
+``wgmma`` kernel) and with the same A aligned (``wgmma``) timed in turns,
+its bf16-out time beside ``torch.matmul``'s, and ``wgmma_realign``
+at both of its path's shapes in both out dtypes beside ``torch.matmul`` on
+the same tensors, each of those results then held against the plain
+version; (11, run after (5)) the traced frontend: torch functions (the
+one-shot mix at length 4096, a two-way ``torch.cond``, the demo's
+epilogue also at 2^22 elements, a graph larger than the fabric) traced
+on this machine's torch and run through
 ``@offload(backend="cuda")`` with the launch counts read around them,
 every output bit-exact against ``backend="sim"`` and the eager function,
 the multi-shot tally equal to sim's, the torch loop kernels refused with
@@ -150,7 +157,9 @@ d = 64; d = 80 and 128; whisper-base's encoder at sq = sk = 1500 and its
 cross-attention at sq = 512, sk = 1500, non-causal), float32 and bf16,
 two runs bit-identical, the forward's lse against logsumexp, timed in
 float32 beside the plain backward, the bound (5 products) and SDPA's
-forward plus backward, and each kernel alone at minicpm-2b's shape; (b)
+forward plus backward, and each kernel alone at minicpm-2b's shape (the
+preprocess beside ``linalg.vecdot``, and its D bit-identical from a base
+one element off alignment); (b)
 2 ``make_step`` steps of minicpm-2b and whisper-base reduced in float32
 on the card against the CPU from one set of parameters, with and
 without gradient compression; (c) minicpm-2b at full width through
@@ -1065,7 +1074,7 @@ def phase_dense_parity(device):
         key = (kernel, limit)
         by_limit[key] = max(by_limit.get(key, 0.0), err)
 
-    routes = ("sgemm", "mma_sync", "wgmma")
+    routes = ("sgemm", "wgmma", "wgmma_realign")
 
     def route_counts():
         return {r: getattr(sm, f"{r}_launches") for r in routes}
@@ -1095,6 +1104,11 @@ def phase_dense_parity(device):
             ((130, 8, 40), bf16, f32), ((100, 72, 96), bf16, f32),
             ((200, 136, 264), bf16, f32), ((200, 136, 264), bf16, bf16),
             ((300, 72, 8), bf16, f32), ((64, 64, 8), bf16, bf16),
+            # the realign route: K % 8 != 0 (rows of A off alignment), N %
+            # 8 != 0 (rows of B), both, in both out dtypes
+            ((100, 67, 256), bf16, f32), ((100, 67, 256), bf16, bf16),
+            ((100, 64, 259), bf16, f32), ((100, 64, 259), bf16, bf16),
+            ((70, 90, 50), bf16, bf16), ((300, 300, 300), bf16, bf16),
             # the SGEMM's edges: K below, at and past its 16-deep k tile and
             # its 4-stage ring, M and N around its 128 x 128 tile
             ((127, 15, 129), f32, f32), ((129, 16, 127), f32, f32),
@@ -1112,14 +1126,26 @@ def phase_dense_parity(device):
             else normal(rng, (k, n), device)
         label = f"stream_matmul {m}x{k}x{n} f32, {which} misaligned by 4 bytes"
         taken[label] = matmul_case(a, b, f32, f32, label)
-    # a contiguous A one element past a 16-byte boundary: TMA cannot
-    # address it, so the rule picks mma_sync
+    # a contiguous A, then B, one element past a 16-byte boundary: TMA
+    # cannot address its rows as they lie, so the rule picks wgmma_realign
     m, k, n = 100, 64, 128
-    a = normal(rng, (m * k + 1,), device, bf16)[1:].view(m, k)
-    b = normal(rng, (k, n), device, bf16)
-    label = f"stream_matmul {m}x{k}x{n} bf16, A misaligned by 2 bytes"
-    taken[label] = matmul_case(a, b, f32, bf16, label)
-    check(taken[label] == "mma_sync", f"{label}: took {taken[label]}")
+    for which in ("A", "B"):
+        a = normal(rng, (m * k + 1,), device, bf16)[1:].view(m, k) \
+            if which == "A" else normal(rng, (m, k), device, bf16)
+        b = normal(rng, (k * n + 1,), device, bf16)[1:].view(k, n) \
+            if which == "B" else normal(rng, (k, n), device, bf16)
+        for out in (f32, bf16):
+            label = (f"stream_matmul {m}x{k}x{n} bf16->{out}, {which} "
+                     f"misaligned by 2 bytes")
+            taken[label] = matmul_case(a, b, out, bf16, label)
+            check(taken[label] == "wgmma_realign",
+                  f"{label}: took {taken[label]}")
+    unaligned = [lbl for lbl in taken if "bfloat16->" in lbl
+                 and ("100x67x" in lbl or "x259 " in lbl)]
+    check(len(unaligned) == 4
+          and all(taken[lbl] == "wgmma_realign" for lbl in unaligned),
+          f"K % 8 != 0 or N % 8 != 0 must take wgmma_realign: "
+          f"{ {lbl: taken[lbl] for lbl in unaligned} }")
     n_routes = {r: sum(v == r for v in taken.values()) for r in routes}
     print(f"[dense-parity] stream_matmul routes over {len(taken)} shapes: "
           f"{n_routes}")
@@ -1165,6 +1191,9 @@ def phase_dense_parity(device):
 # ---------------------------------------------------------------------------
 
 MM = (4096, 2304, 5760)        # minicpm-2b gate/up projection, 4,096 tokens
+# granite-moe-3b-a800m's LM head at its unpadded vocabulary, 4,096 tokens
+# (N % 8 = 3: rows of B TMA cannot address as they lie)
+MM_HEAD = (4096, 1536, 49155)
 ATTN_CAUSAL = (36, 4096, 4096, 64)   # minicpm-2b attention at 4k context
 ATTN_FULL = (8, 1024, 1024, 64)      # benchmarks/bench_kernels.py:90
 CONV_BIG, CONV_SMALL = (4096, 4096), (256, 256)
@@ -1197,14 +1226,25 @@ def phase_dense_path(device):
     # bfloat16 has no numpy type: the same values, rounded on the card
     a16 = torch.from_numpy(a).to(device).to(torch.bfloat16)
     b16 = torch.from_numpy(b).to(device).to(torch.bfloat16)
+    # the realign route's two shapes: S1, the same A one element past a
+    # 16-byte boundary (every row of A shifted alike), and S2, the LM head
+    # (every row of B shifted its own way)
+    a16_off = torch.empty(M * K + 1, dtype=torch.bfloat16,
+                          device=device)[1:].view(M, K)
+    a16_off.copy_(a16)
+    Mh, Kh, Nh = MM_HEAD
+    a_head = normal(rng, (Mh, Kh), device, torch.bfloat16)
+    b_head = normal(rng, (Kh, Nh), device, torch.bfloat16)
     torch.cuda.synchronize()
 
     mods = {"stream_matmul": sm, "stream_conv2d": sc, "flash_attention": fa}
     for mod in mods.values():
         mod.launches = mod.plain_calls = 0
-    sm.sgemm_launches = sm.mma_sync_launches = sm.wgmma_launches = 0
+    sm.sgemm_launches = sm.wgmma_launches = sm.wgmma_realign_launches = 0
     t0 = time.perf_counter()
     out = {"mm": ops.matmul(a, b), "mm16": ops.matmul(a16, b16),
+           "mm16_off": ops.matmul(a16_off, b16),
+           "head": ops.matmul(a_head, b_head, out_dtype=torch.bfloat16),
            "attn": ops.attention(q, k, v, causal=True),
            "attn_full": ops.attention(qn, kn, vn, causal=False),
            "conv": ops.conv2d_3x3(img, kern),
@@ -1213,18 +1253,20 @@ def phase_dense_path(device):
     wall = time.perf_counter() - t0
     launches = {n: m.launches for n, m in mods.items()}
     plain = {n: m.plain_calls for n, m in mods.items()}
-    routes = {"sgemm": sm.sgemm_launches, "mma_sync": sm.mma_sync_launches,
-              "wgmma": sm.wgmma_launches}
+    routes = {"sgemm": sm.sgemm_launches, "wgmma": sm.wgmma_launches,
+              "wgmma_realign": sm.wgmma_realign_launches}
     check(all(t.device.type == device.type for t in out.values()),
           f"ops returned a result off {device}")
     check(all(v > 0 for v in launches.values()),
           f"a dense kernel was never launched on its path: {launches}")
     check(all(v == 0 for v in plain.values()),
           f"a plain version ran on the dense path: {plain}")
-    check(routes == {"sgemm": 1, "mma_sync": 0, "wgmma": 1},
-          f"the f32 product must take sgemm once and the bf16 one wgmma "
-          f"once, never mma_sync: {routes}")
-    print(f"[dense-path] ops.matmul f32 and bf16 {M}x{K}x{N}, ops.attention "
+    check(routes == {"sgemm": 1, "wgmma": 1, "wgmma_realign": 2},
+          f"the f32 product must take sgemm once, the aligned bf16 one wgmma "
+          f"once, the misaligned A and the LM head wgmma_realign: {routes}")
+    print(f"[dense-path] ops.matmul f32 and bf16 {M}x{K}x{N} (bf16 also with "
+          f"A one element off alignment), bf16 -> bf16 {Mh}x{Kh}x{Nh}, "
+          f"ops.attention "
           f"causal h={h} s={sq} d={d} and full h={hn} s={sqn}, "
           f"ops.conv2d_3x3 {CONV_BIG} and {CONV_SMALL}: {wall:.3f} s wall "
           f"(host-to-device copies included); launches {launches}, "
@@ -1237,16 +1279,27 @@ def phase_dense_path(device):
            "img": out["conv"].new_tensor(img),
            "kern": out["conv"].new_tensor(kern)}
     errs = {}
-    for key, want, rel in (
-            ("mm", sm.matmul_plain(ins["a"], ins["b"]), MM_REL_TOL["float32"]),
-            ("mm16", sm.matmul_plain(a16, b16), MM_REL_TOL["bfloat16"])):
-        scale = float(want.abs().max())
-        e = close(out[key], want, rel * scale, 0.0,
-                  f"ops.matmul {key} at {M}x{K}x{N} (limit {rel} max|C| = "
-                  f"{rel * scale})")
+    for key, want, rel, rtol in (
+            ("mm", lambda: sm.matmul_plain(ins["a"], ins["b"]),
+             MM_REL_TOL["float32"], 0.0),
+            ("mm16", lambda: sm.matmul_plain(a16, b16),
+             MM_REL_TOL["bfloat16"], 0.0),
+            ("mm16_off", lambda: sm.matmul_plain(a16_off, b16),
+             MM_REL_TOL["bfloat16"], 0.0),
+            # bf16 out: one bf16 rounding more
+            ("head", lambda: sm.matmul_plain(a_head, b_head, torch.bfloat16),
+             MM_REL_TOL["bfloat16"], 2 ** -7)):
+        want = want()
+        scale = float(want.float().abs().max())
+        e = close(out[key], want, rel * scale, rtol,
+                  f"ops.matmul {key} (limit {rel} max|C| = {rel * scale}, "
+                  f"rtol {rtol})")
         errs[key] = e
+        del want
+        out[key] = None
+        torch.cuda.empty_cache()
         print(f"[dense-path] {key}: max abs err {e} = {e / scale:.3e} "
-              f"max|C| (limit {rel})")
+              f"max|C| (limit {rel}, rtol {rtol})")
     errs["attn"] = close(out["attn"], fa.attention_plain(
         ins["q"], ins["k"], ins["v"], True), 3e-5, 3e-5, "ops.attention causal")
     errs["attn_full"] = close(out["attn_full"], fa.attention_plain(
@@ -1262,8 +1315,12 @@ def phase_dense_path(device):
           f"version on the card: max abs err {errs}")
     launches["stream_matmul"] = routes["sgemm"]
     launches["stream_matmul bf16"] = routes["wgmma"]
+    launches["stream_matmul bf16 wgmma_realign"] = routes["wgmma_realign"]
+    ins.update(a16_off=a16_off, a_head=a_head, b_head=b_head)
     kernel_errs = {"stream_matmul": errs["mm"],
                    "stream_matmul bf16": errs["mm16"],
+                   "stream_matmul bf16 wgmma_realign": max(errs["mm16_off"],
+                                                           errs["head"]),
                    "flash_attention": max(errs["attn"], errs["attn_full"]),
                    "stream_conv2d": max(errs["conv"], errs["conv_s"])}
     return launches, kernel_errs, ins
@@ -1338,34 +1395,35 @@ def phase_dense_times(ins):
               f"per launch (launches recorded of 5) "
               f"{dev or 'not measured'}")
 
-    # the two bfloat16 designs on the same inputs, in turns (old, new,
-    # new, old), and the wgmma route with a bf16 result beside cuBLAS's
-    # bf16-out call, which is like for like
+    # what the realign route's copy costs: S1's A, one element off
+    # alignment (the copy of A, then the wgmma kernel), against the same
+    # values at an aligned base (the wgmma kernel alone), in turns
+    # (wgmma_realign, wgmma, wgmma, wgmma_realign)
     f32, bf16 = torch.float32, torch.bfloat16
-    turns = {"mma_sync": [], "wgmma": []}
-    for r in ("mma_sync", "wgmma", "wgmma", "mma_sync"):
-        turns[r].append(
-            time_ms(lambda: sm._launch_route(a16, b16, f32, r)))
-    mma_ms, wg_ms = (sum(turns[r]) / 2 for r in ("mma_sync", "wgmma"))
-    # the results of the two timed calls not checked on the path, against
-    # the plain version: within 1e-4 of max|C|, and one bf16 ulp more for
-    # the bf16 result
+    a_off = ins["a16_off"]
+    turns = {"wgmma_realign": [], "wgmma": []}
+    for x in (a_off, a16, a16, a_off):
+        turns[sm.route(x, b16)].append(
+            time_ms(lambda x=x: sm.matmul_kernel(x, b16)))
+    re_ms, wg_ms = (sum(turns[r]) / 2 for r in ("wgmma_realign", "wgmma"))
+    # the wgmma route with a bf16 result against the plain version: within
+    # 1e-4 of max|C| and one bf16 ulp (S1's results are held below)
     want = sm.matmul_plain(a16, b16)
     tol = MM_REL_TOL["bfloat16"] * float(want.abs().max())
-    e_mma = close(sm._launch_route(a16, b16, f32, "mma_sync"), want, tol,
-                  0.0, f"stream_matmul bf16 {M}x{K}x{N} (mma_sync)")
     e_out16 = close(sm.matmul_kernel(a16, b16, bf16), want.to(bf16), tol,
                     2 ** -7, f"stream_matmul bf16 -> bf16 {M}x{K}x{N}")
     del want
-    print(f"[dense-times] {M}x{K}x{N} against the plain version: mma_sync "
-          f"route max abs err {e_mma}, bf16 out (wgmma) {e_out16} (atol "
-          f"{MM_REL_TOL['bfloat16']} max|C| = {tol}, rtol 0 and 2^-7)")
+    print(f"[dense-times] {M}x{K}x{N} against the plain version: bf16 out "
+          f"(wgmma) max abs err {e_out16} (atol {MM_REL_TOL['bfloat16']} "
+          f"max|C| = {tol}, rtol 2^-7)")
     r16 = rows["stream_matmul bf16"]
-    print(f"[dense-times] stream_matmul bf16 in, f32 out, {M}x{K}x{N}, "
-          f"in turns: wgmma {turns['wgmma']} ms, mma_sync "
-          f"{turns['mma_sync']} ms; wgmma / mma_sync {wg_ms / mma_ms:.3f}, "
-          f"bound {r16['bound_ms']:.4f} ms, torch.matmul (bf16 out) "
-          f"{r16['library_ms']:.4f} ms")
+    print(f"[dense-times] stream_matmul bf16 in, f32 out, {M}x{K}x{N}, in "
+          f"turns: A one element off alignment (wgmma_realign) "
+          f"{turns['wgmma_realign']} ms, the same A aligned (wgmma) "
+          f"{turns['wgmma']} ms; the copy of A costs "
+          f"{re_ms - wg_ms:.4f} ms, wgmma_realign / wgmma "
+          f"{re_ms / wg_ms:.3f}; bound {r16['bound_ms']:.4f} ms, "
+          f"torch.matmul (bf16 out) {r16['library_ms']:.4f} ms")
     out16_ms = time_ms(lambda: sm.matmul_kernel(a16, b16, bf16))
     lib16_ms = time_ms(lambda: torch.matmul(a16, b16))
     b16_ms, b16_by = dense_bound(2 * (M * K + K * N + M * N), 2 * M * N * K,
@@ -1374,6 +1432,39 @@ def phase_dense_times(ins):
           f"{out16_ms:.4f} ms, torch.matmul {lib16_ms:.4f} ms, bound "
           f"{b16_ms:.4f} ms ({b16_by}), share of bound {b16_ms / out16_ms:.3f}"
           f", kernel / library {out16_ms / lib16_ms:.3f}")
+
+    # the realign route at S1 (A one element off alignment) and S2 (the LM
+    # head, N % 8 = 3), both out dtypes, beside torch.matmul on the same
+    # tensors (bf16 out); each result against the plain version
+    for label, x, y, (m, k, n) in (
+            ("stream_matmul bf16 wgmma_realign", ins["a16_off"], b16, MM),
+            ("stream_matmul bf16 wgmma_realign lm head", ins["a_head"],
+             ins["b_head"], MM_HEAD)):
+        check(sm.route(x, y) == "wgmma_realign",
+              f"{label}: takes {sm.route(x, y)}")
+        times = {dt: time_ms(lambda dt=dt: sm.matmul_kernel(x, y, dt))
+                 for dt in (f32, bf16)}
+        lib_ms = time_ms(lambda: torch.matmul(x, y))
+        plain_ms = time_ms(lambda: sm.matmul_plain(x, y), reps=3, warm=1)
+        want = sm.matmul_plain(x, y)
+        tol = MM_REL_TOL["bfloat16"] * float(want.abs().max())
+        err = max(close(sm.matmul_kernel(x, y, f32), want, tol, 0.0, label),
+                  close(sm.matmul_kernel(x, y, bf16), want.to(bf16), tol,
+                        2 ** -7, f"{label} -> bf16"))
+        del want
+        torch.cuda.empty_cache()
+        b_ms, b_by = dense_bound(2 * (m * k + k * n) + 4 * m * n,
+                                 2 * m * n * k, BF16_FLOP_PER_S)
+        rows[label] = dict(ms=times[f32], plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=lib_ms, max_abs_err=err)
+        print(f"[dense-times] {label} {m}x{k}x{n}: kernel f32 out "
+              f"{times[f32]:.4f} ms, bf16 out {times[bf16]:.4f} ms, "
+              f"torch.matmul (bf16 out, same tensors) {lib_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share of "
+              f"bound {b_ms / times[f32]:.3f}, kernel / library "
+              f"{times[f32] / lib_ms:.3f} (bf16 out {times[bf16] / lib_ms:.3f})"
+              f"; max abs err {err} (atol {MM_REL_TOL['bfloat16']} max|C| = "
+              f"{tol})")
     return rows
 
 
@@ -3254,6 +3345,38 @@ def bwd_kernel_rows(q, k, v, o, lse, do, causal):
                                                     causal)
     delta = fa.bwd_preprocess_kernel(o, do)
     delta_p = (do.float() * o.float()).sum(-1)
+    # D within 1e-5 of max|D|, the same bits run after run and from bases
+    # one element off 16-byte alignment (read element by element, summed
+    # in the same order)
+    e_d = float((delta - delta_p).abs().max())
+    lim_d = 1e-5 * float(delta_p.abs().max())
+    shifted = []
+    for t in (o, do):
+        u = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        shifted.append(u[1:].view(t.shape))
+        shifted[-1].copy_(t)
+    check(e_d <= lim_d, f"flash_bwd_preprocess: max abs err {e_d} against "
+          f"the plain version (limit 1e-5 max|D| = {lim_d})")
+    check(torch.equal(delta, fa.bwd_preprocess_kernel(o, do))
+          and torch.equal(delta, fa.bwd_preprocess_kernel(*shifted)),
+          "flash_bwd_preprocess: D differs between runs or from a "
+          "misaligned base")
+    sets = [(o, do)] + [tuple(torch.randn_like(t) for t in (o, do))
+                        for _ in range(3)]
+    cold = [0]
+
+    def rotated():
+        x, y = sets[cold[0] % len(sets)]
+        cold[0] += 1
+        return fa.bwd_preprocess_kernel(x, y)
+    rot_ms = time_ms(rotated)
+    unaligned_ms = time_ms(lambda: fa.bwd_preprocess_kernel(*shifted))
+    # back-to-back events time the wrapper's host work too at this size:
+    # the device time per launch, same inputs and rotated
+    dev_same = per_launch(profile_run(
+        lambda: [fa.bwd_preprocess_kernel(o, do) for _ in range(20)]))
+    dev_rot = per_launch(profile_run(lambda: [rotated() for _ in range(20)]))
+    del sets, shifted
     dk, dv = fa.bwd_dkdv_kernel(q, k, v, do, lse, delta, causal)
     dq = fa.bwd_dq_kernel(q, k, v, do, lse, delta, causal)
     err = lambda a, b: float((a.float() - b.float()).abs().max())  # noqa
@@ -3285,6 +3408,15 @@ def bwd_kernel_rows(q, k, v, o, lse, do, causal):
               f"({b_by}) at 3xTF32, share {b_ms / ms:.3f}; library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, max abs "
               f"err against plain {e:.3e}")
+    print(f"[train] (a) flash_bwd_preprocess over a rotation of 4 input "
+          f"sets (151 MB, past the 50 MB L2): {rot_ms:.4f} ms, share of the "
+          f"bytes bound {out['flash_bwd_preprocess']['bound_ms'] / rot_ms:.3f}"
+          f"; profiler device ms per launch (launches recorded of 20): same "
+          f"inputs {dev_same or 'not measured'}, rotated "
+          f"{dev_rot or 'not measured'}"
+          f"; from bases one element off alignment {unaligned_ms:.4f} ms; D "
+          f"max abs err {e_d:.3e} (limit {lim_d:.3e}), bit-identical run "
+          f"after run and from the misaligned bases")
     return out
 
 
@@ -3770,7 +3902,7 @@ def mesh_cpu_worker(rank, world, tmp):
     serial = pipeline_forward(layer, ps, xs, 6)
     gs = torch.autograd.grad((serial ** 2).mean(), [ps["w"], ps["b"], xs])
     pp, xp = fresh()
-    with PT.use_mesh(compat_make_mesh((world,), ("pod",))):
+    with PT.use_mesh(compat_make_mesh((world,), ("pod",), "cpu")):
         piped = pipeline_forward(layer, pp, xp, 6)
         gp = torch.autograd.grad((piped ** 2).mean(), [pp["w"], pp["b"], xp])
     errs = [float((piped - serial).detach().abs().max()),
@@ -3901,6 +4033,21 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{kname.split()[0]}.cu",
             "replaces": replaces, "launches": dense_launches[kname],
             "max_abs_err": max(dense_errs[kname], path_errs[kname]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    # the bf16 realign route, at S1 and at S2 (the LM head): its launches
+    # are the dense path's two through ops.matmul
+    for label in ("stream_matmul bf16 wgmma_realign",
+                  "stream_matmul bf16 wgmma_realign lm head"):
+        r = dense_rows[label]
+        kernels.append({
+            "name": label, "route": "cuda",
+            "source": "src/repro_torch/csrc/stream_matmul.cu",
+            "replaces": "src/repro/kernels/stream_matmul.py:68",
+            "launches": dense_launches["stream_matmul bf16 wgmma_realign"],
+            "max_abs_err": max(r["max_abs_err"],
+                               path_errs["stream_matmul bf16 wgmma_realign"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})

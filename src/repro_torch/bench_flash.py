@@ -2,7 +2,8 @@
 
 Run on a machine with one NVIDIA card, from the repository root:
 
-    python3 src/repro_torch/bench_flash.py [--src DIR] [--backward]
+    python3 src/repro_torch/bench_flash.py [--src DIR] [--backward
+        [--shape LABEL]]
 
 It builds the kernels of ``DIR/repro_torch`` (the ``src`` directory beside
 this file unless ``--src`` names another, so that one run can time two
@@ -24,8 +25,11 @@ and each kernel's alone, beside SDPA's backward alone (its forward run
 once with a gradient, then ``torch.autograd.grad(..., retain_graph=True)``
 timed) and SDPA's forward + backward, each with two bounds: the products
 on the FP32 units (67 TFLOP/s) and on the TF32 tensor cores in three
-passes (495 / 3 TFLOP/s). The kernels' dq, dk, dv must stay within 1e-4 of
-max |plain| of the plain backward.
+passes (495 / 3 TFLOP/s), and the preprocess also beside
+``torch.linalg.vecdot`` (the one PyTorch call computing D) and by its
+profiler device time, on the same inputs and over 4 rotated input sets. The kernels' dq,
+dk, dv must stay within 1e-4 of max |plain| of the plain backward.
+``--shape`` keeps the shapes whose label starts with LABEL.
 
 The last line names the card and its power limit.
 """
@@ -144,6 +148,8 @@ def backward(args, torch, F, fa) -> bool:
     from repro_torch.kernels import ref
     ok = True
     for label, h, sq, sk, d, causal in BWD_SHAPES:
+        if not label.startswith(args.shape):
+            continue
         rng = np.random.default_rng(SEED + h + sq + sk + d)
         q, k, v, do = (torch.from_numpy(rng.standard_normal(
             (h, n, d), dtype="float32")).cuda() for n in (sq, sk, sk, sq))
@@ -176,6 +182,25 @@ def backward(args, torch, F, fa) -> bool:
                          "bound_fp32_by": by32, "share_fp32": b32 / ms,
                          "bound_tf32x3_ms": b3, "bound_tf32x3_by": by3,
                          "share_tf32x3": b3 / ms}
+        row["flash_bwd_preprocess"]["library_ms"] = time_ms(
+            lambda: torch.linalg.vecdot(do, o))
+        # the preprocess is short enough that back-to-back events time the
+        # wrapper's host work too: its device time by the profiler, on the
+        # same inputs and over 4 rotated sets the 50 MB L2 cannot hold
+        from repro_torch.bench_kernels import device_ms
+        sets = [(o, do)] + [(torch.randn_like(o), torch.randn_like(do))
+                            for _ in range(3)]
+        turn = [0]
+
+        def rotated():
+            turn[0] += 1
+            return fa.bwd_preprocess_kernel(*sets[turn[0] % len(sets)])
+        pre = row["flash_bwd_preprocess"]
+        pre["device_ms"], _ = device_ms(
+            lambda: fa.bwd_preprocess_kernel(o, do), reps=20)
+        pre["rot_device_ms"], _ = device_ms(rotated, reps=20)
+        pre["rot_device_share"] = pre["bound_fp32_ms"] / pre["rot_device_ms"]
+        del sets
         row["forward_lse_ms"] = time_ms(
             lambda: fa.attention_lse_kernel(q, k, v, causal))
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -202,6 +227,9 @@ def main(argv=None) -> int:
     p.add_argument("--src", default=here)
     p.add_argument("--backward", action="store_true",
                    help="time the backward kernels at BWD_SHAPES")
+    p.add_argument("--shape", default="",
+                   help="with --backward, the shapes whose label starts "
+                        "with this")
     args = p.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.src))
 

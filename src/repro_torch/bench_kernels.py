@@ -1,8 +1,8 @@
-"""Times the float32 ``stream_matmul`` and the fabric kernels on the card.
+"""Times ``stream_matmul`` and the fabric kernels on the card.
 
 Run on a machine with one NVIDIA card, from the repository root:
 
-    python3 src/repro_torch/bench_kernels.py [--src DIR]
+    python3 src/repro_torch/bench_kernels.py [--src DIR] [--only CASES]
 
 It builds the kernels of ``DIR/repro_torch`` (the ``src`` directory beside
 this file unless ``--src`` names another, so that one run can time two
@@ -14,6 +14,15 @@ case, with inputs made from a seed:
   both with TF32 off; the bound is the multiply-adds over the FP32 units'
   67 TFLOP/s. The result must stay within 1e-5 of max|C| of the plain
   version.
+- ``stream_matmul`` bfloat16 where TMA cannot address the rows as they lie
+  (the ``wgmma_realign`` route, or whatever route ``DIR``'s rule picks):
+  S1, 4096 x 2304 x 5760 with A one element past 16-byte alignment, and
+  S2, granite-moe-3b-a800m's LM head at its unpadded vocabulary, 4096 x
+  1536 x 49155 (N % 8 = 3), each with a float32 and a bfloat16 result,
+  beside ``torch.matmul`` on the same tensors (bfloat16 out); the bound is
+  the multiply-adds over the bf16 tensor cores' 989 TFLOP/s. Each result
+  must stay within 1e-4 of max|C| of the plain version, plus one bf16
+  rounding for a bf16 result.
 - ``fabric_reduce_lanes`` on the engine's lane grids: PolyBench gemm MEDIUM
   (``mac3``, 14,800 lanes of 240), gesummv MEDIUM (``mac2x``, 250 x 250)
   and the one-shot mix's ``fft_butterfly`` (256 x 4096); the bound is the
@@ -49,8 +58,12 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM dense bfloat16 tensor cores
 MM = (4096, 2304, 5760)
+MM_HEAD = (4096, 1536, 49155)  # granite-moe-3b-a800m's unpadded LM head
 MM_REL_TOL = 1e-5              # of max|C|, float32 at K = 2304
+BF16_REL_TOL = 1e-4            # of max|C|, bfloat16 inputs
+CASES = ("f32", "bf16", "lanes", "stream")
 SEED = 0
 REPS = 20
 ROTATE = 4                     # input and output sets of a rotated loop
@@ -216,6 +229,47 @@ def bench_matmul(src):
                 "limit": MM_REL_TOL * scale}
 
 
+def bench_bf16(src):
+    """S1 and S2, each with a float32 and a bfloat16 result."""
+    import torch
+    from repro_torch.kernels import stream_matmul as sm
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 3)
+    ok, rows = True, []
+    for label, (M, K, N), off in (("S1 A off alignment", MM, 1),
+                                  ("S2 lm head", MM_HEAD, 0)):
+        a = torch.randn(M * K + off, device="cuda", generator=g).to(
+            torch.bfloat16)[off:].view(M, K)
+        b = torch.randn((K, N), device="cuda", generator=g).to(
+            torch.bfloat16)
+        want = sm.matmul_plain(a, b)
+        atol = BF16_REL_TOL * float(want.abs().max())
+        row = {"src": src, "case": f"stream_matmul bf16 {label} {M}x{K}x{N}",
+               "route": sm.route(a, b), "limit": atol}
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            got = sm.matmul_kernel(a, b, dt).float()
+            w = want.to(dt).float()
+            rtol = 2 ** -7 if dt == torch.bfloat16 else 0.0
+            row[f"{name}_max_abs_err"] = float((got - w).abs().max())
+            ok = ok and bool(((got - w).abs() <= atol + rtol * w.abs()).all())
+            del got, w
+            row[f"{name}_ms"], row[f"{name}_host_ms"] = time_ms(
+                lambda dt=dt: sm.matmul_kernel(a, b, dt))
+            row[f"{name}_device_ms"], row[f"{name}_by_name"] = device_ms(
+                lambda dt=dt: sm.matmul_kernel(a, b, dt))
+        del want
+        torch.cuda.empty_cache()
+        row["library_ms"], _ = time_ms(lambda: torch.matmul(a, b))
+        row["bound_ms"] = 2 * M * N * K / BF16_FLOP_PER_S * 1e3
+        row["bound_by"] = "operations"
+        row["share"] = row["bound_ms"] / row["f32_ms"]
+        row["vs_library"] = row["f32_ms"] / row["library_ms"]
+        rows.append(row)
+        del a, b
+        torch.cuda.empty_cache()
+    return ok, rows
+
+
 def lane_grids():
     from repro_torch.core import kernels_lib as K
     return (("gemm mac3", K.mac3(240), 200 * -(-220 // 3), 240),
@@ -256,7 +310,12 @@ def main(argv=None) -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--src", default=here)
+    p.add_argument("--only", default=",".join(CASES),
+                   help=f"comma-separated cases of {CASES}")
     args = p.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= set(CASES):
+        p.error(f"--only takes cases of {CASES}, got {args.only}")
     sys.path.insert(0, os.path.abspath(args.src))
 
     import torch
@@ -267,19 +326,19 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import _build
     _build.build()
-    ok_mm, mm = bench_matmul(args.src)
-    print(json.dumps(mm), flush=True)
-    ok_lanes, rows = bench_lanes(args.src)
-    for row in rows:
-        print(json.dumps(row), flush=True)
-    ok_stream, rows = bench_stream(args.src)
-    for row in rows:
-        print(json.dumps(row), flush=True)
+    ok = True
+    for case, bench in (("f32", bench_matmul), ("bf16", bench_bf16),
+                        ("lanes", bench_lanes), ("stream", bench_stream)):
+        if case not in only:
+            continue
+        ok_case, rows = bench(args.src)
+        ok = ok and ok_case
+        for row in rows if isinstance(rows, list) else [rows]:
+            print(json.dumps(row), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip() or smi.stderr.strip())
-    ok = ok_mm and ok_lanes and ok_stream
     if not ok:
         print("bench_kernels: a result disagreed with the plain version",
               file=sys.stderr)

@@ -10,8 +10,11 @@
 // Bound on the H100: operations. At the main path's shape (4096 x 2304 x
 // 5760) the product is 108.7 GFLOP: 1.6 ms at the FP32 units' 67 TFLOP/s;
 // in bf16 0.11 ms at the tensor cores' 989 TFLOP/s against 0.042 ms for
-// its 139.8 MB (bf16 A and B read once, f32 C written once). Three routes,
-// chosen by the caller (kernels/stream_matmul.py::route) and checked here:
+// its 139.8 MB (bf16 A and B read once, f32 C written once); at
+// granite-moe-3b-a800m's unpadded LM head (4096 x 1536 x 49155, N % 8 = 3)
+// 618.5 GFLOP, 0.625 ms, against 0.29 ms for its 0.97 GB (f32 C). Three
+// routes, chosen by the caller (kernels/stream_matmul.py::route) and
+// checked here:
 //
 //   * "sgemm", float32 inputs: sgemm_kernel, an SGEMM on the FP32 units. A
 //     128 x 128 output tile per block of 256 threads, two blocks per SM (at
@@ -42,18 +45,27 @@
 //     L2. The TMA descriptors are encoded on the host per call
 //     (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so
 //     that the library needs no -lcuda) and passed as __grid_constant__.
-//   * "mma_sync", every other bfloat16 case (misaligned rows or pointers):
-//     bf16_gemm_kernel, mma.sync m16n8k16 on the tensor cores with fp32
-//     accumulators. 128 x 128 x 32 tiles, eight warps of 64 x 32 each;
-//     fragments come from shared memory by ldmatrix (.trans for B, which
-//     stays row-major (K,N) in shared memory).
+//   * "wgmma_realign", every other bfloat16 case (K % 8 != 0, N % 8 != 0
+//     or a base address off 16-byte alignment): repack_rows_kernel copies
+//     each operand TMA cannot address as it lies into device scratch the
+//     caller provides, rows rounded up to 8 elements from a 16-byte aligned
+//     base (each 16-byte word shifted into place from two aligned words of
+//     the source by the row's element offset), then wgmma_gemm_kernel
+//     reads the copies through maps that end at the operand's last column,
+//     so TMA's zero fill still gives the padded sums. The copy moves each
+//     copied operand's bytes twice more (read and written once: 94 MB, some
+//     0.03 ms at 3.35 TB/s, for A at 4096 x 2304 x 5760). It replaced an
+//     mma.sync kernel (128 x 128 x 32 tiles, single-buffered, 8 predicated
+//     2-byte loads per unaligned 16 bytes), 4.6x cuBLAS at 4096 x 2304 x
+//     5760 and 1.46 ms there with A off alignment.
 //
 // The Pallas kernel carries its sum in a VMEM scratch accumulator across the
 // sequential k axis of its grid; here each block loops over K itself. The
 // Pallas wrapper zero-pads A and B to block multiples in device memory; here
-// the sgemm and mma_sync routes mask the ragged M, N and K edges in their
-// loads (zero fill) and stores, the wgmma route lets TMA fill them, which
-// gives the same sums without the copies.
+// the sgemm route masks the ragged M, N and K edges in its loads (zero
+// fill) and stores, the wgmma routes let TMA fill them, which gives the
+// same sums without padded copies (the realign route's copies keep each
+// operand's shape, only its rows move).
 
 #include <cuda.h>          // CUtensorMap and the driver's enums (types only)
 #include <cuda_bf16.h>
@@ -63,9 +75,6 @@
 #include <type_traits>
 
 namespace {
-
-// flags: which operands take 16-byte vector loads / stores
-constexpr int kVecA = 1, kVecB = 2;
 
 template <typename OutT>
 __device__ __forceinline__ void store_out(OutT* p, float v);
@@ -283,157 +292,6 @@ int launch_sgemm(const float* A, const float* B, OutT* C, int M, int N,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: mma.sync on the tensor cores, fp32 accumulators
-// ---------------------------------------------------------------------------
-
-constexpr int kHBM = 128, kHBN = 128, kHBK = 32, kHThreads = 256;
-constexpr int kHAStride = kHBK + 8;   // 80-byte rows: ldmatrix conflict-free
-constexpr int kHBStride = kHBN + 8;   // 272-byte rows: ldmatrix conflict-free
-
-// eight consecutive bf16 of one row from column c, zero past `lim`
-__device__ __forceinline__ uint4 load8_bf16(const uint16_t* row, int c,
-                                            int lim, bool ok, bool vec) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (!ok || c >= lim) return v;
-  if (vec) return *reinterpret_cast<const uint4*>(row + c);
-  uint32_t e[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) e[j] = c + j < lim ? row[c + j] : 0u;
-  v.x = e[0] | (e[1] << 16);
-  v.y = e[2] | (e[3] << 16);
-  v.z = e[4] | (e[5] << 16);
-  v.w = e[6] | (e[7] << 16);
-  return v;
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <typename OutT>
-__global__ void __launch_bounds__(kHThreads)
-bf16_gemm_kernel(const uint16_t* __restrict__ A,
-                 const uint16_t* __restrict__ B, OutT* __restrict__ C, int M,
-                 int N, int K, int flags) {
-  __shared__ __align__(16) uint16_t As[kHBM * kHAStride];   // [m][k]
-  __shared__ __align__(16) uint16_t Bs[kHBK * kHBStride];   // [k][n]
-  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const int wm = warp / 4, wn = warp % 4;        // 2 x 4 warps of 64 x 32
-  const int g = lane / 4, tig = lane % 4;
-  const int m0 = blockIdx.y * kHBM, n0 = blockIdx.x * kHBN;
-  const bool vec_a = flags & kVecA, vec_b = flags & kVecB;
-
-  // each tile is 512 vectors of 8 bf16; every thread loads two of A, two
-  // of B. A vector v: row v / 4, k (v % 4) * 8. B vector v: k v / 16,
-  // column (v % 16) * 8.
-  int a_row[2], a_col[2], b_row[2], b_col[2];
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int v = t + u * kHThreads;
-    a_row[u] = v / 4;
-    a_col[u] = (v % 4) * 8;
-    b_row[u] = v / 16;
-    b_col[u] = (v % 16) * 8;
-  }
-  uint4 ra[2], rb[2];
-  auto load_tiles = [&](int k0) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int m = m0 + a_row[u];
-      ra[u] = load8_bf16(A + static_cast<size_t>(m < M ? m : 0) * K,
-                         k0 + a_col[u], K, m < M, vec_a);
-      const int k = k0 + b_row[u];
-      rb[u] = load8_bf16(B + static_cast<size_t>(k < K ? k : 0) * N,
-                         n0 + b_col[u], N, k < K, vec_b);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-  const int n_k = (K + kHBK - 1) / kHBK;
-  load_tiles(0);
-  for (int kt = 0; kt < n_k; ++kt) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      *reinterpret_cast<uint4*>(&As[a_row[u] * kHAStride + a_col[u]]) = ra[u];
-      *reinterpret_cast<uint4*>(&Bs[b_row[u] * kHBStride + b_col[u]]) = rb[u];
-    }
-    __syncthreads();
-    if (kt + 1 < n_k) load_tiles((kt + 1) * kHBK);
-#pragma unroll
-    for (int kk = 0; kk < kHBK; kk += 16) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi], &As[(wm * 64 + mi * 16 + (lane & 15)) * kHAStride
-                                + kk + (lane >> 4) * 8]);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, &Bs[(kk + (lane & 15)) * kHBStride + wn * 32 +
-                                 nj * 16 + (lane >> 4) * 8]);
-        bf[2 * nj][0] = r[0];
-        bf[2 * nj][1] = r[1];
-        bf[2 * nj + 1][0] = r[2];
-        bf[2 * nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 64 + mi * 16 + g + half * 8;
-      if (row >= M) continue;
-      OutT* c_row = C + static_cast<size_t>(row) * N;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn * 32 + ni * 8 + 2 * tig;
-        if (col < N) store_out(c_row + col, acc[mi][ni][2 * half]);
-        if (col + 1 < N) store_out(c_row + col + 1, acc[mi][ni][2 * half + 1]);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // bfloat16 through TMA and wgmma: a warp-specialised ring of tiles
 // ---------------------------------------------------------------------------
 
@@ -444,6 +302,11 @@ constexpr int kWBBox = kWBK * 64 * 2;         // 8 KB: one {64 n, 64 k} box
 constexpr int kWBBytes = (kWBN / 64) * kWBBox;  // 32 KB
 constexpr size_t kWSmem =
     1024 + kWStages * (kWABytes + kWBBytes) + 2 * kWStages * 8;
+// registers each thread of a block starts with (65,536 over 384, in steps
+// of 8); setmaxnreg moves them between the warpgroups of the block only, so
+// the producer's and the two consumers' counts add up to three times this
+constexpr int kWStartRegs = 65536 / kWThreads / 8 * 8;
+static_assert(40 + 2 * 232 <= 3 * kWStartRegs, "wgmma_gemm_kernel's split");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -467,10 +330,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
 }
 
 // Wait until the phase of parity `parity` has completed. A ring that stops
-// moving (a fault in this file) traps after about 2^31 polls, so the launch
-// fails with an error instead of hanging the card.
+// moving (a fault in this file) traps once it has waited about 4 s by the
+// global timer, so the launch fails with an error instead of hanging the
+// card (try_wait may itself suspend the thread for a while, so a count of
+// polls bounds no time).
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t polls = 0;; ++polls) {
+  uint64_t since = 0;
+  for (uint32_t polls = 1;; ++polls) {
     uint32_t done;
     asm volatile(
         "{\n"
@@ -482,7 +348,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
     if (done) return;
-    if (polls == 0x80000000u) __trap();
+    if (polls % 1024 == 0) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+      if (since == 0) since = now;
+      else if (now - since > 4000000000ull) __trap();
+    }
   }
 }
 
@@ -594,11 +465,45 @@ __device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
+// A warpgroup's 64 x 256 sums (rows 64 c .. 64 c + 63 of the tile) into
+// C, masked at the M and N edges. `pairs`: N is even (and C aligned to a
+// pair), so a pair of columns lies wholly inside or wholly outside the
+// matrix and goes out as one 8-byte (f32) or 4-byte (bf16) store.
+template <typename OutT>
+__device__ __forceinline__ void wgmma_store(float (&d)[128], int c, OutT* C,
+                                            int M, int N, int m0, int n0,
+                                            bool pairs) {
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  // fragment i of m64nNk16: row 16 warp + lane / 4 (+ 8), column
+  // 8 (i / 4) + 2 (lane % 4) (+ 1)
+  const int rows[2] = {m0 + c * 64 + warp * 16 + lane / 4,
+                       m0 + c * 64 + warp * 16 + lane / 4 + 8};
+  const int col0 = n0 + 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int col = col0 + 8 * i;
+    if (col >= N) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (rows[h] >= M) continue;
+      OutT* p = C + static_cast<size_t>(rows[h]) * N + col;
+      if (pairs) {
+        store_pair(p, d[4 * i + 2 * h], d[4 * i + 2 * h + 1]);
+      } else {
+        store_out(p, d[4 * i + 2 * h]);
+        if (col + 1 < N) store_out(p + 1, d[4 * i + 2 * h + 1]);
+      }
+    }
+  }
+}
+
 template <typename OutT>
 __global__ void __launch_bounds__(kWThreads, 1)
 wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                   const __grid_constant__ CUtensorMap map_b,
-                  OutT* __restrict__ C, int M, int N, int K) {
+                  OutT* __restrict__ C, int M, int N, int K, bool pairs) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t a_smem = base;                          // + s * kWABytes
@@ -637,10 +542,9 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       }
     }
   } else {
-    // consumers: warpgroup c computes rows 64c .. 64c + 63 of the tile
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    const int c = wg - 1;
-    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const int c = wg - 1;   // consumers: rows 64 c .. 64 c + 63 of the tile
+    const int lane = threadIdx.x % 32;
     float d[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) d[i] = 0.f;
@@ -663,24 +567,62 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       if (kt > 0 && lane == 0) mbar_arrive(empty + 8 * ((kt - 1) % kWStages));
     }
     wgmma_wait<0>();
-#pragma unroll
-    for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+    wgmma_store(d, c, C, M, N, m0, n0, pairs);
+  }
+}
 
-    // fragment i of m64nNk16: row 16 warp + lane / 4 (+ 8), column
-    // 8 (i / 4) + 2 (lane % 4) (+ 1). N is even on this route, so a pair
-    // lies wholly inside or wholly outside the matrix.
-    const int row = m0 + c * 64 + warp * 16 + lane / 4;
-    const int col0 = n0 + 2 * (lane % 4);
+// ---------------------------------------------------------------------------
+// bfloat16 rows TMA cannot address as they lie: copied into aligned rows
+// ---------------------------------------------------------------------------
+//
+// A tensor map needs a 16-byte aligned base and row strides of 16-byte
+// multiples, which A (M,K) lacks when K % 8 != 0 or its base is off, and B
+// (K,N) when N % 8 != 0 or its base is off. repack_rows_kernel copies such
+// an operand into scratch whose rows are ld = cols rounded up to 8
+// elements apart, from a 16-byte aligned base; the wgmma kernel then reads
+// the copy through a map of cols columns with that stride, so TMA still
+// zero-fills past the last column and row. A row's element offset e is a
+// whole number of elements, so each 16-byte word of the copy is elements
+// e % 8 .. e % 8 + 7 of the two aligned words of the source holding
+// element e (realign8: two selects and a funnel shift on 32-bit words).
+// Columns cols .. ld - 1 of the copy take whatever follows the row (the
+// next row's first elements, or zeros past the operand's last word): no
+// map reads them. No word past the operand's last is read.
+constexpr int kPThreads = 256;              // repack_rows_kernel's block
+constexpr int kPRows = 65535;               // grid rows, at most
+
+// elements s .. s + 7 of the 16 consecutive bf16 in (lo, hi), s in 0 .. 7
+__device__ __forceinline__ uint4 realign8(uint4 lo, uint4 hi, uint32_t s) {
+  uint32_t x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const bool by4 = s & 4, by2 = s & 2;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int col = col0 + 8 * i;
-      if (col >= N) continue;
-      if (row < M)
-        store_pair(C + static_cast<size_t>(row) * N + col, d[4 * i],
-                   d[4 * i + 1]);
-      if (row + 8 < M)
-        store_pair(C + static_cast<size_t>(row + 8) * N + col, d[4 * i + 2],
-                   d[4 * i + 3]);
+  for (int i = 0; i < 6; ++i) x[i] = by4 ? x[i + 2] : x[i];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) x[i] = by2 ? x[i + 1] : x[i];
+  const uint32_t sh = (s & 1) * 16;
+  return make_uint4(__funnelshift_r(x[0], x[1], sh),
+                    __funnelshift_r(x[1], x[2], sh),
+                    __funnelshift_r(x[2], x[3], sh),
+                    __funnelshift_r(x[3], x[4], sh));
+}
+
+// word x of row r of the copy (ld8 = ld / 8 words a row) from `src`, the
+// aligned word holding the operand's first element, `off` elements into
+// it; the operand spans src_words words
+__global__ void __launch_bounds__(kPThreads)
+repack_rows_kernel(const uint4* __restrict__ src, int off,
+                   uint4* __restrict__ dst, int rows, int cols, int ld8,
+                   long long src_words) {
+  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+    for (int x = blockIdx.x * kPThreads + threadIdx.x; x < ld8;
+         x += gridDim.x * kPThreads) {
+      const long long e = off + static_cast<long long>(r) * cols + 8 * x;
+      const long long q = e >> 3;
+      const uint32_t s = e & 7;
+      const uint4 lo = __ldg(src + q);
+      const uint4 hi = s != 0 && q + 1 < src_words ? __ldg(src + q + 1)
+                                                   : make_uint4(0, 0, 0, 0);
+      dst[static_cast<long long>(r) * ld8 + x] = realign8(lo, hi, s);
     }
   }
 }
@@ -710,46 +652,109 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a (rows, cols) row-major bfloat16 matrix in boxes of {box_cols, box_rows},
-// 128-byte swizzle, zero fill out of bounds
+// a (rows, cols) bfloat16 matrix, rows `stride` elements apart (cols by
+// default), in boxes of {box_cols, box_rows}, with 128-byte swizzle or
+// none, zero fill out of bounds
 cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rows,
-                            int cols, int box_rows, int box_cols) {
+                            int cols, int box_rows, int box_cols,
+                            long long stride = 0, bool swizzle = true) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint64_t strides[1] = {
+      static_cast<cuuint64_t>(stride > 0 ? stride : cols) * 2};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+long long round8(int n) { return (static_cast<long long>(n) + 7) / 8 * 8; }
+
+// C = A @ B on the wgmma kernel, rows of A lda and rows of B ldb elements
+// apart (each a multiple of 8, both bases 16-byte aligned)
 template <typename OutT>
-int launch_wgmma(const void* a, const void* b, void* c, int M, int N, int K,
-                 cudaStream_t s) {
-  CUtensorMap map_a, map_b;
-  cudaError_t rc = encode_bf16_map(&map_a, a, M, K, kWBM, kWBK);
-  if (rc == cudaSuccess) rc = encode_bf16_map(&map_b, b, K, N, kWBK, 64);
+int launch_wgmma(const void* a, long long lda, const void* b, long long ldb,
+                 void* c, int M, int N, int K, cudaStream_t s) {
+  CUtensorMap map_a = {}, map_b = {};
+  cudaError_t rc = cudaSuccess;
+  if (K > 0) {   // at K = 0 no k step runs, and no map of 0 columns exists
+    rc = encode_bf16_map(&map_a, a, M, K, kWBM, kWBK, lda);
+    if (rc == cudaSuccess)
+      rc = encode_bf16_map(&map_b, b, K, N, kWBK, 64, ldb);
+  }
   if (rc == cudaSuccess)
     rc = cudaFuncSetAttribute(wgmma_gemm_kernel<OutT>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(kWSmem));
   if (rc != cudaSuccess) return static_cast<int>(rc);
+  // a pair of columns goes out as one store where N is even and C's base
+  // is aligned to the pair
+  const bool pairs =
+      N % 2 == 0 && reinterpret_cast<uintptr_t>(c) % (2 * sizeof(OutT)) == 0;
   const dim3 grid((M + kWBM - 1) / kWBM, (N + kWBN - 1) / kWBN);
   wgmma_gemm_kernel<OutT><<<grid, kWThreads, kWSmem, s>>>(
-      map_a, map_b, static_cast<OutT*>(c), M, N, K);
+      map_a, map_b, static_cast<OutT*>(c), M, N, K, pairs);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+// the (rows, cols) bfloat16 matrix at p into dst, rows round8(cols)
+// elements apart
+cudaError_t repack_rows(const void* p, int rows, int cols, void* dst,
+                        cudaStream_t s) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(p);
+  const int off = static_cast<int>(at & 15) / 2;
+  const int ld8 = static_cast<int>(round8(cols) / 8);
+  const long long src_words =
+      (off + static_cast<long long>(rows) * cols + 7) / 8;
+  const dim3 grid((ld8 + kPThreads - 1) / kPThreads,
+                  rows < kPRows ? rows : kPRows);
+  repack_rows_kernel<<<grid, kPThreads, 0, s>>>(
+      reinterpret_cast<const uint4*>(at & ~uintptr_t{15}), off,
+      static_cast<uint4*>(dst), rows, cols, ld8, src_words);
+  return cudaGetLastError();
+}
+
+// the scratch bytes of the realign route: a copy of each operand TMA
+// cannot address as it lies, A's first
+long long realign_scratch(const void* a, const void* b, int M, int N,
+                          int K) {
+  if (K == 0) return 0;
+  return (K % 8 == 0 && aligned16(a) ? 0 : 2 * M * round8(K)) +
+         (N % 8 == 0 && aligned16(b) ? 0 : 2 * K * round8(N));
+}
+
+// the realign route: each operand TMA cannot address as it lies is copied
+// into the scratch (repack_rows), then the wgmma kernel reads the copies
+template <typename OutT>
+int launch_realign(const void* a, const void* b, void* c, int M, int N,
+                   int K, void* scratch, cudaStream_t s) {
+  uint8_t* next = static_cast<uint8_t*>(scratch);
+  long long lda = K, ldb = N;
+  cudaError_t rc = cudaSuccess;
+  if (K > 0 && !(K % 8 == 0 && aligned16(a))) {
+    lda = round8(K);
+    rc = repack_rows(a, M, K, next, s);
+    a = next;
+    next += 2 * M * lda;
+  }
+  if (rc == cudaSuccess && K > 0 && !(N % 8 == 0 && aligned16(b))) {
+    ldb = round8(N);
+    rc = repack_rows(b, K, N, next, s);
+    b = next;
+  }
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return launch_wgmma<OutT>(a, lda, b, ldb, c, M, N, K, s);
 }
 
 }  // namespace
@@ -757,22 +762,30 @@ bool aligned16(const void* p) {
 extern "C" {
 
 // dtype codes shared with kernels/stream_matmul.py: 0 float32, 1 bfloat16;
-// route codes: 0 sgemm (float32 inputs), 1 mma_sync and 2 wgmma (bfloat16
-// inputs). A (M,K), B (K,N) and C (M,N) are contiguous row-major on the
-// device; A and B share in_dtype. A route whose conditions fail is refused
-// (wgmma: K >= 1, K % 8 == 0, N % 8 == 0, A, B and C 16-byte aligned).
-// Returns the CUDA error of the launch (0 on success).
+// route codes: 0 sgemm (float32 inputs), 2 wgmma and 3 wgmma_realign
+// (bfloat16 inputs); code 1, the retired mma.sync route, is refused.
+// A (M,K), B (K,N) and C (M,N) are contiguous row-major on the device; A
+// and B share in_dtype. A route whose conditions fail is refused
+// (wgmma: K >= 1, K % 8 == 0, N % 8 == 0, A, B and C 16-byte aligned;
+// wgmma_realign takes every bfloat16 input, given 16-byte aligned device
+// scratch of scratch_bytes >= strela_stream_matmul_scratch's count; the
+// other routes ignore the scratch). Returns the CUDA error of the launch
+// (0 on success).
 int strela_stream_matmul(const void* a, const void* b, void* c, int M, int N,
                          int K, int in_dtype, int out_dtype, int route,
+                         void* scratch, long long scratch_bytes,
                          void* stream) {
   if (M < 0 || N < 0 || K < 0 || in_dtype < 0 || in_dtype > 1 ||
-      out_dtype < 0 || out_dtype > 1 || route < 0 || route > 2 ||
-      (in_dtype == 0) != (route == 0))
+      out_dtype < 0 || out_dtype > 1 || route < 0 || route > 3 ||
+      route == 1 || (in_dtype == 0) != (route == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == 2 && !(K >= 1 && K % 8 == 0 && N % 8 == 0 && aligned16(a) &&
                       aligned16(b) && aligned16(c)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return 0;
+  if (route == 3 && (!aligned16(scratch) ||
+                     scratch_bytes < realign_scratch(a, b, M, N, K)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 0) {
     const float* A = static_cast<const float*>(a);
@@ -788,29 +801,24 @@ int strela_stream_matmul(const void* a, const void* b, void* c, int M, int N,
     return b16 ? launch_sgemm<__nv_bfloat16, true>(A, B, C, M, N, K, false, s)
                : launch_sgemm<__nv_bfloat16, false>(A, B, C, M, N, K, false,
                                                     s);
-  } else if (route == 2) {
-    if ((N + kWBN - 1) / kWBN > 65535)
-      return static_cast<int>(cudaErrorInvalidValue);
-    return out_dtype == 0
-               ? launch_wgmma<float>(a, b, c, M, N, K, s)
-               : launch_wgmma<__nv_bfloat16>(a, b, c, M, N, K, s);
-  } else {
-    const int grid_y = (M + kHBM - 1) / kHBM;
-    if (grid_y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((N + kHBN - 1) / kHBN, grid_y);
-    int flags = 0;
-    if (K % 8 == 0 && aligned16(a)) flags |= kVecA;
-    if (N % 8 == 0 && aligned16(b)) flags |= kVecB;
-    const uint16_t* A = static_cast<const uint16_t*>(a);
-    const uint16_t* B = static_cast<const uint16_t*>(b);
-    if (out_dtype == 0)
-      bf16_gemm_kernel<float><<<grid, kHThreads, 0, s>>>(
-          A, B, static_cast<float*>(c), M, N, K, flags);
-    else
-      bf16_gemm_kernel<__nv_bfloat16><<<grid, kHThreads, 0, s>>>(
-          A, B, static_cast<__nv_bfloat16*>(c), M, N, K, flags);
   }
-  return static_cast<int>(cudaGetLastError());
+  if ((N + kWBN - 1) / kWBN > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 2)
+    return out_dtype == 0
+               ? launch_wgmma<float>(a, K, b, N, c, M, N, K, s)
+               : launch_wgmma<__nv_bfloat16>(a, K, b, N, c, M, N, K, s);
+  return out_dtype == 0
+             ? launch_realign<float>(a, b, c, M, N, K, scratch, s)
+             : launch_realign<__nv_bfloat16>(a, b, c, M, N, K, scratch, s);
+}
+
+// the device scratch bytes strela_stream_matmul's wgmma_realign route
+// needs for these bfloat16 operands (0 for an empty product)
+long long strela_stream_matmul_scratch(const void* a, const void* b, int M,
+                                       int N, int K) {
+  if (M <= 0 || N <= 0 || K < 0) return 0;
+  return realign_scratch(a, b, M, N, K);
 }
 
 }  // extern "C"

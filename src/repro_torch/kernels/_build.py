@@ -109,8 +109,11 @@ def load() -> ctypes.CDLL:
         lib.strela_fabric_reduce_lanes.restype = i
         lib.strela_fabric_stream.argtypes = [vp, i, i, vp, i, vp, i, ll, vp]
         lib.strela_fabric_stream.restype = i
-        lib.strela_stream_matmul.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp]
+        lib.strela_stream_matmul.argtypes = [
+            vp, vp, vp, i, i, i, i, i, i, vp, ll, vp]
         lib.strela_stream_matmul.restype = i
+        lib.strela_stream_matmul_scratch.argtypes = [vp, vp, i, i, i]
+        lib.strela_stream_matmul_scratch.restype = ll
         lib.strela_stream_conv2d.argtypes = [vp, vp, vp, i, i, vp]
         lib.strela_stream_conv2d.restype = i
         lib.strela_flash_attention.argtypes = [

@@ -116,9 +116,10 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ref.flash_attention(q, k, v, causal=causal)
 
 
-def _check_kernel_inputs(tensors: Dict[str, torch.Tensor], d: int) -> None:
-    """CUDA tensors on one device, contiguous and 16-byte aligned, and a
-    head_dim the kernels are instantiated for."""
+def _check_kernel_inputs(tensors: Dict[str, torch.Tensor], d: int,
+                         aligned: bool = True) -> None:
+    """CUDA tensors on one device, contiguous and (with ``aligned``)
+    16-byte aligned, and a head_dim the kernels are instantiated for."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"flash_attention: the kernel runs on CUDA "
@@ -128,9 +129,9 @@ def _check_kernel_inputs(tensors: Dict[str, torch.Tensor], d: int) -> None:
         raise ValueError(f"flash_attention: the kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {d}")
     for name, t in tensors.items():
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must be contiguous "
-                             f"and 16-byte aligned")
+        if not t.is_contiguous() or (aligned and t.data_ptr() % 16):
+            raise ValueError(f"flash_attention: {name} must be contiguous"
+                             f"{' and 16-byte aligned' if aligned else ''}")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -190,14 +191,15 @@ def attention_lse_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def bwd_preprocess_kernel(o: torch.Tensor, do: torch.Tensor
                           ) -> torch.Tensor:
     """``flash_bwd_preprocess``: D = rowsum(dO o O) in float32, shape
-    ``o.shape[:-1]``."""
+    ``o.shape[:-1]``. Any base address: the kernel reads a base off
+    16-byte alignment element by element, in the same order of sums."""
     global bwd_preprocess_launches
     if o.shape != do.shape or o.dtype != do.dtype or o.dtype not in DTYPES:
         raise ValueError(f"flash_attention backward: o and dO must share a "
                          f"shape and a dtype in {sorted(map(str, DTYPES))}, "
                          f"got {tuple(o.shape)} {o.dtype} and "
                          f"{tuple(do.shape)} {do.dtype}")
-    _check_kernel_inputs({"o": o, "dO": do}, o.shape[-1])
+    _check_kernel_inputs({"o": o, "dO": do}, o.shape[-1], aligned=False)
     delta = torch.empty(o.shape[:-1], dtype=torch.float32, device=o.device)
     rows = delta.numel()
     if rows == 0:

@@ -17,14 +17,21 @@ alignment alone:
   8, A and B 16-byte aligned, none of M, N, K empty): a TMA ring of
   128 x 256 x 64 tiles, four stages, feeding two ``wgmma`` warpgroups
   from one producer thread; TMA zero-fills the ragged edges.
-- ``"mma_sync"`` (every other bfloat16 case): ``mma.sync`` tiles with
-  fp32 accumulators and masked loads. It is the second route, not a
-  fallback: the rule above picks it before the launch, and the C side
-  refuses a ``"wgmma"`` request whose conditions fail.
+- ``"wgmma_realign"`` (every other bfloat16 case: K or N not a multiple
+  of 8, or a base address off 16-byte alignment): a hand-written kernel
+  (``repack_rows_kernel``) copies each operand TMA cannot address as it
+  lies into device scratch with rows a multiple of 8 elements apart, each
+  16-byte word shifted into place from two aligned words of the source,
+  and the ``"wgmma"`` kernel then reads the copies through maps that end
+  at the operand's own last column, so TMA's zero fill still gives the
+  padded sums. It is the second route, not a fallback: the rule above
+  picks it before the launch, and the C side refuses a ``"wgmma"``
+  request whose conditions fail (and code 1, a retired ``mma.sync``
+  route).
 
 Each block loops over K itself, where the Pallas kernel carries a VMEM
 accumulator across its sequential k grid axis, and the ragged M, N and K
-edges are handled in the kernel instead of zero-padding copies of A and
+edges are handled in the kernel instead of zero-padded copies of A and
 B. The TPU block sizes ``bm``/``bn``/``bk`` are therefore no parameters
 here.
 
@@ -36,8 +43,8 @@ bf16 A, B and f32 C).
 Beside it, the plain PyTorch version (``ref.matmul``) runs for tensors on
 the CPU, and only there: a CUDA tensor launches a kernel or raises.
 ``launches`` counts kernel launches, ``sgemm_launches``,
-``mma_sync_launches`` and ``wgmma_launches`` those of each route, and
-``plain_calls`` calls of the plain version.
+``wgmma_launches`` and ``wgmma_realign_launches`` those of each route,
+and ``plain_calls`` calls of the plain version.
 """
 from __future__ import annotations
 
@@ -46,12 +53,12 @@ import torch
 from repro_torch.kernels import _build, ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}     # csrc dtype codes
-ROUTES = {"sgemm": 0, "mma_sync": 1, "wgmma": 2}   # csrc route codes
+ROUTES = {"sgemm": 0, "wgmma": 2, "wgmma_realign": 3}   # csrc route codes
 
 launches = 0
 sgemm_launches = 0
-mma_sync_launches = 0
 wgmma_launches = 0
+wgmma_realign_launches = 0
 plain_calls = 0
 
 
@@ -77,12 +84,12 @@ def bf16_route(a: torch.Tensor, b: torch.Tensor) -> str:
     """The route of a bfloat16 product: ``"wgmma"`` where TMA can address
     every row of A ``(M, K)`` and B ``(K, N)`` (row strides of 16-byte
     multiples, ``K % 8 == 0`` and ``N % 8 == 0``; base addresses 16-byte
-    aligned) and no dimension is empty, else ``"mma_sync"``."""
+    aligned) and no dimension is empty, else ``"wgmma_realign"``."""
     (M, K), N = a.shape, b.shape[1]
     if (min(M, N, K) >= 1 and K % 8 == 0 and N % 8 == 0
             and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0):
         return "wgmma"
-    return "mma_sync"
+    return "wgmma_realign"
 
 
 def route(a: torch.Tensor, b: torch.Tensor) -> str:
@@ -111,9 +118,8 @@ def _launch_route(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype,
     """``A @ B`` by the kernel of route ``r`` (a key of ``ROUTES``); the C
     side refuses a route whose conditions these inputs fail. :func:`route`
     is the one public way to choose a route: naming one here exists only
-    for ``chip_smoke.py``, which times the two bfloat16 designs on the same
-    inputs, and for the tests of the C side's checks."""
-    global launches, sgemm_launches, mma_sync_launches, wgmma_launches
+    for the tests of the C side's checks."""
+    global launches, sgemm_launches, wgmma_launches, wgmma_realign_launches
     _check(a, b, out_dtype)
     if r not in ROUTES:
         raise ValueError(f"stream_matmul: route must be one of "
@@ -131,17 +137,25 @@ def _launch_route(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype,
     if M == 0 or N == 0:
         return c
     lib = _build.load()
+    # the realign route's copies of the operands TMA cannot address as
+    # they lie, on the caching allocator
+    n_scratch = (lib.strela_stream_matmul_scratch(
+        a.data_ptr(), b.data_ptr(), M, N, K) if r == "wgmma_realign" else 0)
+    scratch = (torch.empty(n_scratch, dtype=torch.uint8, device=a.device)
+               if n_scratch else None)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.strela_stream_matmul(a.data_ptr(), b.data_ptr(),
-                                      c.data_ptr(), M, N, K, DTYPES[a.dtype],
-                                      DTYPES[out_dtype], ROUTES[r], stream)
+        rc = lib.strela_stream_matmul(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
+            DTYPES[a.dtype], DTYPES[out_dtype], ROUTES[r],
+            None if scratch is None else scratch.data_ptr(), n_scratch,
+            stream)
     _build.check(lib, rc, f"stream_matmul {M}x{K}x{N} ({r})")
     launches += 1
     if r == "wgmma":
         wgmma_launches += 1
-    elif r == "mma_sync":
-        mma_sync_launches += 1
+    elif r == "wgmma_realign":
+        wgmma_realign_launches += 1
     else:
         sgemm_launches += 1
     return c

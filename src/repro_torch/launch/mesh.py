@@ -25,9 +25,10 @@ BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 
 def compat_make_mesh(shape: Sequence[int], axes: Tuple[str, ...],
-                     device_type: str = "cpu") -> DeviceMesh:
+                     device_type: str = "cuda") -> DeviceMesh:
     """A mesh of ``shape`` named ``axes`` over the current process
-    group's ranks, in rank order (the last axis varies fastest)."""
+    group's ranks, in rank order (the last axis varies fastest), on the
+    card unless ``device_type`` asks for the CPU."""
     return init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(axes))
 

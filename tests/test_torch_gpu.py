@@ -360,30 +360,116 @@ def test_stream_matmul_wgmma_route_edges(cuda, m, k, n, out_dtype):
     a = _normal(rng, (m, k), cuda, torch.bfloat16)
     b = _normal(rng, (k, n), cuda, torch.bfloat16)
     assert sm.route(a, b) == "wgmma"
-    before = (sm.wgmma_launches, sm.mma_sync_launches)
+    before = (sm.wgmma_launches, sm.wgmma_realign_launches)
     got = sm.matmul_kernel(a, b, out_dtype)
     want = sm.matmul_plain(a, b, out_dtype)
     torch.cuda.synchronize()
-    assert (sm.wgmma_launches, sm.mma_sync_launches) == (before[0] + 1,
-                                                         before[1])
+    assert (sm.wgmma_launches, sm.wgmma_realign_launches) == (before[0] + 1,
+                                                              before[1])
     tol = 5e-2 if out_dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-def test_stream_matmul_misaligned_a_takes_mma_sync(cuda):
+def test_stream_matmul_misaligned_a_takes_wgmma_realign(cuda):
     rng = np.random.default_rng(3)
     m, k, n = 100, 64, 128
     a = _normal(rng, (m * k + 1,), cuda, torch.bfloat16)[1:].view(m, k)
     b = _normal(rng, (k, n), cuda, torch.bfloat16)
     assert a.is_contiguous() and a.data_ptr() % 16 == 2
-    assert sm.route(a, b) == "mma_sync"
-    before = (sm.wgmma_launches, sm.mma_sync_launches)
+    assert sm.route(a, b) == "wgmma_realign"
+    before = (sm.wgmma_launches, sm.wgmma_realign_launches)
     got = sm.matmul_kernel(a, b)
     want = sm.matmul_plain(a, b)
     torch.cuda.synchronize()
-    assert (sm.wgmma_launches, sm.mma_sync_launches) == (before[0],
-                                                         before[1] + 1)
+    assert (sm.wgmma_launches, sm.wgmma_realign_launches) == (before[0],
+                                                              before[1] + 1)
     torch.testing.assert_close(got, want, atol=5e-2, rtol=5e-2)
+
+
+# the realign route's cases: every element offset of A's and of B's base,
+# every K % 8 and N % 8 (two k stages, two column tiles), ragged M, N, K
+REALIGN_CASES = ([(130, 72, 264, off, 0) for off in range(1, 8)]
+                 + [(70, 136, 300, 0, off) for off in range(8)]
+                 + [(100, 64 + k8, 96, 3, 0) for k8 in range(1, 8)]
+                 + [(129, 40, 256 + n8, 0, 5) for n8 in range(1, 8)]
+                 + [(1, 1, 1, 1, 1), (257, 65, 1, 7, 2), (1, 130, 257, 0, 0),
+                    (200, 7, 513, 6, 3), (300, 520, 1000, 1, 0),
+                    (70000, 9, 16, 1, 0)])   # A's copy past 65,535 grid rows
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,a_off,b_off", REALIGN_CASES)
+def test_stream_matmul_realign_route_matches_plain(cuda, m, k, n, a_off,
+                                                   b_off, out_dtype):
+    """Within 1e-4 of max|C| of the plain version (sums in another order),
+    and one bf16 rounding more for a bf16 result; the realign counter moves
+    and no other route's does."""
+    rng = np.random.default_rng(m * k + n + a_off + 8 * b_off)
+    a = _offset(_normal(rng, (m, k), cuda, torch.bfloat16), a_off)
+    b = _offset(_normal(rng, (k, n), cuda, torch.bfloat16), b_off)
+    assert sm.route(a, b) == "wgmma_realign"
+    before = (sm.wgmma_launches, sm.wgmma_realign_launches, sm.sgemm_launches)
+    got = sm.matmul_kernel(a, b, out_dtype)
+    want = sm.matmul_plain(a, b, out_dtype)
+    torch.cuda.synchronize()
+    assert (sm.wgmma_launches, sm.wgmma_realign_launches,
+            sm.sgemm_launches) == (before[0], before[1] + 1, before[2])
+    atol = 1e-4 * float(want.float().abs().max())
+    rtol = 2 ** -7 if out_dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_stream_matmul_empty_k_on_the_realign_route_is_zeros(cuda):
+    a = torch.ones((100, 0), dtype=torch.bfloat16, device=cuda)
+    b = torch.ones((0, 300), dtype=torch.bfloat16, device=cuda)
+    assert sm.route(a, b) == "wgmma_realign"
+    got = sm.matmul_kernel(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros((100, 300), device=cuda))
+
+
+def test_stream_matmul_cuda_side_refuses_the_retired_route_code(cuda):
+    """Code 1, the retired mma.sync route, is refused (cudaErrorInvalid
+    Value) and writes nothing."""
+    from repro_torch.kernels import _build
+    a = torch.ones((16, 12), dtype=torch.bfloat16, device=cuda)
+    b = torch.ones((12, 16), dtype=torch.bfloat16, device=cuda)
+    c = torch.full((16, 16), 7.0, device=cuda)
+    assert 1 not in sm.ROUTES.values()
+    rc = _build.load().strela_stream_matmul(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), 16, 16, 12, 1, 0, 1,
+        None, 0, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 1 and bool((c == 7.0).all())
+
+
+def test_stream_matmul_cuda_side_refuses_short_realign_scratch(cuda):
+    """The realign route copies A (K % 8 != 0) into the caller's scratch,
+    16 rows of 16 elements: one byte short, or a base off 16-byte
+    alignment, is refused (cudaErrorInvalidValue) and writes nothing."""
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    a = torch.ones((16, 12), dtype=torch.bfloat16, device=cuda)
+    b = torch.ones((12, 16), dtype=torch.bfloat16, device=cuda)
+    c = torch.full((16, 16), 7.0, device=cuda)
+    need = lib.strela_stream_matmul_scratch(a.data_ptr(), b.data_ptr(), 16,
+                                            16, 12)
+    assert need == 2 * 16 * 16
+    scratch = torch.empty(need + 16, dtype=torch.uint8, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for ptr, n in ((scratch.data_ptr(), need - 1),
+                   (scratch.data_ptr() + 8, need)):
+        rc = lib.strela_stream_matmul(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), 16, 16, 12, 1, 0,
+            sm.ROUTES["wgmma_realign"], ptr, n, stream)
+        torch.cuda.synchronize()
+        assert rc == 1 and bool((c == 7.0).all())
+    rc = lib.strela_stream_matmul(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), 16, 16, 12, 1, 0,
+        sm.ROUTES["wgmma_realign"], scratch.data_ptr(), need, stream)
+    torch.cuda.synchronize()
+    assert rc == 0 and bool((c == 12.0).all())
 
 
 def test_stream_matmul_cuda_side_refuses_wgmma_on_misaligned_rows(cuda):
@@ -394,7 +480,7 @@ def test_stream_matmul_cuda_side_refuses_wgmma_on_misaligned_rows(cuda):
         sm._launch_route(a, b, torch.float32, "wgmma")
     assert sm.wgmma_launches == launches
     torch.testing.assert_close(sm._launch_route(a, b, torch.float32,
-                                               "mma_sync"),
+                                               "wgmma_realign"),
                                torch.full((16, 16), 12.0, device=cuda))
 
 
@@ -877,6 +963,32 @@ def test_flash_backward_kernels_match_plain(cuda, h, sq, sk, d, causal,
         assert a.dtype == dtype and torch.equal(a, b)
         assert float((a.float() - w.float()).abs().max()) <= \
             tol * float(w.float().abs().max())
+
+
+@pytest.mark.parametrize("off", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+def test_flash_bwd_preprocess_matches_plain_and_repeats(cuda, d, dtype, off):
+    """D within 1e-5 of max|D| of the plain version, the same bits on a
+    second run, and the same bits from a base off 16-byte alignment (the
+    kernel reads it element by element in the same order of sums)."""
+    rng = np.random.default_rng(d + off)
+    rows = 1000 + d
+    flat = [_normal(rng, (rows * d + off,), cuda, dtype) for _ in range(2)]
+    o, do = (t[off:].view(rows, d) for t in flat)
+    launches = fa.bwd_preprocess_launches
+    got = fa.bwd_preprocess_kernel(o, do)
+    again = fa.bwd_preprocess_kernel(o, do)
+    want = (do.float() * o.float()).sum(-1)
+    torch.cuda.synchronize()
+    assert fa.bwd_preprocess_launches == launches + 2
+    assert got.shape == (rows,) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    if off:
+        aligned = fa.bwd_preprocess_kernel(o.clone(), do.clone())
+        assert torch.equal(got, aligned)
 
 
 @pytest.mark.parametrize("entry", ["strela_flash_bwd_dkdv",

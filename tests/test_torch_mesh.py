@@ -113,3 +113,19 @@ def test_attention_on_a_mesh_equals_one_device(mesh, case, split):
     got = mesh["attention"][case]
     assert got["split"] == split
     assert got["out"] < 1e-5 and got["grads"] < 1e-5, got
+
+
+def test_compat_make_mesh_defaults_to_the_card():
+    """``compat_make_mesh`` builds its mesh on the card unless the caller
+    asks for the CPU, as ``make_production_mesh`` and ``make_local_mesh``
+    do; the CPU callers among the mesh jobs name ``"cpu"`` themselves."""
+    import inspect
+
+    from repro_torch.launch import mesh as M
+    for fn, arg in ((M.compat_make_mesh, "device_type"),
+                    (M.make_production_mesh, "device_type"),
+                    (M.make_local_mesh, "device")):
+        assert inspect.signature(fn).parameters[arg].default == "cuda"
+    calls = [line for line in inspect.getsource(W).splitlines()
+             if "compat_make_mesh((" in line]
+    assert len(calls) == 2 and all('), "cpu")' in c for c in calls)

@@ -368,7 +368,7 @@ def mesh_four_ranks(rank: int, world: int, directory: str) -> None:
     from repro_torch.runtime.fault_tolerance import elastic_remesh
     tree = {"w": np.arange(16, dtype=np.float32).reshape(4, 4),
             "none": None}
-    out = elastic_remesh(tree, compat_make_mesh((1,), ("data",)),
+    out = elastic_remesh(tree, compat_make_mesh((1,), ("data",), "cpu"),
                          {"w": PT.P("data", None), "none": PT.P()})
     roundtrip = (out["none"] is None
                  and np.array_equal(out["w"].full_tensor().numpy(),
@@ -405,7 +405,7 @@ def pipeline_four_stages(rank: int, world: int, directory: str) -> None:
                                                      params["b"], x])
     _group(rank, world, directory, "pipe")
     params, x = inputs()
-    with PT.use_mesh(compat_make_mesh((4,), ("pod",))):
+    with PT.use_mesh(compat_make_mesh((4,), ("pod",), "cpu")):
         piped = pipeline_forward(layer_fn, params, x, n_microbatches=6)
         gp = torch.autograd.grad((piped ** 2).mean(), [params["w"],
                                                         params["b"], x])
