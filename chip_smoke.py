@@ -180,9 +180,20 @@ and its checkpoint bit-equal to the uninterrupted run's; (c) meshes
 larger than one as 4 ``gloo`` ranks on the CPU (the machine has one
 card): the reduced trainer on (2, 2) against (1, 1), the expert-parallel
 MoE against its global path and no mesh, and the 4-stage pipeline
-against the serial loop. Phases 5, 11, 12, 13, 14, 15, 16, 17, 18 and 19
-set the counts to 0 before their runs and read them after, and allow no
-plain call, fold or failed lane grid there.
+against the serial loop; (20) the dry run and the roofline against the
+card: (a) ``launch.dryrun.trace_cell`` of phase 18's cell (minicpm-2b,
+batch 4 x 512, one device) under ``FakeTensorMode`` on the card, its
+FLOPs, bytes, roofline terms on the H100's data-sheet peaks and predicted
+peak beside phase 18's measured s/step, peak and MFU; (b) the same step
+for real under ``roofline.op_costs.OpCosts``: FLOPs equal to (a)'s, 40
+``strela::flash_fwd`` and 40 ``strela::flash_bwd`` calls, no plain call,
+the loss bit-equal to phase 18's first, the tracker's peak within 20% of
+``torch.cuda.max_memory_allocated``; (c) ``python -m
+repro_torch.launch.dryrun --arch minicpm-2b --shape train_4k`` (16 x 16 on
+torch's fake process group) as a subprocess: exit 0, status ok. Phases 5,
+11, 12, 13, 14, 15, 16, 17, 18, 19 and 20 set the counts to 0 before
+their runs and read them after, and allow no plain call, fold or failed
+lane grid there.
 It exits non-zero, printing no result line, when there is no CUDA
 device, when the port is missing, or when any phase fails. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -3938,6 +3949,149 @@ def mesh_cpu_worker(rank, world, tmp):
                             "grads": [e[1] for e in every]}}, f)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the dry run and the roofline against the card
+# ---------------------------------------------------------------------------
+
+DRY_TIMEOUT = 300.0              # s, for (c)'s subprocess
+DRY_MEM_TOL = 0.20               # the tracker's peak against the allocator's
+
+
+def phase_dryrun(device, phase18):
+    """Phase 20: (a) the dry run (``launch.dryrun.trace_cell``) of phase
+    18's cell, minicpm-2b at full width, batch 4 x 512, one device and no
+    mesh, under ``FakeTensorMode`` on the card: FLOPs, bytes, the roofline
+    terms on the H100's data-sheet peaks and the predicted peak memory,
+    beside phase 18's measured s/step and peak and the MFU; (b) the same
+    step run for real on the card under ``OpCosts``: its FLOPs equal to
+    (a)'s, 40 ``strela::flash_fwd`` and 40 ``strela::flash_bwd`` calls and
+    no plain call, the loss bit-equal to phase 18's first, the tracker's
+    peak within 20% of ``torch.cuda.max_memory_allocated``; (c) ``python -m
+    repro_torch.launch.dryrun --arch minicpm-2b --shape train_4k`` (16 x 16
+    on torch's fake process group) as a subprocess: exit 0, status ok."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeCfg, get_arch
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.roofline import analysis as RA
+    from repro_torch.roofline.op_costs import OpCosts
+    card = nvidia_smi()
+    cfg = get_arch(TRAIN_ARCH)
+    shape = ShapeCfg("phase18", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    # (a) the dry run of phase 18's cell: nothing materialises
+    fa.launches = fa.plain_calls = fa.backward_plain_calls = 0
+    t = dryrun.trace_cell(cfg, shape, None, device.type)
+    fake = t["costs"]
+    check(fa.launches == fa.plain_calls == fa.backward_plain_calls == 0,
+          f"dry run (a): a fake step reached a kernel or a plain version "
+          f"(launches {fa.launches}, plain {fa.plain_calls}, backward plain "
+          f"{fa.backward_plain_calls})")
+    mf = RA.model_flops_train(t["n_params_active"], tokens)
+    rl = RA.roofline_from_costs(fake.flops(), fake.hbm_bytes(),
+                                sum(fake.collective_bytes().values()), 1, mf)
+    s_step, peak18 = phase18["s_per_step"], phase18["peak_gib"]
+    print(f"[dryrun] (a) trace_cell {TRAIN_ARCH} full width, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, one device, FakeTensorMode on "
+          f"{device.type} (modelled on the H100 SXM data sheet: "
+          f"{RA.PEAK_FLOPS:.4g} FLOP/s bf16, {RA.HBM_BW:.4g} B/s): flops "
+          f"{rl.flops:.6e}, hbm bytes {rl.hbm_bytes:.6e}, compute_s "
+          f"{rl.compute_s:.6f}, memory_s {rl.memory_s:.6f}, bottleneck "
+          f"{rl.bottleneck}, model_flops (6 N_active tokens, N_active "
+          f"{t['n_params_active']:.0f}) {mf:.6e} (useful fraction "
+          f"{rl.useful_fraction():.4f}), predicted peak "
+          f"{fake.peak_bytes / 2 ** 30:.2f} GiB (arguments "
+          f"{fake.argument_bytes / 2 ** 30:.2f}), trace {t['trace_s']} s; "
+          f"flash calls {fake.calls['strela::flash_fwd']} fwd, "
+          f"{fake.calls['strela::flash_bwd']} bwd")
+    print(f"[dryrun] (a) against phase 18 measured on {card}: "
+          f"{s_step:.4f} s/step (roofline step {rl.step_time_s:.6f} s, "
+          f"measured / roofline {s_step / rl.step_time_s:.3f}), MFU "
+          f"model_flops / (s_step x {RA.PEAK_FLOPS:.4g}) "
+          f"{mf / (s_step * RA.PEAK_FLOPS):.4f}; peak {peak18:.2f} GiB "
+          f"measured, {fake.peak_bytes / 2 ** 30:.2f} GiB predicted")
+
+    # (b) the same step for real on the card, under OpCosts
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()     # what earlier phases hold
+    api = build_model(cfg)
+    params = api.init_params(torch.Generator(device).manual_seed(SEED))
+    opt = AdamW(lr=cosine_schedule(3e-4, 100, 10000))
+    opt_state = opt.init(list(params.parameters()))
+    pipe = TokenPipeline(DataCfg(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH,
+                                 seed=SEED))
+    batch = train.make_batch(cfg, pipe, 0, TRAIN_BATCH, device)
+    step = dryrun.make_train_step(api, opt)
+    fa.launches = fa.plain_calls = fa.backward_plain_calls = 0
+    fa.bwd_preprocess_launches = fa.bwd_dkdv_launches = \
+        fa.bwd_dq_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with OpCosts({"params": params, "opt_state": opt_state,
+                  "batch": batch}) as real:
+        _, opt_state, metrics = step(params, opt_state, batch)
+        loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    alloc = torch.cuda.max_memory_allocated() - before
+    calls = (real.calls["strela::flash_fwd"], real.calls["strela::flash_bwd"])
+    launches = (fa.launches, fa.bwd_preprocess_launches,
+                fa.bwd_dkdv_launches, fa.bwd_dq_launches)
+    plain = (fa.plain_calls, fa.backward_plain_calls)
+    check(real.flops() == fake.flops(),
+          f"dry run (b): the real step counts {real.flops():.6e} FLOPs, the "
+          f"fake one {fake.flops():.6e}")
+    check(calls == (cfg.n_layers, cfg.n_layers) and plain == (0, 0)
+          and launches == (cfg.n_layers,) * 4,
+          f"dry run (b): flash operator calls {calls}, launches {launches} "
+          f"(want {cfg.n_layers} each), plain calls {plain} (want 0)")
+    check(loss == phase18["losses"][0],
+          f"dry run (b): loss {loss!r} against phase 18's first "
+          f"{phase18['losses'][0]!r}")
+    ratio = real.peak_bytes / alloc
+    check(abs(ratio - 1) <= DRY_MEM_TOL,
+          f"dry run (b): the tracker's peak {real.peak_bytes} bytes against "
+          f"max_memory_allocated {alloc} (ratio {ratio:.4f}, limit 1 +- "
+          f"{DRY_MEM_TOL})")
+    print(f"[dryrun] (b) the same step for real on {card} under OpCosts: "
+          f"flops {real.flops():.6e} (equal to (a)'s), hbm bytes "
+          f"{real.hbm_bytes():.6e} ((a) {fake.hbm_bytes():.6e}), "
+          f"strela::flash_fwd {calls[0]} and strela::flash_bwd {calls[1]} "
+          f"calls, kernel launches {launches}, plain calls {plain}; loss "
+          f"{loss!r} (phase 18's first {phase18['losses'][0]!r}); tracker "
+          f"peak {real.peak_bytes / 2 ** 30:.4f} GiB against "
+          f"max_memory_allocated {alloc / 2 ** 30:.4f} GiB (less the "
+          f"{before / 2 ** 30:.4f} GiB earlier phases hold; ratio "
+          f"{ratio:.4f}, limit 1 +- {DRY_MEM_TOL}); wall {wall:.2f} s "
+          f"with the tracker on")
+    del params, opt_state, batch, real, metrics
+    torch.cuda.empty_cache()
+
+    # (c) the production cell as a user runs it
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         TRAIN_ARCH, "--shape", "train_4k"], capture_output=True, text=True,
+        timeout=DRY_TIMEOUT, env=env, cwd=ROOT)
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("[dryrun]")]
+    check(out.returncode == 0 and any(": ok (" in ln for ln in lines),
+          f"dry run (c): exit {out.returncode}, {lines}, stderr "
+          f"{out.stderr[-2000:]}")
+    print(f"[dryrun] (c) python -m repro_torch.launch.dryrun --arch "
+          f"{TRAIN_ARCH} --shape train_4k (16 x 16, torch "
+          f"{torch.__version__}, fake process group, modelled): exit "
+          f"{out.returncode} in {time.perf_counter() - t0:.1f} s: "
+          + " | ".join(lines))
+
+
 def nvidia_smi() -> str:
     try:
         out = subprocess.run(
@@ -3999,6 +4153,7 @@ def main() -> int:
     mesh_launches = phase_mesh(device, train18)
     for k, n in mesh_launches.items():
         train_launches[k] += n
+    phase_dryrun(device, train18)
 
     from repro_torch.bench_kernels import ROTATE
     main_rows = {"fabric_reduce_lanes": (

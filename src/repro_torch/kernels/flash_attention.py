@@ -56,12 +56,26 @@ tensors on the CPU, and only there: a CUDA tensor launches the kernels or
 raises. ``launches`` counts forward launches, ``bwd_*_launches`` each
 backward kernel's, ``plain_calls`` and ``backward_plain_calls`` calls of
 the plain versions.
+
+The dispatcher knows the kernels as three operators (``torch.library``):
+``strela::flash_fwd(q, k, v, causal) -> (o, lse)`` and
+``strela::flash_bwd(q, k, v, o, lse, dout, causal) -> (dq, dk, dv)``,
+which :class:`FlashAttentionFn` calls, and ``strela::flash_attn(q, k, v,
+causal) -> o``, the forward without lse that :func:`flash_attention`
+calls without a gradient. Each has the kernel's launch as its CUDA
+implementation, the plain version as its CPU one, and a fake one that
+gives shapes and dtypes only (``o`` like ``q``, ``lse`` float32 ``(h,
+sq)``), so ``FakeTensorMode`` (the dry run) runs through them without
+touching a pointer; ``torch.utils.flop_counter`` counts them with SDPA's
+formulas: 4 bh sq sk d forward, 10 bh sq sk d backward, no causal
+discount. There is no fallback: a launch that fails raises.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, ref
 
@@ -292,21 +306,86 @@ def attention_backward_plain(q, k, v, o, lse, do, causal: bool = True
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# ---------------------------------------------------------------------------
+# the kernels as operators the dispatcher knows
+# ---------------------------------------------------------------------------
+
+_lib = torch.library.Library("strela", "DEF")
+_lib.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal) "
+            "-> (Tensor, Tensor)")
+_lib.define("flash_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, "
+            "Tensor dout, bool causal) -> (Tensor, Tensor, Tensor)")
+_lib.define("flash_attn(Tensor q, Tensor k, Tensor v, bool causal) "
+            "-> Tensor")
+
+
+def _fwd_plain(q, k, v, causal):
+    global plain_calls
+    _check(q, k, v, causal)
+    plain_calls += 1
+    return ref.flash_attention_lse(q, k, v, causal)
+
+
+_lib.impl("flash_fwd", attention_lse_kernel, "CUDA")
+_lib.impl("flash_fwd", _fwd_plain, "CPU")
+_lib.impl("flash_bwd", attention_backward_kernel, "CUDA")
+_lib.impl("flash_bwd", attention_backward_plain, "CPU")
+_lib.impl("flash_attn", attention_kernel, "CUDA")
+_lib.impl("flash_attn", attention_plain, "CPU")
+
+
+@torch.library.register_fake("strela::flash_fwd", lib=_lib)
+def _fwd_fake(q, k, v, causal):
+    _check(q, k, v, causal)
+    return (torch.empty_like(q), q.new_empty(q.shape[:2],
+                                             dtype=torch.float32))
+
+
+@torch.library.register_fake("strela::flash_bwd", lib=_lib)
+def _bwd_fake(q, k, v, o, lse, dout, causal):
+    _check(q, k, v, causal)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@torch.library.register_fake("strela::flash_attn", lib=_lib)
+def _attn_fake(q, k, v, causal):
+    _check(q, k, v, causal)
+    return torch.empty_like(q)
+
+
+def _pairs(q_shape, k_shape) -> int:
+    """bh * sq * sk * d: every product's work, with no causal discount
+    (``torch.utils.flop_counter`` counts SDPA so)."""
+    h, sq, d = q_shape
+    return h * sq * k_shape[1] * d
+
+
+@register_flop_formula(torch.ops.strela.flash_fwd)
+def _fwd_flop(q, k, v, causal, out_shape=None, **kwargs) -> int:
+    return 4 * _pairs(q, k)             # S = QK^T and O = PV
+
+
+@register_flop_formula(torch.ops.strela.flash_attn)
+def _attn_flop(q, k, v, causal, out_shape=None, **kwargs) -> int:
+    return 4 * _pairs(q, k)
+
+
+@register_flop_formula(torch.ops.strela.flash_bwd)
+def _bwd_flop(q, k, v, o, lse, dout, causal, out_shape=None,
+              **kwargs) -> int:
+    return 10 * _pairs(q, k)            # S again, dP, dV, dQ and dK
+
+
 class FlashAttentionFn(torch.autograd.Function):
-    """Attention with a gradient: the forward kernel with its log-sum-exp,
-    and the three backward kernels, for CUDA tensors; the plain versions
-    (``ref.flash_attention_lse``, ``ref.flash_attention_backward``) for CPU
-    tensors, and only there. Saves q, k, v, o and lse."""
+    """Attention with a gradient through ``strela::flash_fwd`` (the
+    forward kernel with its log-sum-exp) and ``strela::flash_bwd`` (the
+    three backward kernels) for CUDA tensors, their plain versions
+    (``ref.flash_attention_lse``, ``ref.flash_attention_backward``) for
+    CPU tensors, and only there. Saves q, k, v, o and lse."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
-        global plain_calls
-        if q.device.type == "cpu":
-            _check(q, k, v, causal)
-            plain_calls += 1
-            o, lse = ref.flash_attention_lse(q, k, v, causal)
-        else:
-            o, lse = attention_lse_kernel(q, k, v, causal)
+        o, lse = torch.ops.strela.flash_fwd(q, k, v, causal)
         ctx.causal = causal
         ctx.save_for_backward(q, k, v, o, lse)
         return o
@@ -315,19 +394,17 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()             # autograd may hand a strided view
-        back = (attention_backward_plain if q.device.type == "cpu"
-                else attention_backward_kernel)
-        dq, dk, dv = back(q, k, v, o, lse, do, ctx.causal)
+        dq, dk, dv = torch.ops.strela.flash_bwd(q, k, v, o, lse, do,
+                                                ctx.causal)
         return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Attention on the tensors' device: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors; through :class:`FlashAttentionFn`
-    when grad mode is on and an input requires a gradient."""
+    the plain version for CPU tensors, as ``strela::flash_attn``; through
+    :class:`FlashAttentionFn` when grad mode is on and an input requires
+    a gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, causal)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal)
-    return attention_kernel(q, k, v, causal)
+    return torch.ops.strela.flash_attn(q, k, v, causal)

@@ -17,8 +17,9 @@
     cross-attention and a tied head (``EncoderLayer``, ``DecoderLayer``,
     ``EncDec``, ``encode``, ``decode``, ``init_caches``)
   * ``api`` — ``build_model(cfg)`` -> ``ModelAPI`` (``init_params``,
-    ``loss``, ``prefill``, ``decode_step``) for every family: dense, moe,
-    vlm, ssm, hybrid and audio
+    ``loss``, ``prefill``, ``decode_step``, and for the dry run
+    ``input_specs``/``state_specs``) for every family: dense, moe, vlm,
+    ssm, hybrid and audio
 """
 from repro_torch.models.api import ModelAPI, build_model
 

@@ -14,18 +14,22 @@ and for ``prefill`` an optional ``max_len`` (the transformer's caches;
 ssm, hybrid and audio ignore it, as the reference does). The audio family
 (whisper) adds ``frames (B, T, D)``, the stub conv frontend's output, to
 ``loss`` and ``prefill``; its decode state is ``(enc_out, caches)``.
-``cache_len`` is a Python int; ``decode_step`` takes tokens only. The
-reference's ``input_specs``/``state_specs`` serve its multi-pod dry run
-and come with ``launch/dryrun``.
+``cache_len`` is a Python int; ``decode_step`` takes tokens only.
+
+``input_specs(shape)`` / ``state_specs(shape)`` give a ``ShapeCfg``'s
+batch and decode state as ``device="meta"`` tensors (no allocation) with
+the reference's shapes and dtypes: tokens and targets int32, a vlm's
+patches and whisper's frames in the config's dtype, KV caches ``(L, B,
+S, n_kv, hd)`` in the config's dtype. ``launch/dryrun`` places them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCfg
 from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.layers import mask_padded_vocab, xent_loss
 
@@ -37,6 +41,43 @@ class ModelAPI:
     loss: Callable                       # (params, batch) -> (loss, aux)
     prefill: Callable                    # (params, batch) -> (logits, state)
     decode_step: Callable                # (params, state, tokens, cache_len)
+    input_specs: Optional[Callable] = None   # (ShapeCfg) -> batch specs
+    state_specs: Optional[Callable] = None   # (ShapeCfg) -> state specs
+
+
+I32 = torch.int32
+
+
+def _sds(shape, dtype) -> torch.Tensor:
+    """A shape and dtype, allocated nowhere (the reference's
+    ``ShapeDtypeStruct``)."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _token_specs(shape: ShapeCfg, seq: int) -> Dict[str, torch.Tensor]:
+    """tokens and, for a train shape, targets: ``(B, seq)``, or ``(B,
+    1)`` for a decode shape."""
+    B = shape.global_batch
+    if shape.kind == "train":
+        return {"tokens": _sds((B, seq), I32), "targets": _sds((B, seq), I32)}
+    if shape.kind == "prefill":
+        return {"tokens": _sds((B, seq), I32)}
+    return {"tokens": _sds((B, 1), I32)}
+
+
+def _ssm_state_specs(cfg: ArchConfig, B: int) -> Tuple[torch.Tensor, ...]:
+    """The conv and SSM states ``(L, B, d_conv - 1, convd)`` in the
+    config's dtype and ``(L, B, H, head_dim, N)`` in float32."""
+    _, H, convd, N = ssm.dims(cfg)
+    return (_sds((cfg.n_layers, B, cfg.ssm.d_conv - 1, convd),
+                 cfg.torch_dtype),
+            _sds((cfg.n_layers, B, H, cfg.ssm.head_dim, N), torch.float32))
+
+
+def _kv_specs(cfg: ArchConfig, n: int, B: int, S: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    sh = (n, B, S, cfg.n_kv_heads, cfg.hd)
+    return _sds(sh, cfg.torch_dtype), _sds(sh, cfg.torch_dtype)
 
 
 def build_model(cfg: ArchConfig) -> ModelAPI:
@@ -81,8 +122,19 @@ def _build_transformer(cfg: ArchConfig) -> ModelAPI:
             params, cfg, tokens, caches=state, cache_len=cache_len)
         return mask_padded_vocab(logits[:, -1], cfg.vocab), state
 
+    def input_specs(shape: ShapeCfg):
+        d = _token_specs(shape, shape.seq_len - Pn)
+        if cfg.family == "vlm" and shape.kind != "decode":
+            d["patches"] = _sds((shape.global_batch, Pn, cfg.d_model),
+                                cfg.torch_dtype)
+        return d
+
+    def state_specs(shape: ShapeCfg):
+        return _kv_specs(cfg, cfg.n_layers, shape.global_batch,
+                         shape.seq_len)
+
     return ModelAPI(cfg, lambda gen: transformer.init_params(gen, cfg),
-                    loss, prefill, decode_step)
+                    loss, prefill, decode_step, input_specs, state_specs)
 
 
 def _build_ssm(cfg: ArchConfig) -> ModelAPI:
@@ -104,8 +156,13 @@ def _build_ssm(cfg: ArchConfig) -> ModelAPI:
         logits, state, _ = ssm.lm_forward(params, cfg, tokens, states=state)
         return mask_padded_vocab(logits[:, -1], cfg.vocab), state
 
+    def state_specs(shape: ShapeCfg):
+        return _ssm_state_specs(cfg, shape.global_batch)
+
     return ModelAPI(cfg, lambda gen: ssm.init_lm(gen, cfg), loss, prefill,
-                    decode_step)
+                    decode_step, lambda shape: _token_specs(shape,
+                                                            shape.seq_len),
+                    state_specs)
 
 
 def _build_hybrid(cfg: ArchConfig) -> ModelAPI:
@@ -130,8 +187,15 @@ def _build_hybrid(cfg: ArchConfig) -> ModelAPI:
                                           caches=caches, cache_len=cache_len)
         return mask_padded_vocab(logits[:, -1], cfg.vocab), state
 
+    def state_specs(shape: ShapeCfg):
+        B = shape.global_batch
+        return (_ssm_state_specs(cfg, B),
+                _kv_specs(cfg, hybrid.n_shared_sites(cfg), B, shape.seq_len))
+
     return ModelAPI(cfg, lambda gen: hybrid.init_params(gen, cfg), loss,
-                    prefill, decode_step)
+                    prefill, decode_step,
+                    lambda shape: _token_specs(shape, shape.seq_len),
+                    state_specs)
 
 
 def _build_encdec(cfg: ArchConfig) -> ModelAPI:
@@ -161,5 +225,19 @@ def _build_encdec(cfg: ArchConfig) -> ModelAPI:
                                           caches, cache_len)
         return mask_padded_vocab(logits[:, -1], cfg.vocab), (enc_out, caches)
 
+    T = cfg.encdec.enc_len
+
+    def input_specs(shape: ShapeCfg):
+        d = _token_specs(shape, shape.seq_len)
+        if shape.kind != "decode":
+            d["frames"] = _sds((shape.global_batch, T, cfg.d_model),
+                               cfg.torch_dtype)
+        return d
+
+    def state_specs(shape: ShapeCfg):
+        B = shape.global_batch
+        return (_sds((B, T, cfg.d_model), cfg.torch_dtype),
+                _kv_specs(cfg, cfg.n_layers, B, shape.seq_len))
+
     return ModelAPI(cfg, lambda gen: encdec.init_params(gen, cfg), loss,
-                    prefill, decode_step)
+                    prefill, decode_step, input_specs, state_specs)

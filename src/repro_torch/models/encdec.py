@@ -175,7 +175,9 @@ class EncDec(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[Caches], torch.Tensor]:
         """The decoder: (logits, caches, aux = 0). ``caches`` are the
         stacked (L, B, S_max, n_kv, hd) k and v, updated in place at
-        ``cache_len``; None runs the tokens given causally."""
+        ``cache_len``; None runs the tokens given causally. On a mesh
+        ``enc_out`` may be a DTensor of this rank's rows."""
+        enc_out = tp.local(enc_out)
         B, S = tokens.shape
         end = cache_len + S
         if cache_len < 0 or end > self.pos_embed.shape[0]:
@@ -253,5 +255,4 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     """Zeroed (n_layers, B, max_len, n_kv, hd) k and v caches in the
     config's dtype."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return (torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-            torch.zeros(shape, dtype=cfg.torch_dtype, device=device))
+    return tp.kv_cache_zeros(cfg, shape, cfg.torch_dtype, device)

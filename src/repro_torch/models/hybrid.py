@@ -148,5 +148,4 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     k and v caches in the config's dtype."""
     shape = (n_shared_sites(cfg), batch, max_len, cfg.n_kv_heads, cfg.hd)
     return (S.init_lm_states(cfg, batch, device),
-            (torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-             torch.zeros(shape, dtype=cfg.torch_dtype, device=device)))
+            tp.kv_cache_zeros(cfg, shape, cfg.torch_dtype, device))

@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.runtime import tp
@@ -146,13 +147,11 @@ def head_layout(n_heads: int, seq: int, divisible_only: bool = False
     """Every 'model' rank's (head range, query-row range or None). Heads
     split when ``n_heads % msize == 0 or n_heads >= msize`` (the second
     test dropped with ``divisible_only``, as whisper's cross-attention),
-    else every rank takes all heads and its rows of the query sequence."""
+    else every rank takes all heads and its rows of the query sequence
+    (with fewer rows than ranks, the last ranks take none)."""
     _, m = tp.model_split()
     if n_heads % m == 0 or (n_heads >= m and not divisible_only):
         return tp.ranges(n_heads, m), None
-    if seq < m:
-        raise ValueError(f"attention: {n_heads} heads and {seq} query rows "
-                         f"cannot split over a model axis of {m}")
     return [(0, n_heads)] * m, tp.ranges(seq, m)
 
 
@@ -208,15 +207,21 @@ def attention(p: Params, cfg: AttnCfg, x: torch.Tensor,
     (in place; the reference returns updated copies) and attention runs
     over their first ``cache_len + s`` positions. On a mesh each 'model'
     rank computes its heads (or query rows) and the ranks' out-projections
-    are summed; decode on a mesh raises."""
+    are summed; there the caches are DTensors placed by
+    ``partition.kv_cache_spec``: each rank computes k and v for every kv
+    head, writes its shard of them, and gathers the caches whole (bar the
+    batch rows) for its heads."""
     b, s, _ = x.shape
     r, m = tp.model_split()
-    if kv_cache is not None and m > 1:
-        raise ValueError("attention: decode with KV caches on a model axis "
-                         "is not ported")
     hd, group = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
     heads, rows = head_layout(cfg.n_heads, s)
     kvs = _kv_bounds(heads, group)
+    placed = kv_cache is not None and isinstance(kv_cache[0], DTensor)
+    if kv_cache is not None and m > 1 and not placed:
+        raise ValueError("attention: KV caches on a model axis must be "
+                         "DTensors placed by partition.kv_cache_spec")
+    if placed:      # every kv head: the caches' shards need them all
+        kvs = [(0, cfg.n_kv_heads)] * m
     xin = tp.enter_model(x)
     q = xin @ tp.part(p["wq"], 1, _scaled(heads, hd))
     k = xin @ tp.part(p["wk"], 1, _scaled(kvs, hd))
@@ -236,9 +241,11 @@ def attention(p: Params, cfg: AttnCfg, x: torch.Tensor,
         if cache_len < 0 or end > ck.shape[1]:
             raise ValueError(f"attention: positions {cache_len}..{end} do "
                              f"not fit a cache of {ck.shape[1]}")
-        ck[:, cache_len:end] = k.to(ck.dtype)
-        cv[:, cache_len:end] = v.to(cv.dtype)
-        k, v = ck[:, :end], cv[:, :end]
+        # placed caches: this rank's shard of the new positions, then the
+        # caches gathered whole (bar the batch) for its heads
+        tp.state_write(ck, k, cache_len, 1)
+        tp.state_write(cv, v, cache_len, 1)
+        k, v = tp.state_whole(ck)[:, :end], tp.state_whole(cv)[:, :end]
         new_cache = (ck, cv)
     else:
         new_cache = None
@@ -252,7 +259,8 @@ def attention(p: Params, cfg: AttnCfg, x: torch.Tensor,
     if row is not None:
         q = q[:, row[0]:row[1]]
         if cfg.causal:
-            k, v = k[:, :row[1]], v[:, :row[1]]
+            n = k.shape[1] - s + row[1]
+            k, v = k[:, :n], v[:, :n]
     out = _attend(q, k, v, heads[r], klo, group, cfg.causal).to(x.dtype)
     out = out @ tp.part(p["wo"], 0, _scaled(heads, hd))
     return tp.leave_model(_rows_out(out, row, s)), new_cache

@@ -35,7 +35,9 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.runtime import partition as PT
 from repro_torch.runtime import tp
+from repro_torch.runtime.partition import current_mesh
 
 F32 = torch.float32
 State = Tuple[torch.Tensor, torch.Tensor]     # (conv state, ssm state)
@@ -192,8 +194,11 @@ def ssm_forward(p, cfg: ArchConfig, x: torch.Tensor,
     B, S, _ = x.shape
     p = {k: tp.whole(v) for k, v in p.items()}
     z, xBC, dt = _split_proj(cfg, x @ p["in_proj"])
+    # on a mesh the layer runs whole: a placed state is gathered, and
+    # each rank writes back its shard
+    whole = None if state is None else tuple(map(tp.state_whole, state))
     xBC, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"],
-                                   None if state is None else state[0])
+                                   None if state is None else whole[0])
     xs, Bc, Cc = torch.tensor_split(xBC, [dI, dI + s.n_groups * N], dim=-1)
     xs = xs.reshape(B, S, H, s.head_dim)
     # groups broadcast to heads as jnp.repeat does: each group rep times
@@ -206,9 +211,9 @@ def ssm_forward(p, cfg: ArchConfig, x: torch.Tensor,
         y, h = _chunked_ssd(xs, Bh, Ch, dt, dA, s.chunk)
         new_state = (conv_state, h)
     else:
-        y, h = _decode_scan(state[1], dt, dA, xs, Bh, Ch)
-        state[0].copy_(conv_state)
-        state[1].copy_(h)
+        y, h = _decode_scan(whole[1], dt, dA, xs, Bh, Ch)
+        tp.state_write(state[0], conv_state)
+        tp.state_write(state[1], h)
         new_state = state
     y = _skip_and_gate(p, y, xs, z, x.dtype)
     return y @ p["out_proj"], new_state
@@ -226,7 +231,16 @@ def init_state(cfg: ArchConfig, batch: int, device="cuda") -> State:
 
 def init_lm_states(cfg: ArchConfig, batch: int, device="cuda") -> State:
     """The stacked decode states: (L, B, K-1, convd) in the config's dtype
-    and (L, B, H, P, N) in float32, zeroed."""
+    and (L, B, H, P, N) in float32, zeroed; on a mesh (``batch`` this
+    rank's rows) DTensors placed by ``partition.ssm_state_specs``."""
+    if current_mesh() is not None:
+        dI, H, convd, N = dims(cfg)
+        conv_spec, ssm_spec = PT.ssm_state_specs(tp.single_request(batch))
+        Lc, K = cfg.n_layers, cfg.ssm.d_conv
+        return (tp.state_zeros((Lc, batch, K - 1, convd), cfg.torch_dtype,
+                               device, conv_spec),
+                tp.state_zeros((Lc, batch, H, cfg.ssm.head_dim, N), F32,
+                               device, ssm_spec))
     conv, h = init_state(cfg, batch, device)
     Lc = cfg.n_layers
     return (conv[None].repeat(Lc, 1, 1, 1), h[None].repeat(Lc, 1, 1, 1, 1))

@@ -200,7 +200,8 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 device="cuda") -> Caches:
     """Zeroed (L, B, max_len, n_kv, hd) k and v caches. The dtype defaults
     to bfloat16 whatever the config's dtype, as in the reference, whose
-    callers pass none: k and v are rounded to it before attention."""
+    callers pass none: k and v are rounded to it before attention. On a
+    mesh (``batch`` this rank's rows) they are DTensors placed by
+    ``partition.kv_cache_spec``."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+    return tp.kv_cache_zeros(cfg, shape, dtype, device)

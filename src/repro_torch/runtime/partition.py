@@ -283,6 +283,30 @@ def batch_specs(batch_tree: Any, global_batch: int) -> Any:
     return _tree_map(spec, batch_tree)
 
 
+def kv_cache_spec(cfg, long_seq: bool) -> P:
+    """A (L_or_sites, B, S, n_kv, hd) cache's spec: kv heads over 'model'
+    when they divide, else head_dim over 'model' (row-parallel
+    attention); single-request long-context decode (``long_seq``) shards
+    the KV sequence over 'data' instead of the batch."""
+    b = None if long_seq else BATCH_AXES
+    seq = "data" if long_seq else None
+    if cfg.n_kv_heads % MESH_SIZES[MODEL] == 0:
+        return P(None, b, seq, MODEL, None)
+    return P(None, b, seq, None, MODEL)
+
+
+def ssm_state_specs(long_seq: bool) -> tuple:
+    """The stacked conv state (L, B, K-1, convd) and SSM state (L, B, H,
+    P, N) specs. Long-context single-request decode additionally shards
+    the SSM state's head-channel dim over 'data' (with batch=1 the data
+    axis is otherwise idle and every data row replicates the whole
+    recurrence)."""
+    b = None if long_seq else BATCH_AXES
+    return (P(None, b, None, MODEL),
+            P(None, b, MODEL, "data", None) if long_seq
+            else P(None, b, MODEL, None, None))
+
+
 def decode_state_specs(cfg, shape, state_tree: Any) -> Any:
     """Sharding specs for decode state (KV caches / SSM states).
 
@@ -293,21 +317,11 @@ def decode_state_specs(cfg, shape, state_tree: Any) -> Any:
     fam = cfg.family
     long_seq = shape.global_batch == 1
     b = None if long_seq else BATCH_AXES
-    msize = MESH_SIZES[MODEL]
-
-    def kv_spec(x):
-        # (L_or_sites, B, S, n_kv, hd): kv heads over 'model' when they
-        # divide, else head_dim over 'model' (row-parallel attention);
-        # single-request long-context shards the KV sequence over 'data'.
-        seq = "data" if long_seq else None
-        if cfg.n_kv_heads % msize == 0:
-            return P(None, b, seq, MODEL, None)
-        return P(None, b, seq, None, MODEL)
 
     def spec_leaf(x):
         nd = x.ndim
         if nd == 5 and fam in ("dense", "moe", "vlm", "audio", "hybrid"):
-            return kv_spec(x)
+            return kv_cache_spec(cfg, long_seq)
         if fam in ("ssm", "hybrid"):
             if nd == 4:            # conv state (L, B, K-1, convd)
                 return P(None, b, None, MODEL)
@@ -327,18 +341,11 @@ def decode_state_specs(cfg, shape, state_tree: Any) -> Any:
         return spec_leaf(t)
 
     # ssm states distinguish conv (nd=4) vs ssm (nd=5) — fix family quirk.
-    # Long-context single-request decode additionally shards the SSM state's
-    # head-channel dim over 'data' (with batch=1 the data axis is otherwise
-    # idle and every data row replicates the whole recurrence).
-    ssm_spec = (P(None, b, MODEL, "data", None) if long_seq
-                else P(None, b, MODEL, None, None))
     if fam == "ssm":
-        conv, ssm_st = state_tree
-        return (P(None, b, None, MODEL), ssm_spec)
+        return ssm_state_specs(long_seq)
     if fam == "hybrid":
-        (conv, ssm_st), (kc, vc) = state_tree
-        return ((P(None, b, None, MODEL), ssm_spec),
-                (kv_spec(kc), kv_spec(vc)))
+        return (ssm_state_specs(long_seq),
+                (kv_cache_spec(cfg, long_seq),) * 2)
     return walk(state_tree)
 
 

@@ -40,7 +40,8 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.runtime.partition import (BATCH_AXES, MODEL, P,
-                                          current_mesh, placements)
+                                          current_mesh, kv_cache_spec,
+                                          placements)
 
 
 def _axes(names: Sequence[str]) -> List[str]:
@@ -53,11 +54,16 @@ def _axes(names: Sequence[str]) -> List[str]:
             if a in names and n > 1]
 
 
-def _all_reduce(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+def _groups(axes: Sequence[str]) -> List:
+    """The process groups of the ambient mesh's ``axes``."""
     m = current_mesh()
+    return [m.get_group(a) for a in axes]
+
+
+def _all_reduce(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
     x = x.clone(memory_format=torch.contiguous_format)
-    for a in axes:
-        dist.all_reduce(x, group=m.get_group(a))
+    for g in groups:
+        dist.all_reduce(x, group=g)
     return x
 
 
@@ -66,7 +72,7 @@ class _ReduceForward(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, axes):
-        return _all_reduce(x, axes)
+        return _all_reduce(x, _groups(axes))
 
     @staticmethod
     def backward(ctx, dy):
@@ -74,16 +80,18 @@ class _ReduceForward(torch.autograd.Function):
 
 
 class _ReduceBackward(torch.autograd.Function):
-    """Identity forward, all-reduce (sum) of the gradient backward."""
+    """Identity forward, all-reduce (sum) of the gradient backward over
+    the groups the forward found (autograd runs a CUDA tensor's backward
+    on a device thread of its own, outside the ambient mesh)."""
 
     @staticmethod
     def forward(ctx, x, axes):
-        ctx.axes = axes
+        ctx.groups = _groups(axes)
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, dy):
-        return _all_reduce(dy, ctx.axes), None
+        return _all_reduce(dy, ctx.groups), None
 
 
 class _ScaleGrad(torch.autograd.Function):
@@ -277,3 +285,110 @@ def activations(x: torch.Tensor) -> torch.Tensor:
 def local(x: torch.Tensor) -> torch.Tensor:
     """The local tensor of a DTensor (a plain tensor as it is)."""
     return x.to_local() if isinstance(x, DTensor) else x
+
+
+# ---------------------------------------------------------------------------
+# decode state on a mesh (KV caches, SSM states)
+# ---------------------------------------------------------------------------
+
+def shard_box(shape: Sequence[int], mesh, pls: Sequence
+              ) -> Tuple[List[int], List[int]]:
+    """This rank's shard of a tensor of ``shape`` placed by ``pls`` on
+    ``mesh``: its local shape and its offset in the whole, cut as DTensor
+    cuts (``torch.chunk``, mesh dims in order)."""
+    size, off = list(shape), [0] * len(shape)
+    for i, pl in enumerate(pls):
+        if isinstance(pl, Shard):
+            n, r = mesh.size(i), mesh.get_local_rank(i)
+            c = -(-size[pl.dim] // n)
+            lo = min(r * c, size[pl.dim])
+            hi = min(lo + c, size[pl.dim])
+            off[pl.dim] += lo
+            size[pl.dim] = hi - lo
+    return size, off
+
+
+def contiguous_strides(shape: Sequence[int]) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (computed, so that
+    no tensor is made for them, not even a meta one a cost tracker would
+    see)."""
+    out, n = [], 1
+    for d in reversed(shape):
+        out.append(n)
+        n *= d
+    return tuple(reversed(out))
+
+
+def single_request(batch: int) -> bool:
+    """Whether ``batch`` rows on this rank make a global batch of one
+    (the long-context decode layout of ``partition.kv_cache_spec``)."""
+    return batch * batch_split()[1] == 1
+
+
+def state_zeros(shape: Sequence[int], dtype: torch.dtype, device,
+                spec: P, bdim: int = 1) -> torch.Tensor:
+    """Zeroed decode state of ``shape`` (this rank's batch rows at dim
+    ``bdim``): a plain tensor outside a mesh, else a DTensor placed by
+    ``spec`` from this rank's zeroed shard (the global batch is the rows
+    of every batch rank where ``spec`` shards it)."""
+    m = current_mesh()
+    if m is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    pl = placements(spec, m)
+    glob = list(shape)
+    if spec[bdim] is not None:
+        glob[bdim] *= batch_split()[1]
+    local, _ = shard_box(glob, m, pl)
+    return DTensor.from_local(
+        torch.zeros(local, dtype=dtype, device=device), m, pl,
+        run_check=False, shape=torch.Size(glob),
+        stride=contiguous_strides(glob))
+
+
+def kv_cache_zeros(cfg, shape: Sequence[int], dtype: torch.dtype, device
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed k and v caches of ``shape`` (L or sites, this rank's batch
+    rows, S, n_kv, hd): plain tensors outside a mesh, else DTensors placed
+    by ``partition.kv_cache_spec``."""
+    if current_mesh() is None:
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+    spec = kv_cache_spec(cfg, single_request(shape[1]))
+    return (state_zeros(shape, dtype, device, spec),
+            state_zeros(shape, dtype, device, spec))
+
+
+def state_whole(x: torch.Tensor) -> torch.Tensor:
+    """A layer's decode state (batch at dim 0) as this rank's rows, whole
+    along every other dim (gathered where its placements shard them); a
+    plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    keep = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in x.placements]
+    return x.redistribute(x.device_mesh, keep).to_local()
+
+
+def state_write(x: torch.Tensor, new: torch.Tensor, start: int = 0,
+                dim: int = -1) -> None:
+    """Write ``new`` (this rank's rows, whole along every other dim) into
+    a layer's decode state ``x`` in place, in ``x``'s dtype, at ``start``
+    along ``dim`` (the whole of ``x`` with ``dim`` -1): into this rank's
+    shard only for a DTensor."""
+    if not isinstance(x, DTensor):
+        (x if dim < 0 else x.narrow(dim, start, new.shape[dim])).copy_(new)
+        return
+    loc = x.to_local()
+    _, off = shard_box(x.shape, x.device_mesh, x.placements)
+    src, dst = new, loc
+    for d in range(1, loc.dim()):
+        if d == dim:                    # positions start .. start + n
+            a = max(start, off[d])
+            b = min(start + new.shape[d], off[d] + loc.shape[d])
+            if a >= b:
+                return
+            src = src.narrow(d, a - start, b - a)
+            dst = dst.narrow(d, a - off[d], b - a)
+        else:
+            src = src.narrow(d, off[d], loc.shape[d])
+    dst.copy_(src.to(dst.dtype))

@@ -1,8 +1,9 @@
 """The modules the port copies verbatim from the reference stay equal to
 it: the cycle model (``core/``), observability (``obs/``), the engine's
 artifact and clients, the multi-shot partitioner, the serving loop, the
-fleet's config and the synthetic data pipeline. A fix to the cycle model
-must be made in both copies; this test fails when it is made in one.
+fleet's config, the synthetic data pipeline and the dry run's report. A
+fix to the cycle model must be made in both copies; this test fails when
+it is made in one.
 
 Each module and its reference are parsed as text (nothing of ``repro`` is
 imported), ``repro`` is renamed ``repro_torch`` in the reference, the
@@ -27,7 +28,7 @@ COPIED = [f"core/{m}.py" for m in (
                             "report")] + [
     "engine/artifact.py", "engine/clients.py", "frontend/partition.py",
     "serve/clock.py", "serve/slo.py", "serve/health.py", "serve/loop.py",
-    "fleet/config.py", "data/pipeline.py"]
+    "fleet/config.py", "data/pipeline.py", "roofline/report.py"]
 IMPORT_ORDER_ONLY = {"serve/health.py"}
 RENAME = re.compile(r"\brepro\b(?!_)")
 
@@ -61,7 +62,7 @@ def _dump(tree, import_sets):
 
 
 def test_the_list_is_the_one_roadmap_names():
-    assert len(COPIED) == len(set(COPIED)) == 29
+    assert len(COPIED) == len(set(COPIED)) == 30
     for rel in COPIED:
         assert os.path.exists(os.path.join(REF, rel)), rel
         assert os.path.exists(os.path.join(PORT, rel)), rel

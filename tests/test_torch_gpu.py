@@ -1153,3 +1153,80 @@ def test_elastic_resume_on_one_nccl_rank_is_bit_equal(nccl_rank, tmp_path):
     blobs = [(tmp_path / d / "step_00000002" / "data.msgpack.zst"
               ).read_bytes() for d in ("a", "b")]
     assert blobs[0] == blobs[1]
+
+
+# ---------------------------------------------------------------------------
+# the flash kernels as registered operators, and the dry run's count
+# against a real step on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_flash_operators_equal_the_direct_launches_bit_for_bit(cuda, d,
+                                                              dtype, causal):
+    """``strela::flash_fwd``/``flash_bwd``/``flash_attn`` on CUDA tensors
+    launch the kernels the wrappers launch: o, lse, dq, dk, dv and the
+    serving output bit-equal, and each launch counted once."""
+    rng = np.random.default_rng(d)
+    q = torch.from_numpy(rng.standard_normal((6, 130, d)).astype(
+        np.float32)).to(cuda, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((6, 200, d)).astype(
+        np.float32)).to(cuda, dtype) for _ in range(2))
+    do = torch.from_numpy(rng.standard_normal((6, 130, d)).astype(
+        np.float32)).to(cuda, dtype)
+    o1, lse1 = fa.attention_lse_kernel(q, k, v, causal)
+    g1 = fa.attention_backward_kernel(q, k, v, o1, lse1, do, causal)
+    a1 = fa.attention_kernel(q, k, v, causal)
+    before = (fa.launches, fa.bwd_preprocess_launches, fa.bwd_dkdv_launches,
+              fa.bwd_dq_launches, fa.plain_calls, fa.backward_plain_calls)
+    o2, lse2 = torch.ops.strela.flash_fwd(q, k, v, causal)
+    g2 = torch.ops.strela.flash_bwd(q, k, v, o1, lse1, do, causal)
+    a2 = torch.ops.strela.flash_attn(q, k, v, causal)
+    with torch.no_grad():
+        a3 = fa.flash_attention(q, k, v, causal)
+    assert (fa.launches, fa.bwd_preprocess_launches, fa.bwd_dkdv_launches,
+            fa.bwd_dq_launches, fa.plain_calls, fa.backward_plain_calls) == (
+        before[0] + 3, before[1] + 1, before[2] + 1, before[3] + 1,
+        before[4], before[5])
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    for x, y in zip(g1, g2):
+        assert x.dtype == dtype and torch.equal(x, y)
+    assert torch.equal(a1, a2) and torch.equal(a1, a3)
+
+
+def test_dry_run_flops_equal_a_real_step_on_the_card(cuda):
+    """Phase 20 (b)'s equality at reduced size: the dry run's step under
+    ``FakeTensorMode`` on the card and the same step on real CUDA tensors
+    under ``OpCosts`` count the same FLOPs, through one
+    ``strela::flash_fwd`` and one ``flash_bwd`` a layer, the kernels
+    launched and no plain version run."""
+    from repro_torch.configs.base import ShapeCfg, get_arch
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.roofline.op_costs import OpCosts
+    cfg = get_arch("minicpm-2b").reduced()
+    fake = dryrun.trace_cell(cfg, ShapeCfg("t", 64, 4, "train"), None,
+                             "cuda")["costs"]
+    api = build_model(cfg)
+    params = api.init_params(torch.Generator(cuda).manual_seed(0))
+    opt = AdamW(lr=cosine_schedule(3e-4, 100, 10000))
+    state = opt.init(list(params.parameters()))
+    batch = train.make_batch(cfg, TokenPipeline(DataCfg(cfg.vocab, 64, 4)),
+                             0, 4, cuda)
+    before = (fa.launches, fa.bwd_dq_launches, fa.plain_calls,
+              fa.backward_plain_calls)
+    with OpCosts({"params": params, "state": state, "batch": batch}) as real:
+        _, _, metrics = dryrun.make_train_step(api, opt)(params, state, batch)
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    assert real.flops() == fake.flops() > 0
+    for c in (real, fake):
+        assert (c.calls["strela::flash_fwd"],
+                c.calls["strela::flash_bwd"]) == (n, n)
+    assert (fa.launches, fa.bwd_dq_launches, fa.plain_calls,
+            fa.backward_plain_calls) == (before[0] + n, before[1] + n,
+                                         before[2], before[3])
+    assert bool(torch.isfinite(metrics["loss"]))

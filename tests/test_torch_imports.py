@@ -39,7 +39,9 @@ def test_port_imports_neither_jax_nor_the_reference():
              "repro_torch.optim.grad_compress", "repro_torch.checkpoint.ckpt",
              "repro_torch.runtime.fault_tolerance",
              "repro_torch.launch.mesh", "repro_torch.runtime.partition",
-             "repro_torch.runtime.pipeline", "repro_torch.runtime.tp"]
+             "repro_torch.runtime.pipeline", "repro_torch.runtime.tp",
+             "repro_torch.launch.dryrun", "repro_torch.roofline.analysis",
+             "repro_torch.roofline.op_costs", "repro_torch.roofline.report"]
     for m in named:
         assert m in mods, m
         mods.remove(m)

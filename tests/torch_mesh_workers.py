@@ -417,3 +417,257 @@ def pipeline_four_stages(rank: int, world: int, directory: str) -> None:
     if rank == 0:
         _write(directory, "pipe", {"stages": every,
                                    "serial": serial.detach().tolist()})
+
+
+# ---------------------------------------------------------------------------
+# prefill and decode on a mesh (test_torch_mesh_decode.py)
+# ---------------------------------------------------------------------------
+
+DECODE_ARCHS = ("minicpm-2b", "granite-moe-3b-a800m", "internvl2-76b",
+                "mamba2-1.3b", "zamba2-2.7b", "whisper-base",
+                "minicpm-2b-one-head")
+DECODE_B, DECODE_S, DECODE_STEPS = 4, 16, 3
+
+
+def _decode_run(api, cfg, params, rows: slice, single=None):
+    """Prefill of ``rows`` of a fixed prompt batch (whisper: its encoder,
+    and the prompt decoded into caches 3 positions longer), then 3 decode
+    steps of fixed tokens: every step's logits. ``single``, a decode
+    state for one request, skips the prefill."""
+    from repro_torch.models import encdec
+    g = torch.Generator().manual_seed(1)
+    B, S, n = DECODE_B, DECODE_S, DECODE_STEPS
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=g,
+                         dtype=torch.int32)
+    nxt = torch.randint(0, cfg.vocab, (B, n), generator=g,
+                        dtype=torch.int32)
+    extra = torch.randn((B, max(cfg.n_patches, 1), cfg.d_model),
+                        generator=g)
+    frames = (torch.randn((B, cfg.encdec.enc_len, cfg.d_model),
+                          generator=g) if cfg.encdec else None)
+    toks, nxt, extra = toks[rows], nxt[rows], extra[rows]
+    out, start = [], S
+    with torch.no_grad():
+        if single is not None:
+            state = single
+        elif cfg.family == "audio":
+            enc = encdec.encode(params, cfg, frames[rows])
+            caches = encdec.init_caches(cfg, toks.shape[0], S + n,
+                                        device="cpu")
+            logits, state = api.decode_step(params, (enc, caches), toks, 0)
+            out.append(logits)
+        else:
+            batch = {"tokens": toks, "max_len": S + n
+                     + (cfg.n_patches if cfg.family == "vlm" else 0)}
+            if cfg.family == "vlm":
+                batch["patches"] = extra
+                start += cfg.n_patches
+            logits, state = api.prefill(params, batch)
+            out.append(logits)
+        for t in range(n):
+            logits, state = api.decode_step(params, state, nxt[:, t:t + 1],
+                                            start + t)
+            out.append(logits)
+    return out, state
+
+
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def decode_four_ranks(rank: int, world: int, directory: str) -> None:
+    """On a (2, 2) mesh, for one reduced float32 arch of each family (the
+    MoE on its global path) and minicpm-2b with one head (attention split
+    by query rows):
+    prefill and 3 decode steps of this rank's rows, the caches and states
+    DTensors placed by ``partition.kv_cache_spec`` / ``ssm_state_specs``,
+    against the same run with no mesh on the whole batch; then, for the
+    sub-quadratic archs and minicpm, a single request's decode from a
+    whole state placed in the long-context layout (the KV sequence and
+    the SSM state's head channels over 'data')."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeCfg, get_arch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.runtime import partition as PT
+    from repro_torch.runtime import tp
+    _group(rank, world, directory, "decode")
+    mesh = make_local_mesh(2, "cpu")
+    with PT.use_mesh(mesh):
+        idx, n = tp.batch_split()
+    per = DECODE_B // n
+    rows = slice(idx * per, (idx + 1) * per)
+    errs, long_errs = {}, {}
+    for arch in DECODE_ARCHS:
+        # the MoE's global path: its expert-parallel path counts each
+        # rank's capacity, so only the global one equals one device
+        cfg = dataclasses.replace(get_arch(arch.replace(
+            "-one-head", "")).reduced(), dtype="float32", moe_impl="gspmd")
+        if arch.endswith("-one-head"):
+            # fewer heads than 'model' ranks: attention splits the query
+            # rows, and a decode step's one row goes to one rank
+            cfg = dataclasses.replace(cfg, n_heads=1, n_kv_heads=1)
+        api = build_model(cfg)
+        params = api.init_params(torch.Generator().manual_seed(0))
+        want, _ = _decode_run(api, cfg, params, slice(None))
+        PT.place_model(params, cfg, mesh)
+        with PT.use_mesh(mesh):
+            got, state = _decode_run(api, cfg, params, rows)
+        placed = all(isinstance(t, torch.distributed.tensor.DTensor)
+                     for t in _state_leaves(state) if t.dim() >= 4)
+        errs[arch] = {"err": max(float((g - w[rows]).abs().max()
+                                       / w[rows].abs().max())
+                                 for g, w in zip(got, want)),
+                      "placed": placed}
+        if arch not in ("minicpm-2b", "mamba2-1.3b", "zamba2-2.7b"):
+            continue
+        whole = build_model(cfg).init_params(
+            torch.Generator().manual_seed(0))
+        _, st = _decode_run(api, cfg, whole, slice(0, 1))
+        want1, _ = _decode_run(api, cfg, whole, slice(0, 1),
+                               single=_clone(st))
+        specs = PT.decode_state_specs(cfg, ShapeCfg("one", 0, 1, "decode"),
+                                      st)
+        long_state = _place(st, specs, mesh)
+        with PT.use_mesh(mesh):
+            got1, _ = _decode_run(api, cfg, params, slice(0, 1),
+                                  single=long_state)
+        long_errs[arch] = max(float((g - w).abs().max() / w.abs().max())
+                              for g, w in zip(got1, want1[len(want1)
+                                                          - len(got1):]))
+    dist.destroy_process_group()
+    if rank == 0:
+        _write(directory, "decode", {"errs": errs, "long": long_errs})
+
+
+def _state_leaves(tree):
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _state_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _clone(tree):
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree.clone()
+
+
+def _place(tree, specs, mesh):
+    """A whole decode state (the same on every rank) as DTensors."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.runtime import partition as PT
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_place(t, s, mesh) for t, s in zip(tree, specs))
+    return distribute_tensor(tree, mesh, PT.placements(specs, mesh))
+
+
+# ---------------------------------------------------------------------------
+# the dry run's ZeRO-1 step on a mesh (test_torch_dryrun_zero1.py)
+# ---------------------------------------------------------------------------
+
+ZERO1_ARCHS = ("minicpm-2b", "granite-moe-3b-a800m", "whisper-base")
+ZERO1_B, ZERO1_S, ZERO1_STEPS = 4, 16, 2
+
+
+def _zero1_batch(api, cfg):
+    """A fixed training batch of the shapes ``api.input_specs`` gives."""
+    from repro_torch.configs.base import ShapeCfg
+    g = torch.Generator().manual_seed(1)
+    specs = api.input_specs(ShapeCfg("zero1", ZERO1_S, ZERO1_B, "train"))
+    return {k: (torch.randint(0, cfg.vocab, v.shape, generator=g,
+                              dtype=v.dtype)
+                if not v.dtype.is_floating_point
+                else torch.randn(v.shape, generator=g, dtype=v.dtype))
+            for k, v in specs.items()}
+
+
+def dryrun_zero1_four_ranks(rank: int, world: int, directory: str) -> None:
+    """On a (2, 2) mesh, for one reduced float32 arch of three families
+    (the MoE on its global path): two steps of the dry run's train step
+    (``dryrun.make_train_step`` with the mesh, its parameter groups and
+    the ZeRO-1 moments of ``dryrun.zero1_moments``) on this rank's rows,
+    against two steps of the trainer's one-device step on the whole batch
+    (the losses, gradient norms, parameters and stacked moments) and two
+    of the trainer's mesh step (``launch.train.make_step`` with the mesh,
+    moments placed like the parameters) on the same rows."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW, AdamWState, cosine_schedule
+    from repro_torch.runtime import partition as PT
+    from repro_torch.runtime import tp
+    _group(rank, world, directory, "zero1")
+    mesh = make_local_mesh(2, "cpu")
+    with PT.use_mesh(mesh):
+        idx, n = tp.batch_split()
+    per = ZERO1_B // n
+    out = {}
+    for arch in ZERO1_ARCHS:
+        cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32",
+                                  moe_impl="gspmd")
+        api = build_model(cfg)
+        opt = AdamW(lr=cosine_schedule(1e-2, 1, 10))
+        batch = _zero1_batch(api, cfg)
+        rows = {k: v[idx * per:(idx + 1) * per] for k, v in batch.items()}
+        init = lambda: api.init_params(                   # noqa: E731
+            torch.Generator().manual_seed(0))
+        want = init()
+        want_state = opt.init(list(want.parameters()))
+        step = D.make_train_step(api, opt)
+        got = init()
+        PT.place_model(got, cfg, mesh)
+        groups = D.param_groups(got)
+        mu, nu = D.zero1_moments(got, groups, mesh, "cpu")
+        got_state = AdamWState(mu, nu, torch.zeros((), dtype=torch.int32))
+        mesh_step = D.make_train_step(api, opt, mesh, groups)
+        trainer = init()
+        PT.place_model(trainer, cfg, mesh)
+        trainer_state = opt.init(list(trainer.parameters()))
+        trainer_step = train.make_step(api, opt, False, mesh)
+        losses, gnorms = [], []
+        for i in range(ZERO1_STEPS):
+            want, want_state, w = step(want, want_state, batch)
+            got, got_state, g = mesh_step(got, got_state, rows)
+            trainer, trainer_state, _, _ = trainer_step(
+                trainer, trainer_state, None, rows)
+            losses.append([float(g["loss"]), float(w["loss"])])
+            gnorms.append([float(g["gnorm"]), float(w["gnorm"])])
+            if i == 0:
+                moment_err = _zero1_moment_err(want, want_state, groups,
+                                               got_state)
+        named = dict(want.named_parameters())
+        on_mesh = dict(trainer.named_parameters())
+        diffs = torch.cat([(_whole(p) - named[k]).detach().abs().reshape(-1)
+                           for k, p in got.named_parameters()])
+        mesh_err = max(float((_whole(p) - _whole(on_mesh[k])).abs().max())
+                       for k, p in got.named_parameters())
+        out[arch] = {"losses": losses, "gnorms": gnorms,
+                     "param_err": float(diffs.max()),
+                     "param_past": int((diffs > 1e-6).sum()),
+                     "param_n": diffs.numel(), "mesh_err": mesh_err,
+                     "moment_err": moment_err,
+                     "count": int(got_state.count),
+                     "groups": len(groups),
+                     "stacked": sum(g.stacked for g in groups)}
+    dist.destroy_process_group()
+    if rank == 0:
+        _write(directory, "zero1", out)
+
+
+def _zero1_moment_err(want, want_state, groups, got_state) -> float:
+    """The largest difference of the ZeRO-1 moments (a layer stack one
+    tensor) from the one-device trainer's (one per parameter), relative
+    to the largest magnitude of each."""
+    order = {k: i for i, (k, _) in enumerate(want.named_parameters())}
+    err = 0.0
+    for grp, m, v in zip(groups, got_state.mu, got_state.nu):
+        for mine, theirs in ((m, want_state.mu), (v, want_state.nu)):
+            ref = (torch.stack([theirs[order[k]] for k in grp.names])
+                   if grp.stacked else theirs[order[grp.names[0]]])
+            err = max(err, float((_whole(mine) - ref).abs().max()
+                                 / max(float(ref.abs().max()), 1e-30)))
+    return err
