@@ -59,6 +59,7 @@ from repro_torch.convert import (lm_params_from_reference,
 from repro_torch.data.pipeline import DataCfg, TokenPipeline, stub_frames
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.api import build_model
+from repro_torch.obs import ranges
 from repro_torch.optim import grad_compress
 from repro_torch.optim.adamw import (AdamW, AdamWState, clip_by_global_norm,
                                      clip_by_global_norm_on_mesh,
@@ -70,7 +71,7 @@ from repro_torch.runtime.fault_tolerance import (TrainSupervisor,
 
 STACKED = PT.STACKED
 
-# the record_function ranges of one step, for a profiler's split
+# the spans of one step's phases (``obs.ranges``), for a profiler's split
 RANGES = ("train.forward", "train.backward", "train.optimizer")
 
 
@@ -85,11 +86,11 @@ def make_step(api, opt: AdamW, use_compression: bool,
     def step(params, opt_state, err_state, batch):
         leaves = list(params.parameters())
         with PT.use_mesh(mesh):
-            with torch.profiler.record_function(RANGES[0]):
+            with ranges.span(RANGES[0]):
                 loss, _ = api.loss(params, batch)
-            with torch.profiler.record_function(RANGES[1]):
+            with ranges.span(RANGES[1]):
                 grads = torch.autograd.grad(loss, leaves)
-            with torch.profiler.record_function(RANGES[2]):
+            with ranges.span(RANGES[2]):
                 if mesh is None:
                     if use_compression:
                         grads, err_state = grad_compress.apply(grads,
@@ -253,7 +254,9 @@ def main(argv: Optional[List[str]] = None,
                   f"{start_step}")
 
     losses: List[float] = []
-    t0 = time.time()
+    # the rate's clock starts at the first logged step's loss, whose read
+    # synchronises: step 0's warm-up stays out of it
+    clock = None
     for step in range(start_step, args.steps):
         batch = make_batch(cfg, pipe, step, args.batch, device, rows)
         params, opt_state, err_state, metrics = step_fn(
@@ -272,11 +275,14 @@ def main(argv: Optional[List[str]] = None,
         if step % args.log_every == 0 or step == args.steps - 1:
             loss = float(metrics["loss"])
             losses.append(loss)
-            dt = time.time() - t0
+            now = time.perf_counter()
+            if clock is None:
+                clock, rate = (now, step), ""
+            else:
+                rate = f" ({(now - clock[0]) / (step - clock[1]):.2f}s/step)"
             if rank == 0:
                 print(f"[train] step {step:5d} loss {loss:.4f} "
-                      f"gnorm {float(metrics['gnorm']):.3f} "
-                      f"({dt / max(step - start_step + 1, 1):.2f}s/step)",
+                      f"gnorm {float(metrics['gnorm']):.3f}{rate}",
                       flush=True)
     if sup is not None:
         sup.ckpt.wait()

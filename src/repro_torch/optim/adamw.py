@@ -17,6 +17,10 @@ Python floats make them (not Python doubles); the step
 ``p_f32 - lr * step`` is cast back to the parameter's dtype, so bfloat16
 parameters keep no float32 master copy, as in the reference. Weight decay
 applies to every leaf, norms and embeddings included.
+
+The update runs inside the span ``optim.adamw`` and clipping inside
+``optim.clip`` (``obs.ranges``: free unless a profiler or ``obs``
+records).
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ from typing import Callable, List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.distributed
+
+from repro_torch.obs import ranges
 
 F32 = torch.float32
 
@@ -68,17 +74,18 @@ class AdamW:
                 == len(state.nu)):
             raise ValueError(f"AdamW.update: {len(grads)} grads, "
                              f"{len(params)} params, {len(state.mu)} moments")
-        count = state.count + 1
-        b1c, b2c = self.bias_corrections(count)
-        lr = self.lr(count)
-        for g, m, v, p in zip(grads, state.mu, state.nu, params):
-            gf = g.to(F32)
-            m.copy_(self.b1 * m + (1 - self.b1) * gf)
-            v.copy_(self.b2 * v + (1 - self.b2) * gf * gf)
-            pf = p.to(F32)
-            step = (m / b1c) / (torch.sqrt(v / b2c) + self.eps)
-            step = step + self.weight_decay * pf
-            p.copy_((pf - lr * step).to(p.dtype))
+        with ranges.span("optim.adamw"):
+            count = state.count + 1
+            b1c, b2c = self.bias_corrections(count)
+            lr = self.lr(count)
+            for g, m, v, p in zip(grads, state.mu, state.nu, params):
+                gf = g.to(F32)
+                m.copy_(self.b1 * m + (1 - self.b1) * gf)
+                v.copy_(self.b2 * v + (1 - self.b2) * gf * gf)
+                pf = p.to(F32)
+                step = (m / b1c) / (torch.sqrt(v / b2c) + self.eps)
+                step = step + self.weight_decay * pf
+                p.copy_((pf - lr * step).to(p.dtype))
         return params, AdamWState(state.mu, state.nu, count)
 
 
@@ -117,10 +124,11 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float
     float32, cast back to its dtype) and return them with the float32
     global norm. The sum of squares runs over the leaves in order, as the
     reference's Python ``sum``."""
-    total = torch.zeros((), dtype=F32, device=grads[0].device)
-    for g in grads:
-        total = total + torch.sum(g.to(F32) ** 2)
-    return _scale(grads, total, max_norm)
+    with ranges.span("optim.clip"):
+        total = torch.zeros((), dtype=F32, device=grads[0].device)
+        for g in grads:
+            total = total + torch.sum(g.to(F32) ** 2)
+        return _scale(grads, total, max_norm)
 
 
 def _scale(grads: Sequence[torch.Tensor], total: torch.Tensor,
@@ -141,11 +149,12 @@ def clip_by_global_norm_on_mesh(grads: Sequence[torch.Tensor],
     every mesh dim that replicates it), in leaf order, and one all-reduce
     over the mesh's ranks sums them; on one rank it is
     :func:`clip_by_global_norm` exactly."""
-    coord = mesh.get_coordinate()
-    total = torch.zeros((), dtype=F32, device=grads[0].device)
-    for g, pl in zip(grads, placements):
-        if all(c == 0 for c, p in zip(coord, pl) if p.is_replicate()):
-            total = total + torch.sum(g.to(F32) ** 2)
-    if mesh.size() > 1:
-        torch.distributed.all_reduce(total)
-    return _scale(grads, total, max_norm)
+    with ranges.span("optim.clip"):
+        coord = mesh.get_coordinate()
+        total = torch.zeros((), dtype=F32, device=grads[0].device)
+        for g, pl in zip(grads, placements):
+            if all(c == 0 for c, p in zip(coord, pl) if p.is_replicate()):
+                total = total + torch.sum(g.to(F32) ** 2)
+        if mesh.size() > 1:
+            torch.distributed.all_reduce(total)
+        return _scale(grads, total, max_norm)

@@ -592,3 +592,24 @@ def test_trainer_refuses_a_model_axis_and_a_missing_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train.main(["--arch", "minicpm-2b", "--reduced"])
+
+
+def test_trainer_rate_leaves_out_the_first_step(monkeypatch, capsys):
+    """The ``s/step`` of a logged line counts the steps since the first
+    logged step's loss was read (a read that synchronises), so step 0's
+    warm-up stays out of it: here step 0 takes 100 s of a made-up clock
+    and every later step 1 s, and each rate reads 1.00."""
+    import types
+    now = [0.0]
+    monkeypatch.setattr(train, "time", types.SimpleNamespace(
+        perf_counter=lambda: now[0]))
+
+    def advance(step, metrics):
+        now[0] += 100.0 if step == 0 else 1.0
+    train.main(["--arch", "minicpm-2b", "--reduced", "--steps", "11",
+                "--batch", "2", "--seq", "16", "--log-every", "5",
+                "--device", "cpu"], on_step=advance)
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[train] step")]
+    assert len(lines) == 3 and "s/step" not in lines[0]
+    assert [ln.split("(")[-1] for ln in lines[1:]] == ["1.00s/step)"] * 2
