@@ -165,15 +165,18 @@ on the card against the CPU from one set of parameters, with and
 without gradient compression; (c) minicpm-2b at full width through
 ``launch.train.main`` (batch 4 x 512, 6 steps, wsd): finite losses,
 exactly 40 forward and 40 of each backward kernel's launches a step and
-no plain call, s/step, tokens/s, peak memory, and 2 profiled steps (idle
-share, launches a step split into forward, backward and optimizer); (d)
+no plain call, the optimizer's kernels over its 362 leaves exactly 6
+update and 3 + 1 norm launches a step and no plain call, s/step,
+tokens/s, peak memory, and 2 profiled steps (idle share, launches a step
+split into forward, backward and optimizer); (d)
 a resume at reduced size (4 steps with a checkpoint at step 2, then a
 restart to 6) against 6 uninterrupted steps; (19) the mesh: (a)
 minicpm-2b at full width through ``launch.train.main --model-axis 1`` on
 a one-rank NCCL ("data", "model") mesh, every parameter a DTensor (batch
 4 x 512, 3 steps): losses equal to phase 18's first 3 within 1e-5
-relative, 40 forward and 40 of each backward kernel's launches a step, no
-plain call, s/step beside phase 18's, peak memory, launches of a
+relative, 40 forward and 40 of each backward kernel's launches a step, 6
+update and 3 + 1 norm launches a step, no plain call, s/step beside
+phase 18's, peak memory, launches of a
 profiled step by range; (b) a reduced run resumed from its step-1
 checkpoint with ``elastic_remesh`` onto a fresh one-rank mesh, step 2
 and its checkpoint bit-equal to the uninterrupted run's; (c) meshes
@@ -190,10 +193,17 @@ for real under ``roofline.op_costs.OpCosts``: FLOPs equal to (a)'s, 40
 the loss bit-equal to phase 18's first, the tracker's peak within 20% of
 ``torch.cuda.max_memory_allocated``; (c) ``python -m
 repro_torch.launch.dryrun --arch minicpm-2b --shape train_4k`` (16 x 16 on
-torch's fake process group) as a subprocess: exit 0, status ok. Phases 5,
-11, 12, 13, 14, 15, 16, 17, 18, 19 and 20 set the counts to 0 before
-their runs and read them after, and allow no plain call, fold or failed
-lane grid there.
+torch's fake process group) as a subprocess: exit 0, status ok; (21) the
+optimizer's kernels (``strela::global_sq_norm``, ``strela::adamw_``) at
+minicpm-2b's 362 bf16 leaves with float32 moments: the norm within 1e-6
+relative of a float64 sum and 1e-5 of the plain version, bit-equal over
+two runs; one update with the clipping scale of that norm equal to the
+plain loop on the same tensors bit for bit in every parameter and moment;
+both timed beside their plain versions, their bounds (22 and 2 bytes a
+parameter at 3.35 TB/s) and the library's ``torch.optim.AdamW(fused=
+True)`` and ``torch._foreach_norm``. Phases 5, 11, 12, 13, 14, 15, 16,
+17, 18, 19, 20 and 21 set the counts to 0 before their runs and read them
+after, and allow no plain call, fold or failed lane grid there.
 It exits non-zero, printing no result line, when there is no CUDA
 device, when the port is missing, or when any phase fails. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -3244,6 +3254,40 @@ TRAIN_REDUCED_BATCH, TRAIN_REDUCED_SEQ = 2, 32
 # must stay a rare few (TRAIN_PARAM_FRAC of all beyond 1e-6)
 TRAIN_PARAM_TOL = 3.6e-4
 TRAIN_PARAM_FRAC = 1e-3
+# leaves a launch of the update and of the norm (csrc/adamw.cu kAdamLeaves,
+# kNormLeaves); the norm adds one launch that sums its partials
+ADAMW_LEAVES, NORM_LEAVES = 64, 128
+
+
+def train_leaf_shapes():
+    """The shapes of TRAIN_ARCH's parameters at full width, in the
+    optimizer's order (``parameters()``), without allocating them."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.api import build_model
+    with FakeTensorMode():
+        return [p.shape for p in build_model(get_arch(
+            TRAIN_ARCH)).init_params(torch.Generator()).parameters()]
+
+
+def reset_optimizer_counts():
+    from repro_torch.kernels import adamw as ak
+    ak.adamw_launches = ak.sq_norm_launches = ak.plain_calls = 0
+
+
+def check_optimizer_counts(label, n_leaves, steps):
+    """The optimizer's kernels' launches since :func:`reset_optimizer_counts`
+    against ``steps`` steps over ``n_leaves`` leaves, and no plain call."""
+    from repro_torch.kernels import adamw as ak
+    got = {"adamw": ak.adamw_launches, "global_sq_norm": ak.sq_norm_launches}
+    want = {"adamw": -(-n_leaves // ADAMW_LEAVES) * steps,
+            "global_sq_norm": (-(-n_leaves // NORM_LEAVES) + 1) * steps}
+    check(got == want and ak.plain_calls == 0,
+          f"{label}: the optimizer's launches {got} over {n_leaves} leaves "
+          f"and {steps} steps (want {want}), plain calls {ak.plain_calls} "
+          f"(want 0)")
+    return got
 
 
 def phase_train_bwd(device):
@@ -3522,9 +3566,11 @@ def phase_train(device):
             prof["p"].start()
         elif step == TRAIN_PROFILED[-1]:
             prof["p"].stop()
+    n_leaves = len(train_leaf_shapes())
     fa.launches = fa.plain_calls = fa.backward_plain_calls = 0
     fa.bwd_preprocess_launches = fa.bwd_dkdv_launches = \
         fa.bwd_dq_launches = 0
+    reset_optimizer_counts()
     t0 = time.perf_counter()
     losses = train.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
                          "--batch", str(TRAIN_BATCH), "--seq",
@@ -3545,6 +3591,8 @@ def phase_train(device):
           f"train {TRAIN_ARCH}: launches {counts} (want {want} each: "
           f"{full.n_layers} layers x {TRAIN_STEPS} steps), plain calls "
           f"{plain} (want 0)")
+    opt_counts = check_optimizer_counts(f"train {TRAIN_ARCH}", n_leaves,
+                                        TRAIN_STEPS)
     dts = [marks[i] - marks[i - 1] for i in range(1, TRAIN_STEPS)]
     # steps 1 .. before the profiler's start (step 0 warms up)
     steady = float(np.median(dts[:TRAIN_PROFILED[0] - 2]))
@@ -3560,7 +3608,10 @@ def phase_train(device):
           f"{steady:.4f} s/step, {tokens / steady:.1f} tokens/s; call wall "
           f"{wall:.2f} s with the init; peak memory {peak:.2f} GiB; "
           f"launches {counts} ({want // TRAIN_STEPS} a step each), plain "
-          f"calls {plain}")
+          f"calls {plain}; the optimizer's launches over {n_leaves} leaves "
+          f"{opt_counts} ({opt_counts['adamw'] // TRAIN_STEPS} and "
+          f"{opt_counts['global_sq_norm'] // TRAIN_STEPS} a step), no plain "
+          f"call")
     # the window: from the first profiled step's forward range on (each
     # step ends in the hook's synchronise, so the steps before it have
     # finished on the device), against the host clock between the hooks
@@ -3603,8 +3654,9 @@ def phase_train(device):
 
     train_resume(device)
     print(f"[train] card: {nvidia_smi()}")
-    return rows, kernel_rows, counts, {"losses": losses, "s_per_step": steady,
-                                       "peak_gib": peak}
+    return rows, kernel_rows, {**counts, **opt_counts}, {
+        "losses": losses, "s_per_step": steady, "peak_gib": peak,
+        "n_leaves": n_leaves}
 
 
 def train_resume(device):
@@ -3701,6 +3753,7 @@ def phase_mesh(device, phase18):
     fa.launches = fa.plain_calls = fa.backward_plain_calls = 0
     fa.bwd_preprocess_launches = fa.bwd_dkdv_launches = \
         fa.bwd_dq_launches = 0
+    reset_optimizer_counts()
     PT.place_model = place
     try:
         losses = train.main(["--arch", TRAIN_ARCH, "--steps",
@@ -3729,6 +3782,8 @@ def phase_mesh(device, phase18):
     check(all(n == want for n in counts.values()) and plain == (0, 0),
           f"mesh (a): launches {counts} (want {want} each), plain calls "
           f"{plain} (want 0)")
+    opt_counts = check_optimizer_counts("mesh (a)", phase18["n_leaves"],
+                                        MESH_STEPS)
     check(n_dt == n_params and tuple(mesh.mesh.shape) == (1, 1)
           and tuple(mesh.mesh_dim_names) == ("data", "model")
           and dist.get_backend() == "nccl",
@@ -3747,7 +3802,8 @@ def phase_mesh(device, phase18):
           f"s/step in this call ({s_step / phase18['s_per_step']:.3f}x); "
           f"peak memory {peak:.2f} GiB (phase 18: "
           f"{phase18['peak_gib']:.2f} GiB); launches {counts} "
-          f"({want // MESH_STEPS} a step each), plain calls {plain}")
+          f"({want // MESH_STEPS} a step each), plain calls {plain}; the "
+          f"optimizer's launches {opt_counts}, no plain call")
     print(f"[mesh] (a) kernel launches (host calls) in profiled step 2: "
           f"{split['all']}: forward {split[train.RANGES[0]]}, backward "
           f"{split[train.RANGES[1]]}, optimizer {split[train.RANGES[2]]}")
@@ -3783,7 +3839,7 @@ def phase_mesh(device, phase18):
     dist.destroy_process_group()
     mesh_cpu()
     print(f"[mesh] card: {nvidia_smi()}")
-    return counts
+    return {**counts, **opt_counts}
 
 
 def mesh_cpu():
@@ -4092,6 +4148,153 @@ def phase_dryrun(device, phase18):
           + " | ".join(lines))
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the optimizer's kernels at minicpm-2b's leaves
+# ---------------------------------------------------------------------------
+
+ADAMW_HYPER = (0.9, 0.95, 1e-8, 0.1)     # b1, b2, eps, weight decay
+# the kernel's norm squares and sums in double and rounds once to float32;
+# the plain version sums each leaf in float32, then the leaves in order
+NORM_EXACT_TOL = 1e-6            # relative, against a float64 sum
+NORM_PLAIN_TOL = 1e-5            # relative, against the plain version
+
+
+def optimizer_leaf(device, i, shape):
+    """Leaf ``i``'s bf16 parameter and float32 moments, drawn from a
+    generator of its own, so that any leaf can be drawn again alone."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(SEED + 2100 + i)
+    p = (torch.randn(shape, generator=gen, device=device) * 0.02).to(
+        torch.bfloat16)
+    m = torch.randn(shape, generator=gen, device=device) * 1e-4
+    v = torch.rand(shape, generator=gen, device=device) * 1e-8
+    return p, m, v
+
+
+def phase_optimizer(device, trained):
+    """Phase 21: the optimizer's kernels at minicpm-2b's leaves against
+    their plain versions on the same tensors. The norm
+    (``kernels.adamw.global_sq_norm``) twice, bit-equal, within
+    NORM_EXACT_TOL of a float64 sum and NORM_PLAIN_TOL of
+    ``sq_norm_plain``; one update (``kernels.adamw.update``, which calls
+    ``strela::adamw_``) over all the leaves with the clipping scale of
+    that norm (``optim.adamw.clip_scale``), against ``update_plain`` on
+    each leaf drawn again: every parameter and moment bit-equal. Then
+    each timed beside its plain version, its bound (22 and 2 bytes a bf16
+    parameter at 3.35 TB/s) and a library yardstick. ``trained`` holds
+    the launches of phases 18 (c) and 19 (a); returns the two rows of the
+    ``kernels`` line."""
+    import torch
+    from repro_torch.kernels import adamw as ak
+    from repro_torch.optim.adamw import clip_scale
+
+    shapes = train_leaf_shapes()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    gen = torch.Generator(device=device).manual_seed(SEED + 2099)
+    grads = [(torch.randn(s, generator=gen, device=device) * 1e-3).to(
+        torch.bfloat16) for s in shapes]
+    params, mu, nu = map(list, zip(*(optimizer_leaf(device, i, s)
+                                     for i, s in enumerate(shapes))))
+    n = sum(p.numel() for p in params)
+    one = lambda v: torch.tensor(v, dtype=torch.float32,    # noqa: E731
+                                 device=device)
+    lr, b1c, b2c = one(1e-3), one(0.271), one(0.142625)     # count 3
+
+    # the norm
+    reset_optimizer_counts()
+    totals = [ak.global_sq_norm(grads) for _ in range(2)]
+    scaled, gnorm = clip_scale(grads, 1.0)
+    exact = sum(float(torch.sum(g.double() ** 2)) for g in grads)
+    plain_total = float(ak.sq_norm_plain(grads))
+    total = float(totals[0])
+    e_exact, e_plain = abs(total / exact - 1), abs(total / plain_total - 1)
+    repeat = torch.equal(totals[0], totals[1])
+    check(repeat and e_exact <= NORM_EXACT_TOL
+          and e_plain <= NORM_PLAIN_TOL,
+          f"optimizer: the norm over {len(shapes)} leaves {total!r} "
+          f"(again {float(totals[1])!r}), float64 {exact!r} (rel "
+          f"{e_exact:.3e}, limit {NORM_EXACT_TOL}), plain {plain_total!r} "
+          f"(rel {e_plain:.3e}, limit {NORM_PLAIN_TOL})")
+
+    # the update, against the plain loop on each leaf drawn again
+    scale = scaled.scale
+    ak.update(params, mu, nu, grads, lr, b1c, b2c, scale, *ADAMW_HYPER)
+    n_off, d_max = 0, 0.0
+    for i, s in enumerate(shapes):
+        p, m, v = optimizer_leaf(device, i, s)
+        ak.update_plain([p], [m], [v], [grads[i]], lr, b1c, b2c, scale,
+                        *ADAMW_HYPER)
+        for a, b in ((params[i], p), (mu[i], m), (nu[i], v)):
+            if not torch.equal(a, b):
+                diff = (a.float() - b.float()).abs()
+                n_off += int((diff > 0).sum())
+                d_max = max(d_max, float(diff.max()))
+        del p, m, v
+    counts = {"adamw": ak.adamw_launches,
+              "global_sq_norm": ak.sq_norm_launches}
+    want = {"adamw": -(-len(shapes) // ADAMW_LEAVES),
+            "global_sq_norm": 3 * (-(-len(shapes) // NORM_LEAVES) + 1)}
+    check(n_off == 0 and counts == want
+          and ak.plain_calls == 1 + len(shapes),
+          f"optimizer: the update over {len(shapes)} leaves, scale "
+          f"{float(scale)!r}: {n_off} entries differ from the plain loop "
+          f"(max abs {d_max!r}); launches {counts} (want {want}), plain "
+          f"calls {ak.plain_calls} (want {1 + len(shapes)})")
+    print(f"[optim] (a) {TRAIN_ARCH}'s {len(shapes)} bf16 leaves, {n} "
+          f"parameters, float32 moments ({held:.2f} GiB held before): the "
+          f"norm {total!r}, bit-equal over two runs, rel {e_exact:.3e} "
+          f"against a float64 sum and {e_plain:.3e} against the plain "
+          f"version; gnorm {float(gnorm)!r}, scale {float(scale)!r}; the "
+          f"update equals the plain loop bit for bit in every parameter "
+          f"and moment; launches {counts}")
+
+    # times
+    def update():
+        ak.update(params, mu, nu, grads, lr, b1c, b2c, scale, *ADAMW_HYPER)
+
+    def update_plain():
+        ak.update_plain(params, mu, nu, grads, lr, b1c, b2c, scale,
+                        *ADAMW_HYPER)
+    rows = {"adamw": {"ms": time_ms(update, reps=20, warm=2),
+                      "plain_ms": time_ms(update_plain, reps=3, warm=1),
+                      "bound_ms": 22 * n / HBM_BYTES_PER_S * 1e3,
+                      "max_abs_err": d_max},
+            "global_sq_norm": {
+                "ms": time_ms(lambda: ak.global_sq_norm(grads), reps=20,
+                              warm=2),
+                "plain_ms": time_ms(lambda: ak.sq_norm_plain(grads),
+                                    reps=5, warm=1),
+                "bound_ms": 2 * n / HBM_BYTES_PER_S * 1e3,
+                "max_abs_err": abs(total - plain_total)}}
+    rows["global_sq_norm"]["library_ms"] = time_ms(
+        lambda: torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads))), reps=20, warm=2)
+    del mu, nu
+    torch.cuda.empty_cache()
+    leaves = [torch.nn.Parameter(p) for p in params]
+    for p, g in zip(leaves, grads):
+        p.grad = g
+    lib = torch.optim.AdamW(leaves, lr=1e-3, betas=ADAMW_HYPER[:2],
+                            eps=ADAMW_HYPER[2],
+                            weight_decay=ADAMW_HYPER[3], fused=True)
+    rows["adamw"]["library_ms"] = time_ms(lib.step, reps=5, warm=1)
+    del lib, leaves, params, grads, scaled, totals
+    torch.cuda.empty_cache()
+    for name, r in rows.items():
+        # the main path's launches and the checked calls', not the timed
+        r["launches"] = trained[name] + counts[name]
+        r["bound_by"] = "bytes"
+        print(f"[optim] (b) {name}: {r['ms']:.4f} ms against the bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.3f} of "
+              f"it); plain {r['plain_ms']:.4f} ms; library "
+              f"{r['library_ms']:.4f} ms ("
+              + ("torch.optim.AdamW(fused=True), bf16 moments" if name ==
+                 "adamw" else "torch._foreach_norm") + ")")
+    print(f"[optim] card: {nvidia_smi()}")
+    return rows
+
+
 def nvidia_smi() -> str:
     try:
         out = subprocess.run(
@@ -4154,6 +4357,7 @@ def main() -> int:
     for k, n in mesh_launches.items():
         train_launches[k] += n
     phase_dryrun(device, train18)
+    optim_rows = phase_optimizer(device, train_launches)
 
     from repro_torch.bench_kernels import ROTATE
     main_rows = {"fabric_reduce_lanes": (
@@ -4234,6 +4438,14 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for kname, r in optim_rows.items():
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/csrc/adamw.cu", "replaces": None,
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     print("[train] flash backward f32 by shape (ms): " + "; ".join(
         f"{r['label']}: {r['ms']:.4f} (bound {r['bound_fp32_ms']:.4f} FP32 "
         f"units, {r['bound_ms']:.4f} 3xTF32; plain {r['plain_ms']:.4f}; SDPA "

@@ -40,6 +40,15 @@ case, with inputs made from a seed:
   data in the card's 50 MB L2; and by the host clock around one warm call
   and its synchronisation (median and range of WALL_CALLS calls).
 
+- the optimizer's kernels (``kernels/adamw.py``) over minicpm-2b's 362
+  bf16 leaves (2.73e9 parameters) with float32 moments: the update with a
+  clipping scale and the norm, beside the plain loop (the eager clipping
+  and update on the same tensors) and ``torch.optim.AdamW(fused=True)``
+  stepping the same parameters and gradients (with bf16 moments, its own
+  arithmetic: a yardstick only); the bound is the bytes over 3.35 TB/s,
+  22 a parameter for the update and 2 for the norm. The update must equal
+  the plain loop's bits over the first ADAMW_CHECKED leaves.
+
 Each case gives the time by CUDA events over 20 warm calls (wrapper
 included), the host's time to enqueue a call, and the device time per call
 from ``torch.profiler`` with its split by kernel name. The last line names
@@ -63,7 +72,8 @@ MM = (4096, 2304, 5760)
 MM_HEAD = (4096, 1536, 49155)  # granite-moe-3b-a800m's unpadded LM head
 MM_REL_TOL = 1e-5              # of max|C|, float32 at K = 2304
 BF16_REL_TOL = 1e-4            # of max|C|, bfloat16 inputs
-CASES = ("f32", "bf16", "lanes", "stream")
+CASES = ("f32", "bf16", "lanes", "stream", "adamw")
+ADAMW_CHECKED = 38             # bit-checked leaves: embed, norm, 4 layers
 SEED = 0
 REPS = 20
 ROTATE = 4                     # input and output sets of a rotated loop
@@ -88,11 +98,13 @@ def time_ms(fn, reps=REPS, warm=3):
     return start.elapsed_time(end) / reps, host
 
 
-def device_ms(fn, reps=5):
+def device_ms(fn, reps=5, per_call=False):
     """Device ms per call from torch.profiler, and its split by name: each
     name's time over the launches of it that the profiler recorded (in a
     long process it may record fewer than were made), so a call that
-    launches each kernel once takes their sum."""
+    launches each kernel once takes their sum. With ``per_call``, each
+    name's time over the calls instead, for a call that launches a kernel
+    several times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -110,7 +122,8 @@ def device_ms(fn, reps=5):
             name = name.removeprefix("void ").split("(")[0].strip()
             total[name] = total.get(name, 0.0) + e.time_range.elapsed_us()
             count[name] = count.get(name, 0) + 1
-    by_name = {n: us / count[n] / 1e3 for n, us in total.items()}
+    by_name = {n: us / (reps if per_call else count[n]) / 1e3
+               for n, us in total.items()}
     return sum(by_name.values()) if by_name else None, by_name
 
 
@@ -306,6 +319,90 @@ def bench_lanes(src):
     return ok, rows
 
 
+def bench_adamw(src):
+    """The update and the norm over minicpm-2b's leaves, beside the plain
+    loop and the library's fused AdamW."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import adamw as K
+    from repro_torch.models.api import build_model
+    with FakeTensorMode():
+        shapes = [p.shape for p in build_model(get_arch(
+            "minicpm-2b")).init_params(torch.Generator()).parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    draw = lambda s, x: (torch.randn(                    # noqa: E731
+        s, generator=gen, device="cuda") * x).to(torch.bfloat16)
+    params = [draw(s, 0.02) for s in shapes]
+    grads = [draw(s, 1e-3) for s in shapes]
+    mu = [torch.randn(s, generator=gen, device="cuda") * 1e-4
+          for s in shapes]
+    nu = [torch.rand(s, generator=gen, device="cuda") * 1e-8
+          for s in shapes]
+    n = sum(p.numel() for p in params)
+    one = lambda v: torch.tensor(v, device="cuda")       # noqa: E731
+    lr, b1c, b2c, scale = one(1e-3), one(0.3439), one(0.185494), one(0.75)
+    hyper = (0.9, 0.95, 1e-8, 0.1)
+
+    # the bit check on copies of the first leaves
+    k = ADAMW_CHECKED
+    kern = [[t.clone() for t in ts[:k]] for ts in (params, mu, nu)]
+    plain = [[t.clone() for t in ts[:k]] for ts in (params, mu, nu)]
+    torch.ops.strela.adamw_(*kern, grads[:k], lr, b1c, b2c, scale, *hyper)
+    K.update_plain(*plain, grads[:k], lr, b1c, b2c, scale, *hyper)
+    exact = all(torch.equal(a, b) for a, b in zip(sum(kern, []),
+                                                  sum(plain, [])))
+    del kern, plain
+    torch.cuda.empty_cache()
+
+    def update():
+        torch.ops.strela.adamw_(params, mu, nu, grads, lr, b1c, b2c, scale,
+                                *hyper)
+
+    def norm():
+        return K.global_sq_norm(grads)
+
+    def eager():
+        total = K.sq_norm_plain(grads)
+        norm_ = torch.sqrt(total)
+        s = torch.clamp(1.0 / (norm_ + 1e-9), max=1.0)
+        K.update_plain(params, mu, nu,
+                       [(g.float() * s).to(g.dtype) for g in grads], lr,
+                       b1c, b2c, None, *hyper)
+    rows = []
+    for label, fn, per_param, reps in (("update", update, 22, REPS),
+                                       ("norm", norm, 2, REPS),
+                                       ("plain", eager, 24, 3)):
+        ms, host = time_ms(fn, reps=reps, warm=1)
+        dev, names = device_ms(fn, reps=min(reps, 5), per_call=True)
+        launches = (K.adamw_launches, K.sq_norm_launches)
+        fn()
+        launches = (K.adamw_launches - launches[0],
+                    K.sq_norm_launches - launches[1])
+        bound = per_param * n / HBM_BYTES_PER_S * 1e3
+        rows.append({"src": src, "case": f"adamw {label} minicpm-2b "
+                                         f"{len(shapes)} leaves n={n}",
+                     "ms": ms, "host_ms": host, "device_ms": dev,
+                     "by_name": dict(sorted(names.items(),
+                                            key=lambda kv: -kv[1])[:6]),
+                     "launches": launches, "bound_ms": bound,
+                     "bound_by": "bytes", "share": bound / (dev or ms),
+                     "bit_exact": exact})
+    del mu, nu
+    torch.cuda.empty_cache()
+    leaves = [torch.nn.Parameter(p) for p in params]
+    for p, g in zip(leaves, grads):
+        p.grad = g
+    lib = torch.optim.AdamW(leaves, lr=1e-3, betas=(0.9, 0.95), eps=1e-8,
+                            weight_decay=0.1, fused=True)
+    lib_ms, lib_host = time_ms(lib.step, reps=5, warm=1)
+    lib_dev, _ = device_ms(lib.step, reps=3, per_call=True)
+    rows.append({"src": src, "case": "adamw library torch.optim.AdamW("
+                 "fused=True), bf16 moments", "library_ms": lib_ms,
+                 "library_host_ms": lib_host, "library_device_ms": lib_dev})
+    return exact, rows
+
+
 def main(argv=None) -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -328,7 +425,8 @@ def main(argv=None) -> int:
     _build.build()
     ok = True
     for case, bench in (("f32", bench_matmul), ("bf16", bench_bf16),
-                        ("lanes", bench_lanes), ("stream", bench_stream)):
+                        ("lanes", bench_lanes), ("stream", bench_stream),
+                        ("adamw", bench_adamw)):
         if case not in only:
             continue
         ok_case, rows = bench(args.src)

@@ -128,6 +128,14 @@ def load() -> ctypes.CDLL:
         lib.strela_flash_bwd_dq.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, ctypes.c_float, vp]
         lib.strela_flash_bwd_dq.restype = i
+        lib.strela_sq_norm_partials.argtypes = [vp, i]
+        lib.strela_sq_norm_partials.restype = ll
+        lib.strela_sq_norm.argtypes = [vp, vp, vp, i, vp, vp, vp, vp]
+        lib.strela_sq_norm.restype = i
+        f = ctypes.c_float
+        lib.strela_adamw.argtypes = [vp, vp, vp, vp, vp, vp, i, vp, vp, vp,
+                                     vp, f, f, f, f, f, f, vp, vp]
+        lib.strela_adamw.restype = i
         lib.strela_error_string.argtypes = [i]
         lib.strela_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -59,8 +59,7 @@ from repro_torch.convert import _path
 from repro_torch.launch.mesh import compat_make_mesh
 from repro_torch.models.api import ModelAPI, build_model
 from repro_torch.launch import train
-from repro_torch.optim.adamw import (AdamW, AdamWState,
-                                     clip_by_global_norm_on_mesh,
+from repro_torch.optim.adamw import (AdamW, AdamWState, clip_scale_on_mesh,
                                      cosine_schedule)
 from repro_torch.roofline import analysis as RA
 from repro_torch.roofline.op_costs import OpCosts
@@ -163,7 +162,7 @@ def _zero1_update(opt: AdamW, params: Dict[str, nn.Parameter],
         del g
         p = _stacked([params[n] for n in grp.names], grp.stacked)
         p_z.append(p.redistribute(mesh, mu.placements))
-    g_loc, gnorm = clip_by_global_norm_on_mesh(
+    g_loc, gnorm = clip_scale_on_mesh(
         g_loc, [mu.placements for mu in opt_state.mu], mesh, 1.0)
     locs = [p.to_local() for p in p_z]
     opt.update(g_loc, AdamWState([m.to_local() for m in opt_state.mu],

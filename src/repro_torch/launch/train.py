@@ -61,9 +61,9 @@ from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.api import build_model
 from repro_torch.obs import ranges
 from repro_torch.optim import grad_compress
-from repro_torch.optim.adamw import (AdamW, AdamWState, clip_by_global_norm,
-                                     clip_by_global_norm_on_mesh,
-                                     cosine_schedule, wsd_schedule)
+from repro_torch.optim.adamw import (AdamW, AdamWState, clip_scale,
+                                     clip_scale_on_mesh, cosine_schedule,
+                                     wsd_schedule)
 from repro_torch.runtime import partition as PT
 from repro_torch.runtime import tp
 from repro_torch.runtime.fault_tolerance import (TrainSupervisor,
@@ -95,7 +95,7 @@ def make_step(api, opt: AdamW, use_compression: bool,
                     if use_compression:
                         grads, err_state = grad_compress.apply(grads,
                                                                err_state)
-                    grads, gnorm = clip_by_global_norm(grads, 1.0)
+                    grads, gnorm = clip_scale(grads, 1.0)
                     _, opt_state = opt.update(grads, opt_state, leaves)
                 else:
                     opt_state, err_state, gnorm = _update_on_mesh(
@@ -124,7 +124,7 @@ def _update_on_mesh(opt: AdamW, use_compression: bool, leaves, grads,
                  for w, g in zip(whole, grads)]
     else:
         local = [g.to_local() for g in grads]
-    local, gnorm = clip_by_global_norm_on_mesh(
+    local, gnorm = clip_scale_on_mesh(
         local, [g.placements for g in grads], mesh, 1.0)
     locs = lambda ts: [t.to_local() for t in ts]          # noqa: E731
     _, new = opt.update(local, AdamWState(locs(opt_state.mu),

@@ -26,8 +26,9 @@ The spans the port opens, and the benchmark metrics that read them:
   ``launch/train.py`` ``make_step``; ``forward_idle_ms``,
   ``backward_idle_ms``, ``optimizer_idle_ms`` and
   ``optimizer_device_ms``;
-* ``optim.clip``: ``optim/adamw.py`` ``clip_by_global_norm`` and
-  ``clip_by_global_norm_on_mesh``; ``clip_device_ms``;
+* ``optim.clip``: ``optim/adamw.py`` ``clip_scale`` and
+  ``clip_scale_on_mesh`` (the norm and the clipping scale);
+  ``clip_device_ms``;
 * ``optim.adamw``: ``optim/adamw.py`` ``AdamW.update``;
   ``adamw_device_ms``.
 """

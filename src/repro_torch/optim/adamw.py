@@ -18,8 +18,16 @@ Python floats make them (not Python doubles); the step
 parameters keep no float32 master copy, as in the reference. Weight decay
 applies to every leaf, norms and embeddings included.
 
-The update runs inside the span ``optim.adamw`` and clipping inside
-``optim.clip`` (``obs.ranges``: free unless a profiler or ``obs``
+On CUDA tensors the norm and the update are two hand-written
+multi-tensor kernels (``kernels/adamw.py``): the trainer computes the norm
+and the clipping scale (:func:`clip_scale`, which returns the gradients
+with the scale beside them, :class:`ScaledGrads`) and hands them to
+:meth:`AdamW.update`, which applies the scale as it reads each gradient, so no scaled copy of the
+gradients is made. On CPU tensors the plain loop runs, which equals
+clip-then-update bit for bit.
+
+The update runs inside the span ``optim.adamw`` and the norm and scale
+inside ``optim.clip`` (``obs.ranges``: free unless a profiler or ``obs``
 records).
 """
 from __future__ import annotations
@@ -31,9 +39,20 @@ from typing import Callable, List, NamedTuple, Sequence, Tuple
 import torch
 import torch.distributed
 
+from repro_torch.kernels import adamw as kernels
 from repro_torch.obs import ranges
 
 F32 = torch.float32
+
+
+class ScaledGrads(list):
+    """Gradients with the float32 0-d scale that clipping found for them,
+    not yet applied: :meth:`AdamW.update` multiplies each gradient by it
+    (in float32, cast back to its dtype) as it reads it."""
+
+    def __init__(self, grads: Sequence[torch.Tensor], scale: torch.Tensor):
+        super().__init__(grads)
+        self.scale = scale
 
 
 class AdamWState(NamedTuple):
@@ -69,7 +88,9 @@ class AdamW:
                ) -> Tuple[Sequence[torch.Tensor], AdamWState]:
         """One step over the parameter list, in place: returns ``params``
         (the same tensors, updated) and the state with the same moment
-        tensors (updated) and the incremented count."""
+        tensors (updated) and the incremented count. :class:`ScaledGrads`
+        are scaled as they are read, as :func:`clip_by_global_norm`'s
+        copy would be."""
         if not (len(grads) == len(params) == len(state.mu)
                 == len(state.nu)):
             raise ValueError(f"AdamW.update: {len(grads)} grads, "
@@ -77,15 +98,10 @@ class AdamW:
         with ranges.span("optim.adamw"):
             count = state.count + 1
             b1c, b2c = self.bias_corrections(count)
-            lr = self.lr(count)
-            for g, m, v, p in zip(grads, state.mu, state.nu, params):
-                gf = g.to(F32)
-                m.copy_(self.b1 * m + (1 - self.b1) * gf)
-                v.copy_(self.b2 * v + (1 - self.b2) * gf * gf)
-                pf = p.to(F32)
-                step = (m / b1c) / (torch.sqrt(v / b2c) + self.eps)
-                step = step + self.weight_decay * pf
-                p.copy_((pf - lr * step).to(p.dtype))
+            kernels.update(params, state.mu, state.nu, grads,
+                           self.lr(count), b1c, b2c,
+                           getattr(grads, "scale", None), self.b1, self.b2,
+                           self.eps, self.weight_decay)
         return params, AdamWState(state.mu, state.nu, count)
 
 
@@ -118,43 +134,50 @@ def wsd_schedule(base_lr: float, warmup: int, stable: int, decay: int,
 
 
 @torch.no_grad()
+def clip_scale(grads: Sequence[torch.Tensor], max_norm: float
+               ) -> Tuple[ScaledGrads, torch.Tensor]:
+    """The gradients with their clipping scale ``min(1, max_norm / (norm
+    + 1e-9))`` not yet applied (:class:`ScaledGrads`), and the float32
+    global norm; the scale and the norm are 0-d on the gradients' device.
+    The sum of squares runs over the leaves in order, as the reference's
+    Python ``sum`` (on CUDA tensors: the norm kernel's fixed order)."""
+    with ranges.span("optim.clip"):
+        return _scaled(grads, kernels.global_sq_norm(grads), max_norm)
+
+
+@torch.no_grad()
+def clip_scale_on_mesh(grads: Sequence[torch.Tensor],
+                       placements: Sequence[Sequence], mesh,
+                       max_norm: float) -> Tuple[ScaledGrads, torch.Tensor]:
+    """:func:`clip_scale` of sharded gradients: ``grads`` are this rank's
+    local shards, ``placements`` their DTensor placements on ``mesh``.
+    Each shard's squares count once (on the ranks at index 0 of every
+    mesh dim that replicates it), in leaf order, and one all-reduce over
+    the mesh's ranks sums them; on one rank it is :func:`clip_scale`
+    exactly."""
+    with ranges.span("optim.clip"):
+        coord = mesh.get_coordinate()
+        include = [all(c == 0 for c, p in zip(coord, pl) if p.is_replicate())
+                   for pl in placements]
+        total = kernels.global_sq_norm(grads, include)
+        if mesh.size() > 1:
+            torch.distributed.all_reduce(total)
+        return _scaled(grads, total, max_norm)
+
+
+def _scaled(grads: Sequence[torch.Tensor], total: torch.Tensor,
+            max_norm: float) -> Tuple[ScaledGrads, torch.Tensor]:
+    norm = torch.sqrt(total)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return ScaledGrads(grads, scale), norm
+
+
+@torch.no_grad()
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Scale every gradient by ``min(1, max_norm / (norm + 1e-9))`` (in
     float32, cast back to its dtype) and return them with the float32
-    global norm. The sum of squares runs over the leaves in order, as the
-    reference's Python ``sum``."""
-    with ranges.span("optim.clip"):
-        total = torch.zeros((), dtype=F32, device=grads[0].device)
-        for g in grads:
-            total = total + torch.sum(g.to(F32) ** 2)
-        return _scale(grads, total, max_norm)
+    global norm: :func:`clip_scale` with the scale applied."""
+    scaled, norm = clip_scale(grads, max_norm)
+    return [(g.to(F32) * scaled.scale).to(g.dtype) for g in scaled], norm
 
-
-def _scale(grads: Sequence[torch.Tensor], total: torch.Tensor,
-           max_norm: float) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    norm = torch.sqrt(total)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return [(g.to(F32) * scale).to(g.dtype) for g in grads], norm
-
-
-@torch.no_grad()
-def clip_by_global_norm_on_mesh(grads: Sequence[torch.Tensor],
-                                placements: Sequence[Sequence],
-                                mesh, max_norm: float
-                                ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """:func:`clip_by_global_norm` of sharded gradients: ``grads`` are
-    this rank's local shards, ``placements`` their DTensor placements on
-    ``mesh``. Each shard's squares count once (on the ranks at index 0 of
-    every mesh dim that replicates it), in leaf order, and one all-reduce
-    over the mesh's ranks sums them; on one rank it is
-    :func:`clip_by_global_norm` exactly."""
-    with ranges.span("optim.clip"):
-        coord = mesh.get_coordinate()
-        total = torch.zeros((), dtype=F32, device=grads[0].device)
-        for g, pl in zip(grads, placements):
-            if all(c == 0 for c, p in zip(coord, pl) if p.is_replicate()):
-                total = total + torch.sum(g.to(F32) ** 2)
-        if mesh.size() > 1:
-            torch.distributed.all_reduce(total)
-        return _scale(grads, total, max_norm)

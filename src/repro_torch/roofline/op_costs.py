@@ -15,7 +15,10 @@ registered op that runs inside it — on real tensors or under
     counterparts of what the reference leaves out, ``bitcast``,
     ``reshape``, ``tuple``, ``parameter``) count nothing. A registered op
     is one boundary: the flash forward counts q, k, v, o and lse once, as
-    a fusion counts in the HLO parser.
+    a fusion counts in the HLO parser. An op that returns nothing and
+    writes into its arguments (``strela::adamw_``) counts the tensors it
+    writes as its outputs: the update reads g, p, m and v and writes p, m
+    and v, 22 bytes a bf16 parameter.
   * **Collective bytes** — the input bytes of each ``c10d`` or
     ``_c10d_functional`` all-reduce, all-gather, reduce-scatter and
     all-to-all, keyed by the reference's five names (:data:`COLLECTIVES`);
@@ -92,6 +95,20 @@ def _tensors(tree: Any) -> List[torch.Tensor]:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _written(func, args, kwargs) -> List[Any]:
+    """The arguments that ``func``'s schema marks as written (``Tensor(a!)``
+    or ``Tensor(a!)[]``)."""
+    out = []
+    for i, a in enumerate(func._schema.arguments):
+        if a.alias_info is None or not a.alias_info.is_write:
+            continue
+        if a.name in kwargs:
+            out.append(kwargs[a.name])
+        elif i < len(args):
+            out.append(args[i])
+    return out
 
 
 def _is_dtensor(t: Any) -> bool:
@@ -181,14 +198,18 @@ class OpCosts(TorchDispatchMode):
         ins = [t for t in flat if isinstance(t, torch.Tensor)
                and t.device.type != "meta"]
         outs = [t for t in _tensors(out) if t.device.type != "meta"]
+        written = [] if outs else [
+            t for t in _tensors(_written(func, args, kwargs))
+            if t.device.type != "meta"]
         if func.namespace in _COLLECTIVE_NAMESPACES:
             kind = _COLLECTIVE_OPS.get(name)
             if kind is not None:
                 b = float(sum(_nbytes(t) for t in _tensors(args[kind[1]])))
                 self._coll[kind[0]] += b
                 self._record(self._coll_by, kind[0], func, ins, b)
-        if outs and name not in _NO_BYTES and not func.is_view:
-            b = float(sum(map(_nbytes, ins)) + sum(map(_nbytes, outs)))
+        if (outs or written) and name not in _NO_BYTES and not func.is_view:
+            b = float(sum(map(_nbytes, ins))
+                      + sum(map(_nbytes, outs or written)))
             self._bytes += b
             self._record(self._bytes_by, name, func, ins, b)
         for t in outs:
