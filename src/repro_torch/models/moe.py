@@ -4,8 +4,19 @@ of ``repro.models.moe``).
 Top-k routing -> sort by expert -> capacity-bounded dispatch into an
 ``(E, C, D)`` tensor -> stacked-expert products -> weighted combine, with
 the reference's load-balancing aux loss (Shazeer et al.). Pairs past an
-expert's capacity are dropped. The numerics follow the reference line by
-line:
+expert's capacity are dropped. Where none can be (``dropless``: a
+capacity of at least the call's N tokens, as an expert takes at most one
+pair a token), the one-device global path runs the routed pairs alone:
+sorted by expert, gathered once into ``(N k, D)`` rows, the three
+products grouped over each expert's run of rows (``torch._grouped_mm``
+with the run ends left on the device; on the card it takes bfloat16),
+and the rows put back in the ``(N, k)`` layout for the same combine. No
+slot is padded and no buffer of ``(E, C + 1, D)`` is made; the result is
+the capacity path's at ``C >= N`` up to the products' summation order.
+Both row moves gather in the forward and in the backward, so the
+gradient of a token's input sums its ``k`` rows in their ``(N, k)``
+order, as the capacity path's does. The numerics follow the reference
+line by line:
 
   * the router is a float32 leaf even in a bfloat16 model, and the logits,
     softmax and aux loss are float32 (TF32 stays off, PyTorch's default);
@@ -28,7 +39,14 @@ go to a spare slot ``C`` of an ``(E, C + 1, D)`` buffer that is cut away
 (the reference adds zeros at slot 0, which a non-accumulating write would
 turn into an overwrite of the kept token), and the combine adds in a
 ``(N, k)`` layout without atomics, so two runs on the card give the same
-bits. Nothing here reads a value back to the host.
+bits. Nothing here reads a value back to the host, unless ``obs``
+records: then each call of the global path counts its routed pairs
+(``moe.routed_pairs``), the pairs it dropped (``moe.dropped_pairs``) and
+the busiest expert's pairs over the mean (the gauge
+``moe.expert_load_max_over_mean``). Its three stages are the spans
+``moe.route`` (router, top-k, aux loss, slot plan and dispatch),
+``moe.experts`` (the three products and SiLU) and ``moe.combine`` (the
+rows put back and combined), in ``obs.ranges``.
 
 ``impl``: without a mesh, or with a 'model' axis of one, both "gspmd" and
 "shard_map" run the global path, as in the reference. On a mesh the
@@ -51,8 +69,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import MoESpec
 from repro_torch.models import layers as L
+from repro_torch.obs import ranges
 from repro_torch.runtime import tp
 from repro_torch.runtime.partition import current_mesh
 
@@ -144,6 +164,72 @@ def _pairs_before(gate_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
     return sum(counts[:idx], torch.zeros_like(counts[0]))
 
 
+def dropless(spec: MoESpec, n_tokens: int) -> bool:
+    """Whether no pair of ``n_tokens`` tokens can be dropped: a token's k
+    experts are distinct, so no expert gets more than ``n_tokens`` pairs."""
+    return capacity(spec, n_tokens) >= n_tokens
+
+
+def sort_pairs(gate_idx: torch.Tensor, n_experts: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The routed pairs sorted by expert, in token order within an expert:
+    ``order`` (the sorted pairs' flat (N, k) indices), ``inverse`` (each
+    pair's place in that order) and each expert's run end as int32
+    offsets, all on the device."""
+    flat_e = gate_idx.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    inverse = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.numel(), device=order.device))
+    ends = torch.cumsum(expert_counts(gate_idx, n_experts), 0)
+    return order, inverse, ends.to(torch.int32)
+
+
+class _Rows(torch.autograd.Function):
+    """``x``'s row ``index // k`` for each entry of ``index``. Its gradient
+    is gathered too, by ``inverse`` (``index``'s inverse permutation),
+    and each of ``x``'s rows sums its ``k`` copies in their order: no
+    scatter and no atomics, so two runs give the same bits."""
+
+    @staticmethod
+    def forward(ctx, x, index, inverse, k):
+        ctx.save_for_backward(inverse)
+        ctx.k = k
+        return x.index_select(0, index // k if k > 1 else index)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inverse,) = ctx.saved_tensors
+        g = g.index_select(0, inverse)
+        if ctx.k > 1:
+            g = g.view(-1, ctx.k, g.shape[-1]).sum(1)
+        return g, None, None, None
+
+
+def swiglu_experts(x: torch.Tensor, w_gate: torch.Tensor,
+                   w_up: torch.Tensor, w_down: torch.Tensor,
+                   matmul) -> torch.Tensor:
+    """The experts' SwiGLU by ``matmul`` (``torch.bmm`` over slots, or a
+    grouped product over runs of rows): the products in ``x``'s dtype,
+    SiLU in float32 rounded back before the up product."""
+    h_g = matmul(x, w_gate)
+    h_u = matmul(x, w_up)
+    h = F.silu(h_g.to(F32)).to(x.dtype) * h_u
+    return matmul(h, w_down)
+
+
+def _count(gate_idx: torch.Tensor, n_experts: int,
+           keep: Optional[torch.Tensor]) -> None:
+    """The call's ``obs`` counters and load gauge (host reads: only while
+    ``obs`` records)."""
+    pairs = gate_idx.numel()
+    dropped = 0 if keep is None else int((~keep).sum())
+    busiest = int(expert_counts(gate_idx, n_experts).max())
+    obs.inc("moe.routed_pairs", pairs)
+    obs.inc("moe.dropped_pairs", dropped)
+    obs.set_gauge("moe.expert_load_max_over_mean",
+                  busiest * n_experts / pairs)
+
+
 def moe_apply(p: Dict, spec: MoESpec, d_ff: int, x: torch.Tensor,
               impl: str = "gspmd") -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out in x's dtype, float32 aux loss)."""
@@ -157,36 +243,53 @@ def moe_apply(p: Dict, spec: MoESpec, d_ff: int, x: torch.Tensor,
     N = B * S
     E, k = spec.n_experts, spec.top_k
     xf = x.reshape(N, D)
-    probs, gate_vals, gate_idx = route({"router": tp.whole(p["router"])},
-                                       spec, x)
-
-    # aux load-balance loss: E * mean(density_e * mean_prob_e), the means
-    # over the global batch
     _, nb = tp.batch_split()
-    one_hot = F.one_hot(gate_idx, E).sum(1).to(F32)
-    if nb == 1:
-        density, mean_p = one_hot.mean(0), probs.mean(0)
-    else:
-        density = tp.reduce_batch(one_hot.sum(0)) / (N * nb)
-        mean_p = tp.reduce_batch(probs.sum(0)) / (N * nb)
-    aux = spec.aux_coef * E * torch.mean(density * mean_p)
+    grouped = nb == 1 and dropless(spec, N)
+    with ranges.span("moe.route"):
+        probs, gate_vals, gate_idx = route(
+            {"router": tp.whole(p["router"])}, spec, x)
 
-    # ---- sort-based capacity dispatch, dropped pairs to spare slot C ----
-    C = capacity(spec, N * nb)
-    before = _pairs_before(gate_idx, E) if nb > 1 else None
-    slot, _ = dispatch_slots(gate_idx, E, C, before)
-    dispatch = torch.zeros(E, C + 1, D, dtype=x.dtype, device=x.device)
-    dispatch[gate_idx, slot] = xf[:, None, :].expand(N, k, D)
-    dispatch = dispatch[:, :C]
+        # aux load-balance loss: E * mean(density_e * mean_prob_e), the
+        # means over the global batch
+        one_hot = F.one_hot(gate_idx, E).sum(1).to(F32)
+        if nb == 1:
+            density, mean_p = one_hot.mean(0), probs.mean(0)
+        else:
+            density = tp.reduce_batch(one_hot.sum(0)) / (N * nb)
+            mean_p = tp.reduce_batch(probs.sum(0)) / (N * nb)
+        aux = spec.aux_coef * E * torch.mean(density * mean_p)
 
-    h_g = torch.bmm(dispatch, tp.whole(p["w_experts_gate"]))
-    h_u = torch.bmm(dispatch, tp.whole(p["w_experts_up"]))
-    h = F.silu(h_g.to(F32)).to(x.dtype) * h_u
-    eout = torch.bmm(h, tp.whole(p["w_experts_down"]))   # (E, C, D)
+        keep = None
+        if grouped:
+            # ---- dropless: the pairs' rows, sorted by expert ----
+            order, inverse, ends = sort_pairs(gate_idx, E)
+            rows_in = _Rows.apply(xf, order, inverse, k)
+        else:
+            # ---- sort-based capacity dispatch, dropped pairs to spare
+            # slot C ----
+            C = capacity(spec, N * nb)
+            before = _pairs_before(gate_idx, E) if nb > 1 else None
+            slot, keep = dispatch_slots(gate_idx, E, C, before)
+            dispatch = torch.zeros(E, C + 1, D, dtype=x.dtype,
+                                   device=x.device)
+            dispatch[gate_idx, slot] = xf[:, None, :].expand(N, k, D)
+            rows_in = dispatch[:, :C]
+        if obs.enabled():
+            _count(gate_idx, E, keep)
 
-    # ---- combine: the spare slot reads zeros ----
-    eout = F.pad(eout, (0, 0, 0, 1))
-    out = combine(eout[gate_idx, slot], gate_vals, gate_idx).view(B, S, D)
+    with ranges.span("moe.experts"):
+        matmul = (lambda a, w: torch._grouped_mm(a, w, offs=ends)) \
+            if grouped else torch.bmm
+        eout = swiglu_experts(rows_in, tp.whole(p["w_experts_gate"]),
+                              tp.whole(p["w_experts_up"]),
+                              tp.whole(p["w_experts_down"]), matmul)
+
+    with ranges.span("moe.combine"):
+        if grouped:
+            rows = _Rows.apply(eout, inverse, order, 1).view(N, k, D)
+        else:   # the spare slot reads zeros
+            rows = F.pad(eout, (0, 0, 0, 1))[gate_idx, slot]
+        out = combine(rows, gate_vals, gate_idx).view(B, S, D)
     if "shared" in p:
         out = out + L.mlp(p["shared"], L.MlpCfg(D, d_ff), x)
     return out, aux
@@ -230,10 +333,10 @@ def _moe_expert_parallel(p: Dict, spec: MoESpec, d_ff: int, x: torch.Tensor
     def experts(name: str) -> torch.Tensor:
         w = tp.part(p[name], 0, bounds)     # zero-padded to E_loc experts
         return F.pad(w, (0, 0, 0, 0, 0, E_loc - w.shape[0]))
-    h_g = torch.bmm(dispatch, experts("w_experts_gate"))
-    h_u = torch.bmm(dispatch, experts("w_experts_up"))
-    h = F.silu(h_g.to(F32)).to(x.dtype) * h_u
-    eout = F.pad(torch.bmm(h, experts("w_experts_down")), (0, 0, 0, 1))
+    eout = swiglu_experts(dispatch, experts("w_experts_gate"),
+                          experts("w_experts_up"), experts("w_experts_down"),
+                          torch.bmm)
+    eout = F.pad(eout, (0, 0, 0, 1))
     out = combine(eout[le, slot], gate_vals, gate_idx)
     out = tp.leave_model(out).view(B, S, D)
     if "shared" in p:

@@ -1,6 +1,6 @@
 """Spans on the profiler's clock: ``obs`` spans that also show in a
 ``torch.profiler`` trace, for code whose time lies on the device (the
-training step's phases).
+training step's phases, the MoE layer's stages).
 
 ``span(name)`` is a context manager:
 
@@ -30,7 +30,12 @@ The spans the port opens, and the benchmark metrics that read them:
   ``clip_scale_on_mesh`` (the norm and the clipping scale);
   ``clip_device_ms``;
 * ``optim.adamw``: ``optim/adamw.py`` ``AdamW.update``;
-  ``adamw_device_ms``.
+  ``adamw_device_ms``;
+* ``moe.route``, ``moe.experts``, ``moe.combine``: ``models/moe.py``
+  ``moe_apply`` (the router, top-k, aux loss, slot plan and gather; the
+  three expert products and SiLU; the rows put back and combined), in
+  each MoE layer's forward, so inside ``train.forward`` in a training
+  step; ``moe_route_ms``, ``moe_experts_roofline``, ``moe_combine_ms``.
 """
 from __future__ import annotations
 

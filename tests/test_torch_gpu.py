@@ -727,6 +727,51 @@ def test_moe_apply_makes_no_host_sync_on_the_card(cuda):
                                atol=3e-2, rtol=3e-2)
 
 
+def _rel(a, b):
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).norm() / b.norm())
+
+
+def test_dropless_moe_on_the_card_reads_nothing_back(cuda, monkeypatch):
+    """granite's widths in bf16 at capacity factor E / k = 5, 2 x 512
+    tokens: the dropless path's forward and backward run under
+    ``set_sync_debug_mode("error")``, give the same bits twice, and match
+    the capacity path at C = N. Tolerance: the two paths sum the products
+    in other orders, so outputs and gradients (bf16, one rounding 2^-9)
+    differ by a few roundings: a relative 2-norm gap under 1e-2."""
+    import dataclasses
+    from repro_torch.models import moe as M
+    cfg, p = _granite_moe()
+    spec = dataclasses.replace(cfg.moe, capacity_factor=5.0)
+    assert M.dropless(spec, 1024)
+    pc = {k: v.to(cuda).requires_grad_() for k, v in p.items()}
+    x = _moe_input(cfg, 1024).view(2, 512, -1).to(cuda).requires_grad_()
+    w = torch.randn(x.shape, generator=torch.Generator(cuda).manual_seed(1),
+                    device=cuda, dtype=torch.bfloat16)
+
+    def step():
+        out, aux = M.moe_apply(pc, spec, cfg.d_ff, x)
+        grads = torch.autograd.grad((out * w).float().sum() + aux,
+                                    [x] + list(pc.values()))
+        return [out, aux] + list(grads)
+
+    step()                                   # warm: allocations
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    again = step()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    monkeypatch.setattr(M, "dropless", lambda spec, n: False)
+    padded = step()
+    assert first[0].dtype == torch.bfloat16
+    assert pc["router"].dtype == torch.float32
+    for got, want in zip(first, padded):
+        assert _rel(got, want) < 1e-2
+
+
 def test_serve_lm_moe_at_full_width_launches_flash_per_layer_and_step(cuda):
     """granite-moe-3b-a800m at full width, cut to 2 layers, serving batch
     4 x (32 + 16) tokens on the card: one flash launch per layer and

@@ -6,14 +6,15 @@ the reference's own parameters (``moe_init(PRNGKey(0))``).
 reduced specs (4 experts, top-2; top-1 with a shared expert), in float32
 and bfloat16, at N = 32 tokens (C = 20 for granite), N = 2 (C = 1: the
 second token repeats the first, so it finds its experts full) and with
-``capacity_factor`` 8 (no drop): the output, the aux loss, the routing,
-the keep mask and C. The reference does not return its routing or
+``capacity_factor`` 8 (no drop, so the layer takes its dropless path):
+the output, the aux loss, the routing, the keep mask and C. The reference does not return its routing or
 dispatch plan, so the test reruns its lines (``src/repro/models/moe.py``
 :54-59 and :67-78) on the reference's arrays.
 
 Tolerances are ``tests/test_torch_lm_parity.py``'s: float32 outputs 2e-4,
-the float32 aux loss 1e-5 relative, bfloat16 3e-2 + 3e-2 |x|. Then one
-test per numeric contract of the layer, each failing without it."""
+the float32 aux loss 1e-5 relative, bfloat16 3e-2 + 3e-2 |x|. The dropless path is held to the capacity
+path where C >= N, output, aux loss and gradients. Then one test per
+numeric contract of the layer, each failing without it."""
 import dataclasses
 
 import jax
@@ -140,6 +141,104 @@ def test_moe_apply_matches_the_reference(name, dtype, case):
         assert not keep.all()
     if case == "cf8_no_drops":
         assert keep.all()
+
+
+# ---------------------------------------------------------------------------
+# the dropless path
+# ---------------------------------------------------------------------------
+
+def _out_aux_grads(pp, spec, d_ff, x, w):
+    """``moe_apply``'s output, aux loss and the gradients of
+    ``sum(out * w) + aux`` with respect to x and every leaf."""
+    leaves = {k: v.clone().requires_grad_() for k, v in pp.items()
+              if isinstance(v, torch.Tensor)}
+    params = dict(pp, **leaves)
+    x = x.clone().requires_grad_()
+    out, aux = M.moe_apply(params, spec, d_ff, x)
+    grads = torch.autograd.grad((out * w).sum() + aux,
+                                [x] + list(leaves.values()))
+    return [out, aux] + list(grads)
+
+
+@pytest.mark.parametrize("factor", ["cf8", "e_over_k"])
+@pytest.mark.parametrize("name", sorted(SPECS))
+def test_the_dropless_path_equals_the_capacity_path(name, factor,
+                                                    monkeypatch):
+    """Where no pair can be dropped (capacity factor 8, and exactly E / k,
+    where C = N), the dropless path (pairs sorted by expert, grouped
+    products) gives the capacity path's output, aux loss and every
+    gradient, the shared expert's included, in float32. Routing and the
+    combine's order are the same, so only the products' summation order
+    may differ: 1e-6."""
+    _, pcfg = _cfg(name)
+    spec = pcfg.moe
+    cf = 8.0 if factor == "cf8" else spec.n_experts / spec.top_k
+    spec = dataclasses.replace(spec, capacity_factor=cf)
+    n = 32
+    assert M.dropless(spec, n)
+    if factor == "e_over_k":
+        assert M.capacity(spec, n) == n
+    rcfg, _ = _cfg(name)
+    _, pp = _layer(rcfg, "float32")
+    _, xt = _inputs(rcfg, n, "float32")
+    w = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        tuple(xt.shape)).astype(np.float32))
+    sorted_calls = []
+    real_sort = M.sort_pairs
+    monkeypatch.setattr(M, "sort_pairs", lambda *a: sorted_calls.append(1)
+                        or real_sort(*a))
+    grouped = _out_aux_grads(pp, spec, pcfg.d_ff, xt, w)
+    assert sorted_calls == [1]
+    monkeypatch.setattr(M, "dropless", lambda spec, n: False)
+    padded = _out_aux_grads(pp, spec, pcfg.d_ff, xt, w)
+    assert sorted_calls == [1]
+    assert len(grouped) == len(padded) >= 6
+    for got, want in zip(grouped, padded):
+        assert got.dtype == want.dtype
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("n,k,n_experts", [(4096, 8, 40), (32, 2, 4),
+                                            (5, 1, 4), (1, 8, 40)])
+def test_sort_pairs_is_a_stable_sort_by_expert(n, k, n_experts):
+    """``sort_pairs`` orders the pairs by expert and by token within an
+    expert, with ``inverse`` its inverse permutation and the run ends the
+    running sum of each expert's pairs as int32 offsets; half the tokens
+    routed alike, as a router that sends every token to the same experts
+    routes them."""
+    gen = torch.Generator().manual_seed(n)
+    gate_idx = torch.stack([torch.randperm(n_experts, generator=gen)[:k]
+                            for _ in range(n)])
+    gate_idx[:n // 2] = gate_idx[0]
+    order, inverse, ends = M.sort_pairs(gate_idx, n_experts)
+    flat_e = gate_idx.reshape(-1)
+    assert torch.equal(order, torch.sort(flat_e, stable=True).indices)
+    assert torch.equal(inverse[order], torch.arange(n * k))
+    assert ends.dtype == torch.int32
+    assert torch.equal(ends.long(), torch.cumsum(
+        M.expert_counts(gate_idx, n_experts), 0))
+
+
+def test_a_capacity_under_e_over_k_keeps_the_capacity_path(monkeypatch):
+    """Just under E / k (granite's reduced spec: 4 experts top-2, factor
+    1.99, so C = 31 at N = 32) the layer keeps the capacity path and drops
+    as the reference does: 32 equal tokens fill their two experts, and
+    the last token gets nothing. The dropless path's sort is never
+    called."""
+    rcfg, pcfg = _cfg("granite", capacity_factor=1.99)
+    assert not M.dropless(pcfg.moe, 32) and M.capacity(pcfg.moe, 32) == 31
+    assert M.dropless(dataclasses.replace(pcfg.moe, capacity_factor=2.0), 32)
+
+    def never(*args):
+        raise AssertionError("the dropless path ran")
+    monkeypatch.setattr(M, "sort_pairs", never)
+    rp, pp = _layer(rcfg, "float32")
+    xr, xt = _inputs(rcfg, 32, "float32", repeat=True)
+    want = _f32(RM.moe_apply(rp, rcfg.moe, rcfg.d_ff, xr)[0])
+    got = _f32(M.moe_apply(pp, pcfg.moe, pcfg.d_ff, xt)[0])
+    np.testing.assert_allclose(got, want, **TOL["float32"])
+    np.testing.assert_array_equal(got[0, 31], 0.0)
+    assert (np.abs(got[0, :31]).sum(-1) > 0).all()
 
 
 # ---------------------------------------------------------------------------
