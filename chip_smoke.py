@@ -3246,6 +3246,22 @@ TRAIN_PROFILED = (4, 5)          # the steps profiled in (c)
 # bfloat16 outputs round to 8 bits and the Function's D uses the rounded o
 BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LSE_TOL = 1e-5                   # natural-log units, against logsumexp
+# the bf16 tensor-core route at the train cells' attention (minicpm-2b at
+# 4,096, granite over 2 x 24 heads at 2,048), d 64, causal; its kernels'
+# rows are timed at the first
+TC_SHAPES = (("minicpm-2b.train-4k", 36, 4096, 4096, 64, True),
+             ("granite-3.0-3b-a800m.train-2x2048", 48, 2048, 2048, 64, True))
+TC_FWD_TOL = 2 ** -7             # bf16 output, abs against the plain version
+# bf16 passes of 2 d flop a pair: the forward S and O = PV (three pieces);
+# dkdv S^T, dP^T, dV and dK; dq S, dP and dQ; the backward's least work S,
+# dP, dV, dQ, dK (11)
+TC_PASSES = {"flash_kernel_tc": 4, "flash_bwd_dkdv_kernel_tc": 8,
+             "flash_bwd_dq_kernel_tc": 5, "backward": 11}
+# share of output and gradient elements equal to the float32 route's
+# rounded to bfloat16 (bench_flash.route_agreement): float32-grade products
+# miss only at rounding boundaries (the route read 0.9963 at the least, on
+# O at 4,096 keys), P and dS cut to one bfloat16 piece near 0.58
+TC_AGREE = 0.99
 TRAIN_CPU_STEPS = 2
 TRAIN_REDUCED_BATCH, TRAIN_REDUCED_SEQ = 2, 32
 # card against CPU after TRAIN_CPU_STEPS AdamW steps (wsd, lr 6e-5 then
@@ -3290,11 +3306,36 @@ def check_optimizer_counts(label, n_leaves, steps):
     return got
 
 
+def reset_flash_counts():
+    from repro_torch.kernels import flash_attention as fa
+    fa.launches = fa.plain_calls = fa.backward_plain_calls = 0
+    fa.bwd_preprocess_launches = fa.bwd_dkdv_launches = \
+        fa.bwd_dq_launches = 0
+    fa.tc_launches = fa.bwd_tc_launches = 0
+    fa.bwd_dkdv_tc_launches = fa.bwd_dq_tc_launches = 0
+
+
+def flash_counts():
+    """The flash kernels' launches since :func:`reset_flash_counts`, by
+    kernel (either route), those on the bf16 route under their kernels'
+    names, and the backward calls on the route."""
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_kernel": fa.launches,
+            "flash_bwd_preprocess": fa.bwd_preprocess_launches,
+            "flash_bwd_dkdv": fa.bwd_dkdv_launches,
+            "flash_bwd_dq": fa.bwd_dq_launches,
+            "flash_kernel_tc": fa.tc_launches,
+            "flash_bwd_dkdv_kernel_tc": fa.bwd_dkdv_tc_launches,
+            "flash_bwd_dq_kernel_tc": fa.bwd_dq_tc_launches,
+            "flash_bwd_tc_calls": fa.bwd_tc_launches}
+
+
 def phase_train_bwd(device):
     """(a) the three backward kernels against autograd of the plain version
     at every shape training reaches, float32 and bf16, twice (bit-equal),
-    the forward's lse against logsumexp; times in float32 (the path's
-    dtype: the LM hands attention float32 q, k, v), each beside two
+    the forward's lse against logsumexp; times in float32, the float32
+    route's (the CGRA ops path and float32 configs; the bf16 LM takes the
+    tensor-core route, timed by :func:`phase_train_tc`), each beside two
     bounds (the products on the FP32 units and on the TF32 tensor cores
     in three passes), SDPA's backward alone and its forward + backward."""
     import numpy as np
@@ -3475,6 +3516,136 @@ def bwd_kernel_rows(q, k, v, o, lse, do, causal):
     return out
 
 
+def phase_train_tc(device):
+    """(a') the bf16 tensor-core route at the train cells' attention
+    (``TC_SHAPES``): forward and backward on bfloat16 inputs against the
+    plain version (output within ``TC_FWD_TOL``, lse within ``LSE_TOL``,
+    gradients within the bf16 ``BWD_REL_TOL`` of max |plain|), twice
+    (bit-equal), every launch on the route, and the shares of elements
+    equal to the float32 route's rounded results at least ``TC_AGREE``
+    where P and dS cut to one piece fall below it. At the first shape each
+    kernel alone: events time beside the plain version on the same inputs,
+    the bound (``TC_PASSES`` bf16 passes at 989 TFLOP/s, or the bytes) and
+    SDPA (its forward for the forward; its whole backward, which does
+    both, for each backward kernel)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.bench_flash import route_agreement
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(SEED + 35)
+    rows = {}
+    for label, h, sq, sk, d, causal in TC_SHAPES:
+        q, do = (normal(rng, (h, sq, d), device, torch.bfloat16)
+                 for _ in range(2))
+        k, v = (normal(rng, (h, sk, d), device, torch.bfloat16)
+                for _ in range(2))
+        reset_flash_counts()
+        o, lse = fa.attention_lse_kernel(q, k, v, causal)
+        o2, lse2 = fa.attention_lse_kernel(q, k, v, causal)
+        got = fa.attention_backward_kernel(q, k, v, o, lse, do, causal)
+        again = fa.attention_backward_kernel(q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        counts = flash_counts()
+        check(all(n == 2 for n in counts.values()),
+              f"flash bf16 route {label}: launches {counts} (want 2 each)")
+        check(torch.equal(o, o2) and torch.equal(lse, lse2) and all(
+            torch.equal(a, b) for a, b in zip(got, again)),
+            f"flash bf16 route {label}: two runs differ")
+        o_p, lse_p = ref.flash_attention_lse(q, k, v, causal)
+        e_o = float((o.float() - o_p.float()).abs().max())
+        e_lse = float((lse - lse_p).abs().max())
+        del o_p, lse_p, o2, lse2, again
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(ref.flash_attention(*leaves,
+                                                       causal=causal),
+                                   leaves, do)
+        errs = [float((a.float() - b.float()).abs().max()
+                      / b.float().abs().max()) for a, b in zip(got, want)]
+        del want, leaves
+        check(e_o <= TC_FWD_TOL and e_lse <= LSE_TOL
+              and all(e <= BWD_REL_TOL["bfloat16"] for e in errs),
+              f"flash bf16 route {label}: output max abs err {e_o} (limit "
+              f"{TC_FWD_TOL}), lse {e_lse} (limit {LSE_TOL}), dq, dk, dv "
+              f"max |d| / max |ref| {errs} (limit "
+              f"{BWD_REL_TOL['bfloat16']})")
+        torch.cuda.empty_cache()
+        agree = route_agreement(fa, q, k, v, do, causal, pieces=(1,))
+        torch.cuda.empty_cache()
+        low, one = min(agree["kernels"].values()), agree["plain_1"]
+        check(low >= TC_AGREE and min(one.values()) < TC_AGREE,
+              f"flash bf16 route {label}: shares equal to the float32 "
+              f"route's {agree['kernels']} (want >= {TC_AGREE}), one piece "
+              f"of P and dS {one} (want one below it)")
+        print(f"[train] (a') bf16 route {label}, h={h} sq={sq} sk={sk} "
+              f"d={d} causal={causal}: output max abs err {e_o:.3e}, lse "
+              f"{e_lse:.3e}; max |d| / max |ref| dq {errs[0]:.3e}, dk "
+              f"{errs[1]:.3e}, dv {errs[2]:.3e}; two runs bit-identical; "
+              f"launches {counts}; shares equal to the float32 route's "
+              f"{({n: round(x, 6) for n, x in agree['kernels'].items()})}, "
+              f"one piece {({n: round(x, 6) for n, x in one.items()})}")
+        if rows:
+            del q, k, v, do, o, lse, got
+            torch.cuda.empty_cache()
+            continue
+        delta = fa.bwd_preprocess_kernel(o, do)
+        pairs = allowed_pairs(h, sq, sk, causal)
+        c = causal and sq == sk          # SDPA's mask is start-aligned
+        lv = [t.clone().requires_grad_() for t in (q, k, v)]
+        with torch.no_grad():
+            sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=c))
+        out = F.scaled_dot_product_attention(lv[0][None], lv[1][None],
+                                             lv[2][None], is_causal=c)
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            out, lv, do[None], retain_graph=True), reps=10)
+        del out, lv
+        plain_fwd_ms = time_ms(lambda: ref.flash_attention_lse(
+            q, k, v, causal), reps=5, warm=1)
+        plain_bwd_ms = time_ms(lambda: ref.flash_attention_backward(
+            q, k, v, o, lse, do, causal), reps=5, warm=1)
+        tile = 2 * h * d                 # bytes a position of a bf16 tensor
+        cases = {
+            # q, k, v read; o and lse written
+            "flash_kernel_tc": (
+                lambda: fa.attention_lse_kernel(q, k, v, causal),
+                plain_fwd_ms, sdpa_fwd_ms, e_o,
+                tile * (2 * sq + 2 * sk) + 4 * h * sq),
+            # q, dO, k, v, lse and D read; dk, dv written
+            "flash_bwd_dkdv_kernel_tc": (
+                lambda: fa.bwd_dkdv_kernel(q, k, v, do, lse, delta, causal),
+                plain_bwd_ms, sdpa_bwd_ms, max(errs[1:]),
+                tile * (2 * sq + 4 * sk) + 8 * h * sq),
+            # q, dO, k, v, lse and D read; dq written
+            "flash_bwd_dq_kernel_tc": (
+                lambda: fa.bwd_dq_kernel(q, k, v, do, lse, delta, causal),
+                plain_bwd_ms, sdpa_bwd_ms, errs[0],
+                tile * (3 * sq + 2 * sk) + 8 * h * sq)}
+        for name, (fn, p_ms, lib_ms, e, n_bytes) in cases.items():
+            ms = time_ms(fn)
+            b_ms, b_by = dense_bound(n_bytes, TC_PASSES[name] * 2 * d * pairs,
+                                     BF16_FLOP_PER_S)
+            rows[name] = dict(ms=ms, plain_ms=p_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=lib_ms,
+                              max_abs_err=e)
+            print(f"[train] (a') {name} alone, {label} h={h} sq={sq} sk={sk}"
+                  f" d={d} bf16: {ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by}; {TC_PASSES[name]} bf16 passes at "
+                  f"989 TFLOP/s), share {b_ms / ms:.3f}; SDPA "
+                  f"{'forward' if name == 'flash_kernel_tc' else 'backward'}"
+                  f" {lib_ms:.4f} ms, kernel / SDPA {ms / lib_ms:.3f}")
+        bwd_ms = time_ms(lambda: fa.attention_backward_kernel(
+            q, k, v, o, lse, do, causal))
+        b_ms = TC_PASSES["backward"] * 2 * d * pairs / BF16_FLOP_PER_S * 1e3
+        print(f"[train] (a') bf16 backward (3 kernels) {label}: {bwd_ms:.4f} "
+              f"ms, bound {b_ms:.5f} ms (11 bf16 passes), share "
+              f"{b_ms / bwd_ms:.3f}; SDPA backward {sdpa_bwd_ms:.4f} ms")
+        del q, k, v, do, o, lse, got, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
 def train_run(cfg, tree, device, compress):
     """TRAIN_CPU_STEPS of ``make_step`` from the reference-layout ``tree``
     on ``device``: losses, gnorms and the parameters after."""
@@ -3519,6 +3690,7 @@ def phase_train(device):
     from repro_torch.models.api import build_model
 
     rows, kernel_rows = phase_train_bwd(device)
+    kernel_rows.update(phase_train_tc(device))
 
     # (b) 2 steps on the card against the CPU, float32, one set of params
     for arch in (TRAIN_ARCH, AUDIO_ARCH):
@@ -3567,9 +3739,7 @@ def phase_train(device):
         elif step == TRAIN_PROFILED[-1]:
             prof["p"].stop()
     n_leaves = len(train_leaf_shapes())
-    fa.launches = fa.plain_calls = fa.backward_plain_calls = 0
-    fa.bwd_preprocess_launches = fa.bwd_dkdv_launches = \
-        fa.bwd_dq_launches = 0
+    reset_flash_counts()
     reset_optimizer_counts()
     t0 = time.perf_counter()
     losses = train.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
@@ -3578,19 +3748,17 @@ def phase_train(device):
                          str(SEED), "--device", str(device)],
                         on_step=on_step)
     wall = time.perf_counter() - t0
-    counts = {"flash_kernel": fa.launches,
-              "flash_bwd_preprocess": fa.bwd_preprocess_launches,
-              "flash_bwd_dkdv": fa.bwd_dkdv_launches,
-              "flash_bwd_dq": fa.bwd_dq_launches}
+    counts = flash_counts()
     plain = (fa.plain_calls, fa.backward_plain_calls)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = full.n_layers * TRAIN_STEPS
     check(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(),
           f"train {TRAIN_ARCH}: losses {losses}")
+    # bf16 q, k, v at d 64: every launch and backward call on the route
     check(all(n == want for n in counts.values()) and plain == (0, 0),
           f"train {TRAIN_ARCH}: launches {counts} (want {want} each: "
-          f"{full.n_layers} layers x {TRAIN_STEPS} steps), plain calls "
-          f"{plain} (want 0)")
+          f"{full.n_layers} layers x {TRAIN_STEPS} steps, every one on the "
+          f"bf16 route), plain calls {plain} (want 0)")
     opt_counts = check_optimizer_counts(f"train {TRAIN_ARCH}", n_leaves,
                                         TRAIN_STEPS)
     dts = [marks[i] - marks[i - 1] for i in range(1, TRAIN_STEPS)]
@@ -3750,9 +3918,7 @@ def phase_mesh(device, phase18):
             prof["p"].stop()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = fa.plain_calls = fa.backward_plain_calls = 0
-    fa.bwd_preprocess_launches = fa.bwd_dkdv_launches = \
-        fa.bwd_dq_launches = 0
+    reset_flash_counts()
     reset_optimizer_counts()
     PT.place_model = place
     try:
@@ -3763,10 +3929,7 @@ def phase_mesh(device, phase18):
                              "--model-axis", "1"], on_step=on_step)
     finally:
         PT.place_model = real_place
-    counts = {"flash_kernel": fa.launches,
-              "flash_bwd_preprocess": fa.bwd_preprocess_launches,
-              "flash_bwd_dkdv": fa.bwd_dkdv_launches,
-              "flash_bwd_dq": fa.bwd_dq_launches}
+    counts = flash_counts()
     plain = (fa.plain_calls, fa.backward_plain_calls)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     model = placed[0]
@@ -4083,9 +4246,7 @@ def phase_dryrun(device, phase18):
                                  seed=SEED))
     batch = train.make_batch(cfg, pipe, 0, TRAIN_BATCH, device)
     step = dryrun.make_train_step(api, opt)
-    fa.launches = fa.plain_calls = fa.backward_plain_calls = 0
-    fa.bwd_preprocess_launches = fa.bwd_dkdv_launches = \
-        fa.bwd_dq_launches = 0
+    reset_flash_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4429,12 +4590,16 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    # a float32 backward row's launches: its kernel's, less the bf16 route's
+    on_tc = {"flash_bwd_dkdv": "flash_bwd_dkdv_kernel_tc",
+             "flash_bwd_dq": "flash_bwd_dq_kernel_tc"}
     for kname, r in bwd_rows.items():
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:68",
-            "launches": train_launches[kname],
+            "launches": train_launches[kname]
+            - train_launches.get(on_tc.get(kname), 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

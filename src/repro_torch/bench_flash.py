@@ -3,7 +3,7 @@
 Run on a machine with one NVIDIA card, from the repository root:
 
     python3 src/repro_torch/bench_flash.py [--src DIR] [--backward
-        [--shape LABEL]]
+        [--shape LABEL]] [--dtype bf16]
 
 It builds the kernels of ``DIR/repro_torch`` (the ``src`` directory beside
 this file unless ``--src`` names another, so that one run can time two
@@ -31,6 +31,23 @@ profiler device time, on the same inputs and over 4 rotated input sets. The kern
 dk, dv must stay within 1e-4 of max |plain| of the plain backward.
 ``--shape`` keeps the shapes whose label starts with LABEL.
 
+With ``--dtype bf16``: at the benchmark cells' attention shapes and the
+decode shape (``BF16_SHAPES``, bfloat16, each layer's heads times the
+batch) it prints one JSON line with the forward (with lse) and the
+backward (the three kernels) by CUDA events, dkdv and dq alone, which
+route ran (``tc_launches`` and ``bwd_tc_launches``, null for a tree that
+has no bf16 route), the bf16 bound (passes x 2 x pairs x d over 989
+TFLOP/s: 4 passes forward, S and O = PV in three pieces; 11 backward: S,
+dP, and dV, dQ, dK in three pieces each) and SDPA forward and forward +
+backward on the same inputs (a yardstick only; its causal mask is
+start-aligned, so the decode shape runs it without), and under
+``agreement`` the shares of output and gradient elements that equal the
+float32 route's rounded to bfloat16 (:func:`route_agreement`), for the
+kernels and for P and dS cut to one, two and three pieces. The kernels' output
+must stay within 2^-7 and their gradients within 2e-2 of max |plain|, as
+the GPU tests hold them. ``--src`` on the parent tree times its kernels on
+the same inputs, in turns.
+
 The last line names the card and its power limit.
 """
 from __future__ import annotations
@@ -44,6 +61,10 @@ import sys
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 TF32X3_FLOP_PER_S = 495e12 / 3   # TF32 tensor cores, three passes a product
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+BF16_PASSES = {"forward": 4, "backward": 11}   # bf16 passes a product pair
+BF16_FWD_TOL = 2 ** -7         # the GPU tests' bf16 forward tolerance
+BF16_BWD_TOL = 2e-2            # and backward, of max |plain|
 TOL = 3e-5                     # the reference tests' attention tolerance
 BWD_REL_TOL = 1e-4             # the backward, of max |plain| (float32)
 SEED = 0
@@ -56,6 +77,12 @@ BWD_SHAPES = (("minicpm-2b", 4 * 36, 512, 512, 64, True),
                True),
               ("whisper-base encoder", 4 * 8, 1500, 1500, 64, False),
               ("whisper-base cross-attention", 4 * 8, 512, 1500, 64, False))
+# (label, heads, sq, sk, d, causal): the bf16 cells' attention, and decode
+BF16_SHAPES = (("minicpm-2b.train-4k", 36, 4096, 4096, 64, True),
+               ("granite-3.0-3b-a800m.train-2x2048", 2 * 24, 2048, 2048, 64,
+                True),
+               ("minicpm-2b.train-512", 4 * 36, 512, 512, 64, True),
+               ("minicpm-2b decode", 4 * 36, 1, 49, 64, True))
 
 
 def time_ms(fn, reps=20, warm=3):
@@ -221,6 +248,143 @@ def backward(args, torch, F, fa) -> bool:
     return ok
 
 
+def pieces_of(x, n: int):
+    """float32 x cut to its first n bfloat16 pieces (hi = bf16_rn(x), mid
+    = bf16_rn(x - hi)), summed in float32; 3 pieces give back x."""
+    if n >= 3:
+        return x
+    hi = x.bfloat16().float()
+    return hi if n == 1 else hi + (x - hi).bfloat16().float()
+
+
+def plain_pieces(q, k, v, do, lse, delta, causal: bool, pieces: int):
+    """O, dQ, dK, dV in bfloat16 by plain PyTorch from bfloat16 q, k, v,
+    dO and the saved float32 lse and D: S and dP in float32 (a product of
+    two bfloat16 is exact there), P and dS in float32 under the
+    end-aligned mask, each cut to ``pieces`` bfloat16 pieces
+    (:func:`pieces_of`) before its products. One piece is plain bf16
+    flash; three are the route's contract."""
+    import torch
+    h, sq, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / d ** 0.5
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = qf @ kf.mT * scale
+    ok = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        ok = torch.arange(sk, device=q.device)[None] <= (
+            sk - sq + torch.arange(sq, device=q.device)[:, None])
+    p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    del s
+    ds = p * (dof @ vf.mT - delta[..., None])
+    p, ds = pieces_of(p, pieces), pieces_of(ds, pieces)
+    out = (p @ vf, ds @ kf * scale, ds.mT @ qf * scale, p.mT @ dof)
+    return tuple(t.bfloat16() for t in out)
+
+
+AGREE_NAMES = ("o", "dq", "dk", "dv")
+
+
+def route_agreement(fa, q, k, v, do, causal: bool, pieces=(1, 2, 3)):
+    """Shares of O, dQ, dK, dV elements on which bfloat16 results equal
+    the float32 route's rounded to bfloat16: today's FP32-unit forward and
+    3xTF32 backward kernels on float32 copies of the same bfloat16 q, k,
+    v, dO. ``kernels``: the kernels on the bfloat16 inputs themselves
+    (the route ``fa.tc_route`` picks); ``plain_<n>``: :func:`plain_pieces`
+    with n pieces. Both routes' backward kernels read the same lse and D,
+    the bfloat16 forward's, so only the products differ. A float32-grade
+    result misses only where the two fall on either side of a bfloat16
+    rounding boundary; one piece misses far more often."""
+    o, lse = fa.attention_lse_kernel(q, k, v, causal)
+    delta = fa.bwd_preprocess_kernel(o, do)
+    f32 = [t.float() for t in (q, k, v, do)]
+    dk32, dv32 = fa.bwd_dkdv_kernel(*f32, lse, delta, causal)
+    want = (fa.attention_lse_kernel(*f32[:3], causal)[0].bfloat16(),
+            fa.bwd_dq_kernel(*f32, lse, delta, causal).bfloat16(),
+            dk32.bfloat16(), dv32.bfloat16())
+    del f32, dk32, dv32
+
+    def share(got):
+        return {n: float((a == b).float().mean())
+                for n, a, b in zip(AGREE_NAMES, got, want)}
+    dk, dv = fa.bwd_dkdv_kernel(q, k, v, do, lse, delta, causal)
+    out = {"kernels": share((o, fa.bwd_dq_kernel(q, k, v, do, lse, delta,
+                                                  causal), dk, dv))}
+    for n in pieces:
+        out[f"plain_{n}"] = share(plain_pieces(q, k, v, do, lse, delta,
+                                               causal, n))
+    return out
+
+
+def bf16(args, torch, F, fa) -> bool:
+    import numpy as np
+    from repro_torch.kernels import ref
+    ok = True
+    for label, h, sq, sk, d, causal in BF16_SHAPES:
+        if not label.startswith(args.shape):
+            continue
+        rng = np.random.default_rng(SEED + h + sq + sk + d)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            (h, n, d), dtype="float32")).cuda().bfloat16()
+            for n in (sq, sk, sk, sq))
+        routes = (getattr(fa, "tc_launches", None),
+                  getattr(fa, "bwd_tc_launches", None))
+        o, lse = fa.attention_lse_kernel(q, k, v, causal)
+        got = fa.attention_backward_kernel(q, k, v, o, lse, do, causal)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        want_o = ref.flash_attention(*leaves, causal=causal)
+        want = torch.autograd.grad(want_o, leaves, do)
+        fwd_err = float((o.float() - want_o.float()).abs().max())
+        errs = [float((a.float() - b.float()).abs().max()
+                      / b.float().abs().max()) for a, b in zip(got, want)]
+        ok = ok and fwd_err <= BF16_FWD_TOL and all(
+            e <= BF16_BWD_TOL for e in errs)
+        del got, want, want_o, leaves
+        torch.cuda.empty_cache()
+        delta = fa.bwd_preprocess_kernel(o, do)
+        pairs = allowed_pairs(h, sq, sk, causal)
+        row = {"src": args.src, "label": label, "heads": h, "sq": sq,
+               "sk": sk, "d": d, "causal": causal, "dtype": "bf16",
+               "fwd_err": fwd_err,
+               "bwd_max_rel_err": dict(zip(("dq", "dk", "dv"), errs))}
+        for name, fn in (
+                ("forward", lambda: fa.attention_lse_kernel(q, k, v,
+                                                            causal)),
+                ("backward", lambda: fa.attention_backward_kernel(
+                    q, k, v, o, lse, do, causal)),
+                ("flash_bwd_dkdv", lambda: fa.bwd_dkdv_kernel(
+                    q, k, v, do, lse, delta, causal)),
+                ("flash_bwd_dq", lambda: fa.bwd_dq_kernel(
+                    q, k, v, do, lse, delta, causal))):
+            ms = time_ms(fn)
+            row[name] = {"ms": ms}
+            if name in BF16_PASSES:
+                b = (BF16_PASSES[name] * 2 * pairs * d / BF16_FLOP_PER_S
+                     * 1e3)
+                row[name].update(bound_bf16_ms=b, share_bf16=b / ms)
+        row["agreement"] = route_agreement(fa, q, k, v, do, causal)
+        row["routes"] = {
+            "tc_launches": None if routes[0] is None
+            else fa.tc_launches - routes[0],
+            "bwd_tc_launches": None if routes[1] is None
+            else fa.bwd_tc_launches - routes[1]}
+        c = causal and sq == sk      # SDPA's mask is start-aligned
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(
+                leaves[0][None], leaves[1][None], leaves[2][None],
+                is_causal=c)
+        with torch.no_grad():
+            row["sdpa_forward_ms"] = time_ms(sdpa_fwd)
+        row["sdpa_forward_backward_ms"] = time_ms(
+            lambda: torch.autograd.grad(sdpa_fwd(), leaves, do[None]))
+        print(json.dumps(row), flush=True)
+        del q, k, v, do, o, lse, delta, leaves
+        torch.cuda.empty_cache()
+    return ok
+
+
 def main(argv=None) -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -228,8 +392,11 @@ def main(argv=None) -> int:
     p.add_argument("--backward", action="store_true",
                    help="time the backward kernels at BWD_SHAPES")
     p.add_argument("--shape", default="",
-                   help="with --backward, the shapes whose label starts "
-                        "with this")
+                   help="with --backward or --dtype bf16, the shapes whose "
+                        "label starts with this")
+    p.add_argument("--dtype", choices=("float32", "bf16"),
+                   default="float32",
+                   help="bf16: time the bf16 route at BF16_SHAPES")
     args = p.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.src))
 
@@ -242,15 +409,18 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     _build.build()
-    ok = (backward if args.backward else forward)(args, torch, F, fa)
+    run = (bf16 if args.dtype == "bf16"
+           else backward if args.backward else forward)
+    ok = run(args, torch, F, fa)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip() or smi.stderr.strip())
     if not ok:
         print(f"bench_flash: a result passed its limit against the plain "
-              f"version ({TOL} forward, {BWD_REL_TOL} of max |plain| "
-              f"backward)", file=sys.stderr)
+              f"version (float32: {TOL} forward, {BWD_REL_TOL} of max "
+              f"|plain| backward; bf16: {BF16_FWD_TOL}, {BF16_BWD_TOL})",
+              file=sys.stderr)
     return 0 if ok else 1
 
 

@@ -52,12 +52,75 @@
 // at d = 64, 119 KB at d = 80, 167 KB at d = 128), so it is dynamic and the
 // limit is raised with cudaFuncSetAttribute. Two blocks fit on an SM up to
 // d = 64, one above.
+//
+// The bf16 tensor-core route. For bfloat16 inputs at d = 64 and 128 with
+// at least 64 queries (kernels/flash_attention.py tc_route: d = 16 and 80
+// and a decode step's single query stay on the kernels above and below)
+// the forward and the two backward product kernels are flash_kernel_tc,
+// flash_bwd_dq_kernel_tc and flash_bwd_dkdv_kernel_tc (entry points
+// strela_flash_attention_tc, strela_flash_bwd_dq_tc and
+// strela_flash_bwd_dkdv_tc; flash_bwd_preprocess is shared). Bound on the
+// H100: operations on the bf16 tensor cores (989 TFLOP/s) at the same
+// float32-grade contract:
+//
+//   * A product of two bfloat16 is exact in a float32 accumulator, so
+//     S = Q K^T and dP = dO V^T take one bf16 pass each.
+//   * P and dS are formed in float32 exactly as above (the end-aligned
+//     mask, -1e30, log2 units and ex2, P recomputed from the saved lse),
+//     then split into three bfloat16: hi = bf16_rn(x), mid = bf16_rn(x -
+//     hi), lo = bf16_rn(x - hi - mid), which carry all 24 bits of x. Each of
+//     O = P V, dV = P^T dO, dQ = dS K and dK = dS^T Q runs as three passes
+//     into one float32 accumulator, smallest piece first: at least as exact
+//     as 3xTF32, which drops the lo lo term. One or two pieces would be a
+//     lower precision, not the same result.
+//   * So the forward is 4 passes of 2 d flop a pair and the backward 11
+//     (S, dP, and three for each of dV, dQ, dK; the kernels recompute S and
+//     dP in both, 13), against the 2 and 5 products above: at train-4k's
+//     shape (36 heads, 4,096 positions, d = 64, causal) 0.156 ms forward
+//     and 0.430 ms backward.
+//
+// Design (the hopper-kernels guide's shape, on hopper.cuh's mbarriers, TMA
+// and wgmma helpers, which stream_matmul.cu's wgmma_gemm_kernel shares):
+// a block of 384 threads, one producer warpgroup and two consumers. One
+// producer thread loads the block's own 128-row tiles once (Q in the
+// forward; Q and dO in dq; K and V in dkdv) and keeps a ring of kTcStages
+// = 2 stages of the streamed tiles full by TMA (forward and dq: K and V
+// tiles of 64 keys; dkdv: Q and dO tiles of 32 queries, with their lse and
+// D), a "full" mbarrier per stage counting the bytes in and an "empty" one
+// the eight consumer warps out; setmaxnreg moves registers from it (40) to
+// the consumers (232). Each consumer warpgroup owns 64 of the block's rows
+// (queries in the forward and dq, keys in dkdv) and issues
+// wgmma.mma_async m64nNk16: S (or S^T = K Q^T, dP^T = V dO^T in dkdv) with
+// both operands K-major from 128-byte swizzled shared memory, then the
+// split products with the pieces of P or dS in registers as the A operand
+// (an m64nN accumulator's registers are an m64k16 A fragment's, so no piece
+// goes through shared memory) and B MN-major from the same tile. dkdv
+// computes S^T and dP^T directly, so P^T and dS^T are already A fragments
+// of dV and dK; its blocks take one 64-column box of dK and dV each (a
+// grid of d / 64 column boxes), so that 64 columns of both fit beside the
+// scores in a consumer's registers at d = 128 too, recomputing S^T and
+// dP^T once a box. TMA's 3-D maps over (h, s, d) zero-fill rows past s
+// within a head; lse and D come through 1-D maps of h sq floats in boxes of
+// 36 that start on a 16-byte word. Queries, keys and heads are skipped and
+// masked as above; no atomics, and every sum runs in a fixed order, so two
+// runs are bit-identical. ptxas gives every thread 168 registers, not the
+// 232 setmaxnreg hands a consumer (the kernels' SASS names none above
+// R167), so the tiles are sized to fit: no kernel spills, and dkdv waits out
+// dV's wgmmas before it splits dS (64-query tiles, or no wait, spilled and
+// ran 3-4% slower). Dynamic shared memory, bytes (TcLayout, 1,024 of them
+// slack for the swizzle's alignment), one block an SM:
+//   d          64       128
+//   fwd_tc     50,216   99,368
+//   dq_tc      66,600   132,136
+//   dkdv_tc    52,264   101,416
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"   // mbarriers, TMA, wgmma descriptors, tensor maps
 
 namespace {
 
@@ -1110,6 +1173,908 @@ int run_bwd(const BwdArgs& a, int d, int dtype, void* stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core route: flash_kernel_tc, flash_bwd_dq_kernel_tc and
+// flash_bwd_dkdv_kernel_tc (the note at the top of this file says why and
+// how; the wrapper chooses them for bfloat16 inputs at d = 64 and 128 with
+// at least 64 queries).
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 384;          // a producer and two consumer
+                                         // warpgroups
+constexpr int kTcRows = 128;             // a block's own rows, 64 a consumer
+constexpr int kTcStages = 2;             // the streamed tiles' ring
+constexpr int kTcProducerRegs = 40, kTcConsumerRegs = 232;   // setmaxnreg
+static_assert(kTcProducerRegs + 2 * kTcConsumerRegs <=
+                  3 * (65536 / kTcThreads / 8 * 8),
+              "setmaxnreg moves registers within the block only");
+
+// Tiles of the three kernels at head width D, and their shared memory in
+// bytes: 1,024 of slack for the 1,024-byte alignment the swizzle needs, the
+// block's own tiles, the ring, and the mbarriers (8 bytes each). A tile of
+// T rows lies as D / 64 boxes of 64 columns, each T x 128 bytes, as TMA
+// lays them with the 128-byte swizzle.
+template <int D>
+struct TcLayout {
+  static constexpr int BK = 64;                   // forward's key tile
+  static constexpr int KT = 64;                   // dq's key tile
+  static constexpr int QT = 32;                   // dkdv's query tile
+  static constexpr int kRowBytes = 2 * D;         // one bf16 row
+  // dkdv's stage: the Q and dO tiles, then lse and D, QT + 4 floats each
+  // in slots of whole 128 bytes, rounded up so that the next stage's
+  // boxes start on 1,024 bytes
+  static constexpr int kLseSlot = ((QT + 4) * 4 + 127) / 128 * 128;
+  static constexpr int kDkdvStage =
+      (2 * QT * kRowBytes + 2 * kLseSlot + 1023) / 1024 * 1024;
+  static constexpr size_t fwd_bytes = 1024 + kTcRows * kRowBytes +
+                                      kTcStages * 2 * BK * kRowBytes +
+                                      8 * (2 * kTcStages + 1);
+  static constexpr size_t dq_bytes = 1024 + 2 * kTcRows * kRowBytes +
+                                     kTcStages * 2 * KT * kRowBytes +
+                                     8 * (2 * kTcStages + 1);
+  static constexpr size_t dkdv_bytes = 1024 + 2 * kTcRows * kRowBytes +
+                                       kTcStages * kDkdvStage +
+                                       8 * (2 * kTcStages + 1);
+  static_assert(D == 64 || D == 128, "the bf16 route takes d = 64 and 128");
+  static_assert(fwd_bytes <= 232448 && dq_bytes <= 232448 &&
+                    dkdv_bytes <= 232448,
+                "the block's shared memory passes 227 KB");
+};
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  // d += A (shared memory, K-major) B (shared memory, K-major); with
+  // scale_d 0, d = A B
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // d += A (shared memory, K-major) B (shared memory, K-major); with
+  // scale_d 0, d = A B
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  // d += A (registers: four bf16 pairs a thread) B (shared memory,
+  // MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d += A (shared memory, K-major) B (shared memory, K-major); with
+  // scale_d 0, d = A B
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  // d += A (registers: four bf16 pairs a thread) B (shared memory,
+  // MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+  }
+};
+
+// keeps the compiler from reading a wgmma accumulator before the wait that
+// completes it (the asm that issues a wgmma writes it only on paper)
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// x = hi + mid + lo in three bfloat16 (hi = bf16_rn(x), mid = bf16_rn(x -
+// hi), lo = bf16_rn(x - hi - mid); each difference is exact in float32, so
+// the three carry all 24 bits of x unless lo falls below bfloat16's
+// subnormals), for two floats at once: each piece packed as an A
+// fragment's register, the lower column in the low half
+__device__ __forceinline__ void split3(float x, float y, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  x -= hf.x;
+  y -= hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(x, y);
+  const float2 mf = __bfloat1622float2(m);
+  hi = bf16x2_bits(h);
+  mid = bf16x2_bits(m);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x - mf.x, y - mf.y));
+}
+
+// the three pieces of accumulator columns [16 kc, 16 kc + 16) as the A
+// fragments of a k16 step: an m64nN accumulator holds, in d[4 i .. 4 i +
+// 3], rows (g, g, g + 8, g + 8) at columns (8 i + 2 t, + 1) of its warp's
+// 16 rows, and an A fragment wants rows (g, g + 8, g, g + 8) at columns
+// (2 t, + 1) then (2 t + 8, + 9): d[8 kc .. 8 kc + 7] in order, no shuffle
+template <int N>
+__device__ __forceinline__ void split_chunk(const float (&d)[N], int kc,
+                                            uint32_t (&hi)[4],
+                                            uint32_t (&mid)[4],
+                                            uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+    split3(d[8 * kc + 2 * x], d[8 * kc + 2 * x + 1], hi[x], mid[x], lo[x]);
+}
+
+// descriptors into a tile of T rows laid out as D / 64 swizzled boxes of
+// 64 columns: a K-major operand's rows [r0, r0 + 64) (A) or all T rows (B)
+// at k16 step kk (32 bytes along a 128-byte row, the next box after four),
+// and an MN-major operand's k rows [16 kk, 16 kk + 16) across every column
+// (8-row atoms 1,024 bytes apart, boxes T x 128 bytes apart)
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int T, int r0,
+                                           int kk) {
+  return wgmma_desc(tile + (kk / 4) * T * 128 + r0 * 128 + (kk % 4) * 32, 16,
+                    1024);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int T, int kk) {
+  return wgmma_desc(tile + kk * 2048, T * 128, 1024);
+}
+
+// every tile of T rows of (h, s, D) at row r0 of head `head`: D / 64 boxes
+template <int D>
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int T, int r0,
+                                         int head) {
+#pragma unroll
+  for (int b = 0; b < D / 64; ++b)
+    tma_load_3d(dst + b * T * 128, map, bar, 64 * b, r0, head);
+}
+
+__device__ __forceinline__ void tc_init_barriers(uint32_t full,
+                                                 uint32_t empty,
+                                                 uint32_t own) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(full + 8 * s, 1);        // the producer's expect_tx
+      mbar_init(empty + 8 * s, 8);       // one arrival per consumer warp
+    }
+    mbar_init(own, 1);                   // the block's own tiles
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The forward: queries [q0, q0 + 128) of one head, 64 a consumer
+// warpgroup, against key tiles of BK streamed through the ring
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_kernel_tc(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int sq, int sk, float scale, int causal) {
+  using L = TcLayout<D>;
+  constexpr int BK = L::BK, NS = BK / 16;
+  constexpr uint32_t kTile = BK * L::kRowBytes;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ring = q_s + kTcRows * L::kRowBytes;   // + 2 kTile s: K, V
+  const uint32_t full = ring + kTcStages * 2 * kTile;   // + 8 s
+  const uint32_t empty = full + 8 * kTcStages;          // + 8 s
+  const uint32_t own = empty + 8 * kTcStages;
+  const int head = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcRows;   // heaviest first
+  const int q_off = sk - sq;
+  // key tiles up to the first that starts past the block's last query
+  const int n_kb = (sk + BK - 1) / BK;
+  const int n_tiles =
+      causal ? min(n_kb, (q_off + q0 + kTcRows - 1) / BK + 1) : n_kb;
+  tc_init_barriers(full, empty, own);
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kTcProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(own, kTcRows * L::kRowBytes);
+      tma_rows<D>(q_s, &map_q, own, kTcRows, q0, head);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kTcStages;
+        const uint32_t ks = ring + s * 2 * kTile;
+        mbar_wait(empty + 8 * s, ((j / kTcStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * kTile);
+        tma_rows<D>(ks, &map_k, full + 8 * s, BK, j * BK, head);
+        tma_rows<D>(ks + kTile, &map_v, full + 8 * s, BK, j * BK, head);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kTcConsumerRegs));
+    const int c = threadIdx.x / 128 - 1;
+    const int w = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wq0 = q0 + 64 * c;         // the warpgroup's first query
+    const int row = wq0 + 16 * w + g;    // this thread's rows row, row + 8
+    const int my_tiles =
+        causal ? min(n_kb, (q_off + wq0 + 63) / BK + 1) : n_kb;
+    const bool live = wq0 < sq;          // a warpgroup of padding rows idles
+    const float scale2 = scale * kLog2e;
+    float acc[D / 2], sc[BK / 2];
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    mbar_wait(own, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kTcStages;
+      mbar_wait(full + 8 * s, (j / kTcStages) & 1);
+      if (live && j < my_tiles) {
+        const uint32_t ks = ring + s * 2 * kTile, vs = ks + kTile;
+        // S = Q K^T: one bf16 pass, exact products in float32
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<BK>::ss(sc, desc_k(q_s, kTcRows, 64 * c, kk),
+                        desc_k(ks, BK, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(sc);
+        // mask, online softmax (rows row and row + 8, each over the 4
+        // threads of a quad)
+        const int k0 = j * BK;
+        auto scores = [&](auto masked) {
+#pragma unroll
+          for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int ki = k0 + 8 * i + 2 * t + (e & 1);
+              const int qi = q_off + row + 8 * (e >> 1);
+              const bool ok = !decltype(masked)::value ||
+                              (ki < sk && (!causal || qi >= ki));
+              sc[4 * i + e] = ok ? sc[4 * i + e] * scale2 : kNegInf;
+            }
+        };
+        if (k0 + BK <= sk && (!causal || q_off + wq0 >= k0 + BK - 1))
+          scores(std::false_type{});
+        else
+          scores(std::true_type{});
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float row_max = kNegInf;
+#pragma unroll
+          for (int i = 0; i < BK / 8; ++i)
+            row_max = fmaxf(row_max, fmaxf(sc[4 * i + 2 * r],
+                                           sc[4 * i + 2 * r + 1]));
+          row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 1));
+          row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 2));
+          const float m_new = fmaxf(m[r], row_max);
+          const float alpha = ex2(m[r] - m_new);
+          float row_sum = 0.f;
+#pragma unroll
+          for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              sc[4 * i + 2 * r + e] = ex2(sc[4 * i + 2 * r + e] - m_new);
+              row_sum += sc[4 * i + 2 * r + e];
+            }
+          l[r] = l[r] * alpha + row_sum;     // this thread's columns
+          m[r] = m_new;
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+            acc[4 * n + 2 * r] *= alpha;
+            acc[4 * n + 2 * r + 1] *= alpha;
+          }
+        }
+        // O += P V: P as hi, mid and lo, three passes, smallest first
+        uint32_t ph[NS][4], pm[NS][4], pl[NS][4];
+#pragma unroll
+        for (int kc = 0; kc < NS; ++kc) split_chunk(sc, kc, ph[kc], pm[kc],
+                                                    pl[kc]);
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < NS; ++kc)
+          Wgmma<D>::rs(acc, pl[kc], desc_mn(vs, BK, kc));
+#pragma unroll
+        for (int kc = 0; kc < NS; ++kc)
+          Wgmma<D>::rs(acc, pm[kc], desc_mn(vs, BK, kc));
+#pragma unroll
+        for (int kc = 0; kc < NS; ++kc)
+          Wgmma<D>::rs(acc, ph[kc], desc_mn(vs, BK, kc));
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(acc);
+      }
+      if (lane == 0) mbar_arrive(empty + 8 * s);   // this warp is done
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const int qr = row + 8 * r;
+      if (!live || qr >= sq) continue;
+      const size_t at = static_cast<size_t>(head) * sq + qr;
+      if (lse != nullptr && t == 0)
+        lse[at] = (m[r] + log2f(sum)) * 0.6931471805599453f;
+      const float denom = fmaxf(sum, 1e-30f);
+      __nv_bfloat16* orow = o + at * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        store2(orow + 8 * n, make_float2(acc[4 * n + 2 * r] / denom,
+                                         acc[4 * n + 2 * r + 1] / denom));
+    }
+  }
+}
+
+// dQ of queries [q0, q0 + 128) of one head, 64 a consumer warpgroup,
+// against key tiles of KT (K and V) streamed through the ring
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_do,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int sq, int sk,
+                       float scale, int causal) {
+  using L = TcLayout<D>;
+  constexpr int KT = L::KT, NS = KT / 16;
+  constexpr uint32_t kTile = KT * L::kRowBytes;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t do_s = q_s + kTcRows * L::kRowBytes;
+  const uint32_t ring = do_s + kTcRows * L::kRowBytes;  // + 2 kTile s: K, V
+  const uint32_t full = ring + kTcStages * 2 * kTile;
+  const uint32_t empty = full + 8 * kTcStages;
+  const uint32_t own = empty + 8 * kTcStages;
+  const int head = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcRows;   // heaviest first
+  const int q_off = sk - sq;
+  const int n_kb = (sk + KT - 1) / KT;
+  const int n_tiles =
+      causal ? min(n_kb, (q_off + q0 + kTcRows - 1) / KT + 1) : n_kb;
+  tc_init_barriers(full, empty, own);
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kTcProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(own, 2 * kTcRows * L::kRowBytes);
+      tma_rows<D>(q_s, &map_q, own, kTcRows, q0, head);
+      tma_rows<D>(do_s, &map_do, own, kTcRows, q0, head);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kTcStages;
+        const uint32_t ks = ring + s * 2 * kTile;
+        mbar_wait(empty + 8 * s, ((j / kTcStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * kTile);
+        tma_rows<D>(ks, &map_k, full + 8 * s, KT, j * KT, head);
+        tma_rows<D>(ks + kTile, &map_v, full + 8 * s, KT, j * KT, head);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kTcConsumerRegs));
+    const int c = threadIdx.x / 128 - 1;
+    const int w = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wq0 = q0 + 64 * c, qw0 = wq0 + 16 * w;
+    const int row = qw0 + g;             // this thread's rows row, row + 8
+    const int my_tiles =
+        causal ? min(n_kb, (q_off + wq0 + 63) / KT + 1) : n_kb;
+    const bool live = wq0 < sq;
+    const float scale2 = scale * kLog2e;
+    const size_t qoff = static_cast<size_t>(head) * sq;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool ok = row + 8 * r < sq;
+      lse2[r] = ok ? lse[qoff + row + 8 * r] * kLog2e : 0.f;
+      dl[r] = ok ? delta[qoff + row + 8 * r] : 0.f;
+    }
+    float acc[D / 2], sc[KT / 2], dp[KT / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) sc[i] = dp[i] = 0.f;
+    mbar_wait(own, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kTcStages;
+      mbar_wait(full + 8 * s, (j / kTcStages) & 1);
+      if (live && j < my_tiles) {
+        const uint32_t ks = ring + s * 2 * kTile, vs = ks + kTile;
+        // S = Q K^T and dP = dO V^T: one bf16 pass each
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<KT>::ss(sc, desc_k(q_s, kTcRows, 64 * c, kk),
+                        desc_k(ks, KT, 0, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<KT>::ss(dp, desc_k(do_s, kTcRows, 64 * c, kk),
+                        desc_k(vs, KT, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(sc);
+        reg_fence(dp);
+        // dS in place of dP: rows row (+ 8), keys k0 + 8 i + 2 t (+ 1); a
+        // warp whose tile has no masked entry skips the mask
+        const int k0 = j * KT;
+        auto form = [&](auto masked) {
+#pragma unroll
+          for (int i = 0; i < KT / 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1, qi = row + 8 * r;
+              const int ki = k0 + 8 * i + 2 * t + (e & 1);
+              const bool ok =
+                  !decltype(masked)::value ||
+                  (qi < sq && ki < sk && (!causal || q_off + qi >= ki));
+              const float p = ex2(sc[4 * i + e] * scale2 - lse2[r]);
+              dp[4 * i + e] = ok ? p * (dp[4 * i + e] - dl[r]) : 0.f;
+            }
+        };
+        if (qw0 + 16 <= sq && k0 + KT <= sk &&
+            (!causal || q_off + qw0 >= k0 + KT - 1))
+          form(std::false_type{});
+        else
+          form(std::true_type{});
+        // dQ += dS K: dS as hi, mid and lo, three passes, smallest first
+        uint32_t dh[NS][4], dm[NS][4], dlo[NS][4];
+#pragma unroll
+        for (int kc = 0; kc < NS; ++kc) split_chunk(dp, kc, dh[kc], dm[kc],
+                                                    dlo[kc]);
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < NS; ++kc)
+          Wgmma<D>::rs(acc, dlo[kc], desc_mn(ks, KT, kc));
+#pragma unroll
+        for (int kc = 0; kc < NS; ++kc)
+          Wgmma<D>::rs(acc, dm[kc], desc_mn(ks, KT, kc));
+#pragma unroll
+        for (int kc = 0; kc < NS; ++kc)
+          Wgmma<D>::rs(acc, dh[kc], desc_mn(ks, KT, kc));
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(acc);
+      }
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qr = row + 8 * r;
+      if (!live || qr >= sq) continue;
+      __nv_bfloat16* dqrow = dq + (qoff + qr) * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        store2(dqrow + 8 * n, make_float2(acc[4 * n + 2 * r] * scale,
+                                          acc[4 * n + 2 * r + 1] * scale));
+    }
+  }
+}
+
+// dK and dV of keys [k0, k0 + 128) of one head at columns [64 z, 64 z +
+// 64) (z = blockIdx.z; one block a column box, so that a consumer keeps 64
+// columns each of dK and dV in registers at every d), 64 keys a consumer
+// warpgroup, against the query tiles of QT that see them (Q, dO, lse and D
+// streamed through the ring): S^T = K Q^T and dP^T = V dO^T put P^T and
+// dS^T in the accumulator layout, which is already the A fragments of
+// dV += P^T dO and dK += dS^T Q
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkdv_kernel_tc(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const __grid_constant__ CUtensorMap map_lse,
+                         const __grid_constant__ CUtensorMap map_delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int sq, int sk,
+                         float scale, int causal) {
+  using L = TcLayout<D>;
+  constexpr int QT = L::QT, NS = QT / 16;
+  constexpr uint32_t kTile = QT * L::kRowBytes;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t k_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t v_s = k_s + kTcRows * L::kRowBytes;
+  // + kDkdvStage s: Q, dO, then lse and D in slots of kLseSlot bytes
+  const uint32_t ring = v_s + kTcRows * L::kRowBytes;
+  const uint32_t full = ring + kTcStages * L::kDkdvStage;
+  const uint32_t empty = full + 8 * kTcStages;
+  const uint32_t own = empty + 8 * kTcStages;
+  const int head = blockIdx.y, cb = blockIdx.z;
+  const int k0 = blockIdx.x * kTcRows;
+  const int q_off = sk - sq;
+  // causal: the first query tile that sees the block's first key holds
+  // query k0 - q_off
+  const int qb0 = causal ? max(0, k0 - q_off) / QT : 0;
+  const int n_qb = (sq + QT - 1) / QT;
+  tc_init_barriers(full, empty, own);
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kTcProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(own, 2 * kTcRows * L::kRowBytes);
+      tma_rows<D>(k_s, &map_k, own, kTcRows, k0, head);
+      tma_rows<D>(v_s, &map_v, own, kTcRows, k0, head);
+      for (int qb = qb0; qb < n_qb; ++qb) {
+        const int j = qb - qb0, s = j % kTcStages;
+        const uint32_t qs = ring + s * L::kDkdvStage;
+        // lse and D of the tile's queries from the flat (h sq) rows, in a
+        // box of QT + 4 that starts on the 16-byte word holding the first
+        // (a box off a word never completes); the consumers skip the
+        // first (head sq + q0) % 4, and a ragged tile's tail reads the
+        // next head's values, which the mask drops
+        const int at = head * sq + qb * QT;
+        mbar_wait(empty + 8 * s, ((j / kTcStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * kTile + 2 * (QT + 4) * 4);
+        tma_rows<D>(qs, &map_q, full + 8 * s, QT, qb * QT, head);
+        tma_rows<D>(qs + kTile, &map_do, full + 8 * s, QT, qb * QT, head);
+        tma_load_1d(qs + 2 * kTile, &map_lse, full + 8 * s, at & ~3);
+        tma_load_1d(qs + 2 * kTile + L::kLseSlot, &map_delta, full + 8 * s,
+                    at & ~3);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kTcConsumerRegs));
+    const int c = threadIdx.x / 128 - 1;
+    const int w = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wk0 = k0 + 64 * c, kw0 = wk0 + 16 * w, kw_last = kw0 + 15;
+    const int kr = kw0 + g;              // this thread's keys kr, kr + 8
+    const float scale2 = scale * kLog2e;
+    // the ring as a generic pointer, for lse and D
+    const uint8_t* ring_p = smem_raw + (ring - smem_u32(smem_raw));
+    float dk_acc[32], dv_acc[32], st[QT / 2], dpt[QT / 2];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < QT / 2; ++i) st[i] = dpt[i] = 0.f;
+    mbar_wait(own, 0);
+    for (int qb = qb0; qb < n_qb; ++qb) {
+      const int j = qb - qb0, s = j % kTcStages, q0 = qb * QT;
+      mbar_wait(full + 8 * s, (j / kTcStages) & 1);
+      // a warpgroup none of whose keys the tile's queries see adds only
+      // zeros
+      if (wk0 < sk && !(causal && q_off + q0 + QT - 1 < wk0)) {
+        const uint32_t qs = ring + s * L::kDkdvStage, dos = qs + kTile;
+        // the column box of Q and dO that dK and dV take as B
+        const uint32_t qsb = qs + cb * QT * 128, dob = dos + cb * QT * 128;
+        const float* lse_s =
+            reinterpret_cast<const float*>(ring_p + s * L::kDkdvStage +
+                                           2 * kTile) +
+            (head * sq + q0) % 4;
+        const float* dl_s = lse_s + L::kLseSlot / 4;
+        // S^T = K Q^T and dP^T = V dO^T over every column: one bf16 pass
+        // each
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<QT>::ss(st, desc_k(k_s, kTcRows, 64 * c, kk),
+                        desc_k(qs, QT, 0, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<QT>::ss(dpt, desc_k(v_s, kTcRows, 64 * c, kk),
+                        desc_k(dos, QT, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(st);
+        reg_fence(dpt);
+        // P^T and dS^T in place: rows keys kr (+ 8), columns queries
+        // q0 + 8 i + 2 t (+ 1); a warp whose tile has no masked entry
+        // skips the mask
+        auto form = [&](auto masked) {
+#pragma unroll
+          for (int i = 0; i < QT / 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * i + 2 * t + (e & 1), qi = q0 + col;
+              const int ki = kr + 8 * (e >> 1);
+              const bool ok =
+                  !decltype(masked)::value ||
+                  (qi < sq && ki < sk && (!causal || q_off + qi >= ki));
+              const float p =
+                  ok ? ex2(st[4 * i + e] * scale2 - lse_s[col] * kLog2e)
+                     : 0.f;
+              st[4 * i + e] = p;
+              dpt[4 * i + e] = ok ? p * (dpt[4 * i + e] - dl_s[col]) : 0.f;
+            }
+        };
+        if (q0 + QT <= sq && kw_last < sk &&
+            (!causal || q_off + q0 >= kw_last))
+          form(std::false_type{});
+        else
+          form(std::true_type{});
+        // dV += P^T dO, then dK += dS^T Q, over this block's 64 columns:
+        // each as hi, mid and lo, three passes, smallest first (dV's
+        // pieces are waited out before dS's are made, which keeps the
+        // consumer within its registers)
+        {
+          uint32_t hi[NS][4], mid[NS][4], lo[NS][4];
+#pragma unroll
+          for (int kc = 0; kc < NS; ++kc)
+            split_chunk(st, kc, hi[kc], mid[kc], lo[kc]);
+          wgmma_fence();
+#pragma unroll
+          for (int kc = 0; kc < NS; ++kc)
+            Wgmma<64>::rs(dv_acc, lo[kc], desc_mn(dob, QT, kc));
+#pragma unroll
+          for (int kc = 0; kc < NS; ++kc)
+            Wgmma<64>::rs(dv_acc, mid[kc], desc_mn(dob, QT, kc));
+#pragma unroll
+          for (int kc = 0; kc < NS; ++kc)
+            Wgmma<64>::rs(dv_acc, hi[kc], desc_mn(dob, QT, kc));
+          wgmma_commit();
+          wgmma_wait<0>();
+          reg_fence(dv_acc);
+        }
+        {
+          uint32_t hi[NS][4], mid[NS][4], lo[NS][4];
+#pragma unroll
+          for (int kc = 0; kc < NS; ++kc)
+            split_chunk(dpt, kc, hi[kc], mid[kc], lo[kc]);
+          wgmma_fence();
+#pragma unroll
+          for (int kc = 0; kc < NS; ++kc)
+            Wgmma<64>::rs(dk_acc, lo[kc], desc_mn(qsb, QT, kc));
+#pragma unroll
+          for (int kc = 0; kc < NS; ++kc)
+            Wgmma<64>::rs(dk_acc, mid[kc], desc_mn(qsb, QT, kc));
+#pragma unroll
+          for (int kc = 0; kc < NS; ++kc)
+            Wgmma<64>::rs(dk_acc, hi[kc], desc_mn(qsb, QT, kc));
+          wgmma_commit();
+          wgmma_wait<0>();
+          reg_fence(dk_acc);
+        }
+      }
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+    const size_t koff = static_cast<size_t>(head) * sk;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = kr + 8 * r;
+      if (key >= sk) continue;
+      __nv_bfloat16* dkrow = dk + (koff + key) * D + 64 * cb + 2 * t;
+      __nv_bfloat16* dvrow = dv + (koff + key) * D + 64 * cb + 2 * t;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        store2(dkrow + 8 * n, make_float2(dk_acc[4 * n + 2 * r] * scale,
+                                          dk_acc[4 * n + 2 * r + 1] * scale));
+        store2(dvrow + 8 * n, make_float2(dv_acc[4 * n + 2 * r],
+                                          dv_acc[4 * n + 2 * r + 1]));
+      }
+    }
+  }
+}
+
+// a (h, s, d) bfloat16 tensor as a 3-D map in boxes of {64 columns, `rows`
+// rows, one head}, 128-byte swizzle: TMA zero-fills rows past s within each
+// head, as the float32 kernels zero-fill their tiles
+cudaError_t encode_heads_map(CUtensorMap* map, const void* base, int h,
+                             int s, int d, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(s) * d * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims,
+                    strides, box, true);
+}
+
+// n float32 values as a 1-D map in boxes of `box` (lse and D, whose rows
+// of sq floats TMA could not address as a 2-D map unless sq % 4 == 0)
+cudaError_t encode_flat_map(CUtensorMap* map, const float* base, long long n,
+                            int box) {
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {4};   // rank 1 has no outer stride
+  const cuuint32_t b[1] = {static_cast<cuuint32_t>(box)};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, base, dims,
+                    strides, b, false);
+}
+
+template <typename K>
+cudaError_t tc_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <int D>
+int launch_tc_fwd(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int h, int sq, int sk, float scale, int causal,
+                  cudaStream_t stream) {
+  using L = TcLayout<D>;
+  CUtensorMap mq, mk, mv;
+  cudaError_t rc = encode_heads_map(&mq, q, h, sq, D, kTcRows);
+  if (rc == cudaSuccess) rc = encode_heads_map(&mk, k, h, sk, D, L::BK);
+  if (rc == cudaSuccess) rc = encode_heads_map(&mv, v, h, sk, D, L::BK);
+  if (rc == cudaSuccess) rc = tc_smem(flash_kernel_tc<D>, L::fwd_bytes);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((sq + kTcRows - 1) / kTcRows, h);
+  flash_kernel_tc<D><<<grid, kTcThreads, L::fwd_bytes, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, sq, sk, scale,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_tc_dq(const BwdArgs& a, cudaStream_t stream) {
+  using L = TcLayout<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t rc = encode_heads_map(&mq, a.q, a.h, a.sq, D, kTcRows);
+  if (rc == cudaSuccess) rc = encode_heads_map(&mk, a.k, a.h, a.sk, D, L::KT);
+  if (rc == cudaSuccess) rc = encode_heads_map(&mv, a.v, a.h, a.sk, D, L::KT);
+  if (rc == cudaSuccess)
+    rc = encode_heads_map(&mdo, a.dout, a.h, a.sq, D, kTcRows);
+  if (rc == cudaSuccess) rc = tc_smem(flash_bwd_dq_kernel_tc<D>, L::dq_bytes);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((a.sq + kTcRows - 1) / kTcRows, a.h);
+  flash_bwd_dq_kernel_tc<D><<<grid, kTcThreads, L::dq_bytes, stream>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dq),
+      a.sq, a.sk, a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_tc_dkdv(const BwdArgs& a, cudaStream_t stream) {
+  using L = TcLayout<D>;
+  CUtensorMap mq, mk, mv, mdo, mlse, mdl;
+  const long long rows = static_cast<long long>(a.h) * a.sq;
+  cudaError_t rc = encode_heads_map(&mq, a.q, a.h, a.sq, D, L::QT);
+  if (rc == cudaSuccess)
+    rc = encode_heads_map(&mk, a.k, a.h, a.sk, D, kTcRows);
+  if (rc == cudaSuccess)
+    rc = encode_heads_map(&mv, a.v, a.h, a.sk, D, kTcRows);
+  if (rc == cudaSuccess)
+    rc = encode_heads_map(&mdo, a.dout, a.h, a.sq, D, L::QT);
+  if (rc == cudaSuccess) rc = encode_flat_map(&mlse, a.lse, rows, L::QT + 4);
+  if (rc == cudaSuccess) rc = encode_flat_map(&mdl, a.delta, rows, L::QT + 4);
+  if (rc == cudaSuccess)
+    rc = tc_smem(flash_bwd_dkdv_kernel_tc<D>, L::dkdv_bytes);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((a.sk + kTcRows - 1) / kTcRows, a.h, D / 64);
+  flash_bwd_dkdv_kernel_tc<D><<<grid, kTcThreads, L::dkdv_bytes, stream>>>(
+      mq, mk, mv, mdo, mlse, mdl, static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), a.sq, a.sk, a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the shapes and pointers the bf16 route takes: d 64 or 128, every base
+// 16-byte aligned (TMA), h sq and h sk below 2^31 (the flat lse map's
+// coordinates are 32-bit)
+bool tc_ok(const void* const* ptrs, int n, int h, int sq, int sk, int d,
+           int causal) {
+  if (h < 0 || h > 65535 || sq < 0 || sk < 1 || (causal && sq > sk) ||
+      (d != 64 && d != 128) ||
+      static_cast<long long>(h) * (sq > sk ? sq : sk) >= (1LL << 31))
+    return false;
+  for (int i = 0; i < n; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) & 15) return false;
+  return true;
+}
+
+template <bool kDq>
+int run_tc_bwd(const BwdArgs& a, int d, void* stream) {
+  const void* ptrs[] = {a.q, a.k, a.v, a.dout, a.lse, a.delta,
+                        kDq ? a.dq : a.dk, kDq ? a.dq : a.dv};
+  if (!tc_ok(ptrs, 8, a.h, a.sq, a.sk, d, a.causal))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.h == 0 || a.sq == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kDq) return d == 64 ? launch_tc_dq<64>(a, s) : launch_tc_dq<128>(a, s);
+  return d == 64 ? launch_tc_dkdv<64>(a, s) : launch_tc_dkdv<128>(a, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1181,6 +2146,46 @@ int strela_flash_bwd_dq(const void* q, const void* k, const void* v,
                   static_cast<const float*>(delta), dq, nullptr, nullptr,
                   h, sq, sk, scale, causal};
   return run_bwd<true>(a, d, dtype, stream);
+}
+
+// The bf16 tensor-core route (bfloat16 q, k, v, o and dout; d 64 or 128;
+// every base 16-byte aligned; h max(sq, sk) < 2^31), with the arguments
+// and results of strela_flash_attention, strela_flash_bwd_dkdv and
+// strela_flash_bwd_dq less the dtype. Returns the CUDA error of the launch
+// (0 on success); cudaErrorInvalidValue for what the route does not take.
+int strela_flash_attention_tc(const void* q, const void* k, const void* v,
+                              void* o, void* lse, int h, int sq, int sk,
+                              int d, int causal, float scale, void* stream) {
+  const void* ptrs[] = {q, k, v, o, lse};
+  if (!tc_ok(ptrs, 5, h, sq, sk, d, causal))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (h == 0 || sq == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  return d == 64
+             ? launch_tc_fwd<64>(q, k, v, o, l, h, sq, sk, scale, causal, s)
+             : launch_tc_fwd<128>(q, k, v, o, l, h, sq, sk, scale, causal, s);
+}
+
+int strela_flash_bwd_dkdv_tc(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv, int h,
+                             int sq, int sk, int d, int causal, float scale,
+                             void* stream) {
+  const BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), nullptr, dk, dv, h, sq,
+                  sk, scale, causal};
+  return run_tc_bwd<false>(a, d, stream);
+}
+
+int strela_flash_bwd_dq_tc(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dq, int h, int sq, int sk,
+                           int d, int causal, float scale, void* stream) {
+  const BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), dq, nullptr, nullptr,
+                  h, sq, sk, scale, causal};
+  return run_tc_bwd<true>(a, d, stream);
 }
 
 }  // extern "C"

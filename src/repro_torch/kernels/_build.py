@@ -4,10 +4,11 @@ Each source compiles on its own (``nvcc -gencode arch=compute_90a,code=sm_90a
 -O3 -c``, all started together) and one ``nvcc -shared`` links the objects
 into ``csrc/build/libstrela_<digest>.so`` (git-ignored), with a plain C
 interface that ``ctypes`` binds: every pointer and the stream travel as
-``c_void_p``. The digest covers every source and the flags, so an edit to
-any source rebuilds, and concurrent processes race benignly (tmp file +
-rename). Nothing here runs at import: the CPU tests import every module,
-and this machine may have no ``nvcc``.
+``c_void_p``. The digest covers every source, every header they share
+(``csrc/*.cuh``) and the flags, so an edit to any of them rebuilds, and
+concurrent processes race benignly (tmp file + rename). Nothing here runs
+at import: the CPU tests import every module, and this machine may have no
+``nvcc``.
 """
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ def sources() -> List[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libstrela_{h.hexdigest()[:12]}.so"
@@ -128,6 +129,16 @@ def load() -> ctypes.CDLL:
         lib.strela_flash_bwd_dq.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, ctypes.c_float, vp]
         lib.strela_flash_bwd_dq.restype = i
+        lib.strela_flash_attention_tc.argtypes = [
+            vp, vp, vp, vp, vp, i, i, i, i, i, ctypes.c_float, vp]
+        lib.strela_flash_attention_tc.restype = i
+        lib.strela_flash_bwd_dkdv_tc.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, ctypes.c_float,
+            vp]
+        lib.strela_flash_bwd_dkdv_tc.restype = i
+        lib.strela_flash_bwd_dq_tc.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, ctypes.c_float, vp]
+        lib.strela_flash_bwd_dq_tc.restype = i
         lib.strela_sq_norm_partials.argtypes = [vp, i]
         lib.strela_sq_norm_partials.restype = ll
         lib.strela_sq_norm.argtypes = [vp, vp, vp, i, vp, vp, vp, vp]

@@ -50,12 +50,46 @@ whenever grad mode is on and an input requires a gradient;
 :func:`attention_kernel` raises then, since its output would carry no
 graph.
 
+The bf16 tensor-core route (:func:`tc_route`: bfloat16 inputs at d = 64
+or 128 with at least ``TC_MIN_QUERIES`` = 64 queries; d = 16 and 80, and a
+decode step's single query, where the route measured slower, take the
+kernels above) runs the same three products on the bf16 tensor cores at
+the same float32-grade contract: ``flash_kernel_tc`` (entry point
+``strela_flash_attention_tc``), ``flash_bwd_dkdv_kernel_tc`` and
+``flash_bwd_dq_kernel_tc``; ``flash_bwd_preprocess`` is shared. S and dP
+take one bf16 pass (a product of two bfloat16 is exact in float32); P and
+dS, formed in float32 as above, split into three bfloat16 pieces (hi =
+bf16_rn(x), mid = bf16_rn(x - hi), lo = bf16_rn(x - hi - mid)), and each
+of O, dV, dQ, dK runs as three passes into one float32 accumulator,
+smallest piece first. ``flash_bwd_preprocess`` reads O as the forward
+wrote it, in bfloat16, so D = rowsum(dO o O) is bfloat16-grade on this
+route: it moves dQ and dK by up to 2^-8 of max |dQ|, |dK| (the order of
+their own rounding to bfloat16) and leaves dV as it is. A block is 384
+threads: a producer warpgroup whose
+one thread keeps a ring of ``kTcStages`` = 2 stages full by TMA and two
+consumer warpgroups of 64 rows each issuing ``wgmma`` (setmaxnreg: 40
+for the producer, 232 for each consumer; ptxas holds every thread to
+168). Tiles: the forward 128 queries a block against 64-key tiles; dq
+128 queries against 64-key tiles; dkdv 128 keys and one 64-column box of
+dK and dV a block (a grid of d / 64 boxes) against 32-query tiles with
+their lse and D. Shared memory, bytes (d = 64 / 128): forward 50,216 /
+99,368, dq 66,600 / 132,136, dkdv 52,264 / 101,416. One launch a forward
+and three a backward, as on the float32 route, no atomics, bit-identical
+runs. ``tc_launches`` counts forward launches on the route and
+``bwd_tc_launches`` backward calls on it, one a call (each also as the
+``obs`` counter ``flash.tc_launches`` / ``flash.bwd_tc_launches``);
+``bwd_dkdv_tc_launches`` and ``bwd_dq_tc_launches`` count each backward
+kernel's launches on the route, where the wrappers launch them. On
+the H100 at 36 heads x 4,096 x 64, causal: forward 0.454 ms, backward
+1.363 ms, against 2.44 and 5.57 ms for the kernels above on the same bf16
+inputs.
+
 Beside them, the plain PyTorch versions (``ref.flash_attention``,
 ``ref.flash_attention_lse``, ``ref.flash_attention_backward``) run for
 tensors on the CPU, and only there: a CUDA tensor launches the kernels or
-raises. ``launches`` counts forward launches, ``bwd_*_launches`` each
-backward kernel's, ``plain_calls`` and ``backward_plain_calls`` calls of
-the plain versions.
+raises. ``launches`` counts forward launches (either route),
+``bwd_*_launches`` each backward kernel's, ``plain_calls`` and
+``backward_plain_calls`` calls of the plain versions.
 
 The dispatcher knows the kernels as three operators (``torch.library``):
 ``strela::flash_fwd(q, k, v, causal) -> (o, lse)`` and
@@ -77,10 +111,13 @@ from typing import Dict, Tuple
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch import obs
 from repro_torch.kernels import _build, ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}     # csrc dtype codes
 HEAD_DIMS = (16, 64, 80, 128)                     # the kernel's instances
+TC_HEAD_DIMS = (64, 128)       # the bf16 tensor-core route's instances
+TC_MIN_QUERIES = 64            # fewer queries (decode) take today's kernels
 BLOCK_Q = 128                  # queries per block (csrc/flash_attention.cu)
 BLOCK_K = 64                   # keys per tile
 NEG_INF = -1e30
@@ -91,6 +128,22 @@ bwd_preprocess_launches = 0
 bwd_dkdv_launches = 0
 bwd_dq_launches = 0
 backward_plain_calls = 0
+tc_launches = 0                # forward launches on the bf16 route
+bwd_tc_launches = 0            # backward calls on the bf16 route, one a call
+bwd_dkdv_tc_launches = 0       # of bwd_dkdv_launches, those on the route
+bwd_dq_tc_launches = 0         # of bwd_dq_launches, those on the route
+
+
+def tc_route(q: torch.Tensor, sk: int) -> bool:
+    """Whether attention over q ``(h, sq, d)`` and sk keys takes the bf16
+    tensor-core kernels: bfloat16 at d = 64 or 128, at least
+    ``TC_MIN_QUERIES`` queries (a decode step's single query keeps
+    today's kernel, which is faster there), and h max(sq, sk) below 2^31
+    (the flat lse map's 32-bit coordinates). Chosen by what the wrapper
+    can see, the dtype and the shape."""
+    h, sq, d = q.shape
+    return (q.dtype == torch.bfloat16 and d in TC_HEAD_DIMS
+            and sq >= TC_MIN_QUERIES and h * max(sq, sk) < 2 ** 31)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -152,11 +205,25 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _launch(entry: str, tc: bool, args: tuple, q: torch.Tensor,
+            causal: bool) -> int:
+    """``entry`` (``strela_flash_*``), or on the bf16 route ``entry +
+    "_tc"``, which takes no dtype code, with the arguments every flash
+    entry point ends with; returns the CUDA error code."""
+    lib = _build.load()
+    tail = (int(causal), 1.0 / (q.shape[-1] ** 0.5), _stream(q))
+    with torch.cuda.device(q.device):
+        if tc:
+            return getattr(lib, entry + "_tc")(*args, *tail)
+        return getattr(lib, entry)(*args, DTYPES[q.dtype], *tail)
+
+
 def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, with_lse: bool):
-    """One launch of ``flash_kernel``: the output and, with ``with_lse``,
-    the rows' float32 log-sum-exp ``(h, sq)`` (else None)."""
-    global launches
+    """One launch of ``flash_kernel`` (``flash_kernel_tc`` on the bf16
+    route): the output and, with ``with_lse``, the rows' float32
+    log-sum-exp ``(h, sq)`` (else None)."""
+    global launches, tc_launches
     _check(q, k, v, causal)
     h, sq, d = q.shape
     sk = k.shape[1]
@@ -169,14 +236,16 @@ def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            if with_lse else None)
     if h == 0 or sq == 0:
         return out, lse
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        rc = lib.strela_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if with_lse else None, h, sq, sk, d,
-            DTYPES[q.dtype], int(causal), 1.0 / (d ** 0.5), _stream(q))
-    _build.check(lib, rc, f"flash_attention h={h} sq={sq} sk={sk} d={d}")
+    tc = tc_route(q, sk)
+    rc = _launch("strela_flash_attention", tc, (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None, h, sq, sk, d), q, causal)
+    _build.check(_build.load(), rc,
+                 f"flash_attention h={h} sq={sq} sk={sk} d={d}")
     launches += 1
+    if tc:
+        tc_launches += 1
+        obs.inc("flash.tc_launches")
     return out, lse
 
 
@@ -246,54 +315,64 @@ def _check_backward(q, k, v, do, lse, delta, causal) -> None:
 
 def bwd_dkdv_kernel(q, k, v, do, lse, delta, causal: bool = True
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``flash_bwd_dkdv_kernel``: dK and dV in k's and v's dtype."""
-    global bwd_dkdv_launches
+    """``flash_bwd_dkdv_kernel`` (``flash_bwd_dkdv_kernel_tc`` on the bf16
+    route): dK and dV in k's and v's dtype."""
+    global bwd_dkdv_launches, bwd_dkdv_tc_launches
     _check_backward(q, k, v, do, lse, delta, causal)
     h, sq, d = q.shape
     sk = k.shape[1]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if h == 0 or sq == 0:
         return dk.zero_(), dv.zero_()
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        rc = lib.strela_flash_bwd_dkdv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            h, sq, sk, d, DTYPES[q.dtype], int(causal), 1.0 / (d ** 0.5),
-            _stream(q))
-    _build.check(lib, rc, f"flash_bwd_dkdv h={h} sq={sq} sk={sk} d={d}")
+    tc = tc_route(q, sk)
+    rc = _launch("strela_flash_bwd_dkdv", tc, (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), h,
+        sq, sk, d), q, causal)
+    _build.check(_build.load(), rc,
+                 f"flash_bwd_dkdv h={h} sq={sq} sk={sk} d={d}")
     bwd_dkdv_launches += 1
+    bwd_dkdv_tc_launches += tc
     return dk, dv
 
 
 def bwd_dq_kernel(q, k, v, do, lse, delta, causal: bool = True
                   ) -> torch.Tensor:
-    """``flash_bwd_dq_kernel``: dQ in q's dtype."""
-    global bwd_dq_launches
+    """``flash_bwd_dq_kernel`` (``flash_bwd_dq_kernel_tc`` on the bf16
+    route): dQ in q's dtype."""
+    global bwd_dq_launches, bwd_dq_tc_launches
     _check_backward(q, k, v, do, lse, delta, causal)
     h, sq, d = q.shape
     sk = k.shape[1]
     dq = torch.empty_like(q)
     if h == 0 or sq == 0:
         return dq
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        rc = lib.strela_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), h, sq, sk, d,
-            DTYPES[q.dtype], int(causal), 1.0 / (d ** 0.5), _stream(q))
-    _build.check(lib, rc, f"flash_bwd_dq h={h} sq={sq} sk={sk} d={d}")
+    tc = tc_route(q, sk)
+    rc = _launch("strela_flash_bwd_dq", tc, (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), h, sq, sk, d), q,
+        causal)
+    _build.check(_build.load(), rc,
+                 f"flash_bwd_dq h={h} sq={sq} sk={sk} d={d}")
     bwd_dq_launches += 1
+    bwd_dq_tc_launches += tc
     return dq
 
 
 def attention_backward_kernel(q, k, v, o, lse, do, causal: bool = True
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
-    """dq, dk, dv by the three backward kernels, in the inputs' dtypes."""
+    """dq, dk, dv by the three backward kernels, in the inputs' dtypes
+    (``bwd_tc_launches`` counts the calls on the bf16 route; each
+    kernel's wrapper counts its own launches there)."""
+    global bwd_tc_launches
     delta = bwd_preprocess_kernel(o, do)
     dk, dv = bwd_dkdv_kernel(q, k, v, do, lse, delta, causal)
-    return bwd_dq_kernel(q, k, v, do, lse, delta, causal), dk, dv
+    dq = bwd_dq_kernel(q, k, v, do, lse, delta, causal)
+    if tc_route(q, k.shape[1]):
+        bwd_tc_launches += 1
+        obs.inc("flash.bwd_tc_launches")
+    return dq, dk, dv
 
 
 def attention_backward_plain(q, k, v, o, lse, do, causal: bool = True

@@ -66,9 +66,10 @@ def _ln(x: torch.Tensor, p: nn.ParameterDict) -> torch.Tensor:
 def cross_attention(p: L.Params, cfg: ArchConfig, x: torch.Tensor,
                     enc_out: torch.Tensor) -> torch.Tensor:
     """Full attention of the decoder's x over the encoder's output: q from
-    x, k and v recomputed from ``enc_out``, no rope and no mask; softmax
-    in float32, the output cast to x's dtype before ``wo``. On a mesh each
-    'model' rank takes its heads (or its query rows)."""
+    x, k and v recomputed from ``enc_out``, no rope and no mask; q, k and
+    v reach the kernel in x's dtype (it computes the softmax in float32
+    whatever it is given), the output in x's dtype before ``wo``. On a
+    mesh each 'model' rank takes its heads (or its query rows)."""
     b, s, _ = x.shape
     t = enc_out.shape[1]
     r, _ = tp.model_split()

@@ -17,11 +17,12 @@ kernel sees the rank's local ``(b_loc*h_loc, s, d)`` tensors. Outside a
 mesh they run the one-device operations unchanged.
 
 Attention's softmax-times-V core runs in
-``repro_torch.kernels.flash_attention.flash_attention``: the hand-written
-CUDA kernel for CUDA tensors, its plain version for CPU tensors. Both of
-the reference's ``attention_impl`` values (``"full"``, and ``"chunked"``,
-its XLA analogue of the same online-softmax kernel) take this one path,
-so ``AttnCfg`` carries no ``impl``.
+``repro_torch.kernels.flash_attention.flash_attention``, on q, k and v in
+the activations' dtype (bf16 takes the kernel's tensor-core route): the
+hand-written CUDA kernel for CUDA tensors, its plain version for CPU
+tensors. Both of the reference's ``attention_impl`` values (``"full"``,
+and ``"chunked"``, its XLA analogue of the same online-softmax kernel)
+take this one path, so ``AttnCfg`` carries no ``impl``.
 """
 from __future__ import annotations
 
@@ -171,15 +172,20 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (b, sq, h_loc, d); k, v (b, sk, kv_loc, d) from kv head
     ``kv_lo``: the kv heads broadcast to the query heads and cut to this
     rank's, then ``kernel`` (default ``flash_attention``) on ``(b*h_loc,
-    s, d)``; returns (b, sq, h_loc*d) in float32."""
+    s, d)`` in their shared dtype (float32 where they differ, as a float32
+    query against a bfloat16 cache); returns (b, sq, h_loc*d) in that
+    dtype. The kernel computes in float32 whatever it is given; a bfloat16
+    output is rounded once, as the caller rounded a float32 one before, and
+    bfloat16 inputs take the kernel's bf16 tensor-core route."""
     kernel = kernel or flash_attention
     b, sq, nh, hd = q.shape
+    dt = q.dtype if q.dtype == k.dtype == v.dtype else F32
     kf, vf = repeat_kv(k, group), repeat_kv(v, group)
     off = heads[0] - kv_lo * group
     if (off, nh) != (0, kf.shape[2]):
         kf, vf = kf.narrow(2, off, nh), vf.narrow(2, off, nh)
-    out = kernel(_heads_first(q.to(F32)), _heads_first(kf.to(F32)),
-                 _heads_first(vf.to(F32)), causal=causal)
+    out = kernel(_heads_first(q.to(dt)), _heads_first(kf.to(dt)),
+                 _heads_first(vf.to(dt)), causal=causal)
     out = out.reshape(b, nh, sq, hd).permute(0, 2, 1, 3)
     return out.reshape(b, sq, nh * hd)
 

@@ -1064,6 +1064,102 @@ def test_flash_backward_entry_points_refuse_an_unsupported_head_dim(
             q, k, v, do, lse, delta, True)
 
 
+# the bf16 tensor-core route (flash_kernel_tc, flash_bwd_dq_kernel_tc,
+# flash_bwd_dkdv_kernel_tc) at the benchmark cells' attention shapes
+# (minicpm-2b at 4,096 and at 4 x 512, granite at 2 x 2,048 over its 24
+# heads) and whisper-base's encoder: today's bf16 tolerances, lse within
+# 1e-5, two runs bit-identical, each call counted on the route
+TC_SHAPES = [(36, 4096, 4096, True), (48, 2048, 2048, True),
+             (144, 512, 512, True), (32, 1500, 1500, False)]
+
+
+@pytest.mark.parametrize("h,sq,sk,causal", TC_SHAPES)
+def test_flash_bf16_route_at_the_cells_shapes(cuda, h, sq, sk, causal):
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(h + sq + sk)
+    q, do = (_normal(rng, (h, sq, 64), cuda, torch.bfloat16)
+             for _ in range(2))
+    k, v = (_normal(rng, (h, sk, 64), cuda, torch.bfloat16)
+            for _ in range(2))
+    before = (fa.tc_launches, fa.bwd_tc_launches)
+    o, lse = fa.attention_lse_kernel(q, k, v, causal)
+    o2, lse2 = fa.attention_lse_kernel(q, k, v, causal)
+    got = fa.attention_backward_kernel(q, k, v, o, lse, do, causal)
+    again = fa.attention_backward_kernel(q, k, v, o, lse, do, causal)
+    assert (fa.tc_launches - before[0], fa.bwd_tc_launches - before[1]) \
+        == (2, 2)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o_p, lse_p = ref.flash_attention_lse(q, k, v, causal)
+    torch.testing.assert_close(o.float(), o_p.float(), atol=2 ** -7,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(lse, lse_p, atol=1e-5, rtol=0)
+    del o_p, lse_p
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention(*leaves, causal=causal),
+                               leaves, do)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+        assert float((a.float() - w.float()).abs().max()) <= \
+            2e-2 * float(w.float().abs().max())
+
+
+# a share of output and gradient elements equal to the float32 route's
+# rounded to bfloat16 (repro_torch.bench_flash.route_agreement): the route's
+# three pieces of P and dS reach it (0.9963 at the least on the H100, on O
+# at 4,096 keys), one piece (plain bf16 flash, 0.57-0.60) does not. Two
+# pieces (0.994-0.998) fall within the float32 routes' own spread here
+# (plain float32 PyTorch against the float32 route reads 0.9947-0.9999),
+# so only the CPU emulation (tests/test_torch_flash_bf16_split.py) sees
+# the lo piece.
+TC_AGREE = 0.99
+
+
+@pytest.mark.parametrize("h,sq,sk,d,causal", [
+    (8, 4096, 4096, 64, True), (8, 4096, 4096, 128, True),
+    (16, 1500, 1500, 64, False), (32, 512, 512, 64, True)])
+def test_flash_bf16_route_agrees_with_the_float32_route(cuda, h, sq, sk, d,
+                                                        causal):
+    """Bit for bit after rounding, on the same bfloat16 inputs, lse and D:
+    the tolerances above hold plain bf16 flash too, this share does not."""
+    from repro_torch.bench_flash import route_agreement
+    rng = np.random.default_rng(h + sq + d)
+    q, do = (_normal(rng, (h, sq, d), cuda, torch.bfloat16)
+             for _ in range(2))
+    k, v = (_normal(rng, (h, sk, d), cuda, torch.bfloat16)
+            for _ in range(2))
+    before = fa.bwd_dkdv_tc_launches, fa.bwd_dq_tc_launches
+    agree = route_agreement(fa, q, k, v, do, causal, pieces=(1,))
+    assert (fa.bwd_dkdv_tc_launches - before[0],
+            fa.bwd_dq_tc_launches - before[1]) == (1, 1)
+    assert min(agree["kernels"].values()) >= TC_AGREE, agree
+    assert min(agree["plain_1"].values()) < TC_AGREE, agree
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    (torch.float32, 64, False), (torch.float32, 128, False),
+    (torch.bfloat16, 16, False), (torch.bfloat16, 80, False)])
+def test_flash_route_counts_follow_dtype_and_width(cuda, dtype, d, route):
+    """bf16 at d = 64 and 128 takes the tensor-core kernels, one
+    ``tc_launches`` a forward, one ``bwd_tc_launches`` a backward call and
+    one launch of each backward kernel on the route; float32 and the other
+    widths take today's kernels and count none."""
+    rng = np.random.default_rng(d)
+    q, k, v = (_normal(rng, (3, 70, d), cuda, dtype).requires_grad_()
+               for _ in range(3))
+    def counts():
+        return (fa.launches, fa.tc_launches, fa.bwd_dkdv_launches,
+                fa.bwd_tc_launches, fa.bwd_dkdv_tc_launches,
+                fa.bwd_dq_tc_launches)
+    before = counts()
+    fa.flash_attention(q, k, v, True).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(before, counts())] == [1, int(route), 1] \
+        + [int(route)] * 3
+    assert fa.tc_route(q, 70) == route
+
+
 def test_flash_attention_fn_on_the_card_runs_the_kernels_only(cuda):
     """With a gradient the Function runs the forward kernel (with lse)
     and the three backward kernels once each, and no plain version."""

@@ -202,6 +202,59 @@ def test_attention_core_goes_through_the_flash_wrapper():
     assert (fa.launches, fa.plain_calls) == (before[0], before[1] + 1)
 
 
+def _recording(monkeypatch):
+    """Wraps the layers' flash entry point: each call's q, k, v dtypes."""
+    seen = []
+
+    def kernel(q, k, v, causal=True):
+        seen.append((q.dtype, k.dtype, v.dtype))
+        return fa.flash_attention(q, k, v, causal)
+    monkeypatch.setattr(L, "flash_attention", kernel)
+    return seen
+
+
+@pytest.mark.parametrize("x_dtype,cache_dtype,want", [
+    (torch.bfloat16, None, torch.bfloat16),
+    (torch.float32, None, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16, torch.float32)])
+def test_attention_hands_the_kernel_the_activations_dtype(
+        monkeypatch, x_dtype, cache_dtype, want):
+    """bfloat16 activations reach the kernel as bfloat16 (its tensor-core
+    route on the card), float32 ones as float32, and a float32 query
+    against a bfloat16 cache as float32; the output is x's dtype, and the
+    gradient flows through the same call."""
+    seen = _recording(monkeypatch)
+    rng = np.random.default_rng(6)
+    p = {k: _t(v).to(x_dtype).requires_grad_()
+         for k, v in _attn_params(rng, 32, 4, 2, 16, False).items()}
+    x = torch.from_numpy(rng.standard_normal((2, 3, 32)).astype(
+        np.float32)).to(x_dtype)
+    caches = None if cache_dtype is None else tuple(
+        torch.zeros(2, 8, 2, 16, dtype=cache_dtype) for _ in range(2))
+    out, _ = L.attention(p, L.AttnCfg(32, 4, 2, 16), x,
+                         torch.arange(3)[None].expand(2, 3), caches, 0)
+    assert out.dtype == x_dtype and seen == [(want,) * 3]
+    out.float().square().sum().backward()
+    assert all(v.grad is not None for v in p.values())
+
+
+def test_a_bf16_model_hands_every_layer_bf16_to_the_kernel(monkeypatch):
+    """A bfloat16 LM's loss and gradient (minicpm-2b reduced): every
+    layer's attention gives the kernel bfloat16 q, k and v."""
+    seen = _recording(monkeypatch)
+    cfg = pbase.get_arch("minicpm-2b").reduced()
+    assert cfg.torch_dtype == torch.bfloat16
+    api = build_model(cfg)
+    params = api.init_params(torch.Generator("cpu").manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 9),
+                         generator=torch.Generator("cpu").manual_seed(1))
+    loss, _ = api.loss(params, {"tokens": toks[:, :-1],
+                                "targets": toks[:, 1:]})
+    loss.backward()
+    assert seen == [(torch.bfloat16,) * 3] * cfg.n_layers
+
+
 @pytest.mark.parametrize("activation", ["swiglu", "gelu"])
 def test_mlp_matches_the_reference(activation):
     rng = np.random.default_rng(6)
