@@ -27,6 +27,8 @@ from typing import Optional
 
 PEAK_FLOPS = 989e12         # bf16 dense, per card
 HBM_BW = 3.35e12            # bytes/s per card
+FP32_FLOPS = 67e12          # float32 outside the tensor cores, per card
+TF32_FLOPS = 495e12         # TF32 dense on the tensor cores, per card
 LINK_BW = 450e9             # bytes/s per card each way (NVLink 4)
 
 

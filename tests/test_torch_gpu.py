@@ -1,12 +1,18 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions on the same device inputs (the fabric kernels bit-exact, the
 float kernels within ``tests/test_kernels_pallas.py``'s tolerances, with
-TF32 off); and the ``"cuda"`` engine end to end. Marked ``gpu``: each test asks its fixture for the card and
+TF32 off); and every path that runs them end to end: the ``"cuda"``
+engine, the serving loop and the fleet, ``@offload``, each LM family's
+serving at full width cut in depth, training, the one-rank NCCL mesh and
+the dry run. Marked ``gpu``: each test asks its fixture for the card and
 skips, with the reason, where there is none. This file imports neither
 ``jax`` nor the JAX package, so it also runs where only the port is
 installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+``python3 chip_smoke.py`` runs it, with ``tests/test_torch_gpu_adamw.py``
+and the kernel bench.
 """
 import numpy as np
 import pytest
@@ -23,6 +29,8 @@ from repro_torch.kernels import stream_matmul as sm
 
 pytestmark = pytest.mark.gpu
 
+# the reference parity suite's kernels, a Branch/Merge with ops on both
+# legs, and tables of 64 wire slots, the most the kernels hold
 PARITY = {
     "fft": lambda n: K.fft_butterfly(), "relu": lambda n: K.relu(),
     "mac1": K.mac1, "mac3": K.mac3, "mac2x": K.mac2x,
@@ -32,6 +40,8 @@ PARITY = {
     "conv2d_row": lambda n: K.conv2d_row(1, -2, 3),
     "outer_row": lambda n: K.outer_row(2, -3),
     "outer_row2": lambda n: K.outer_row2(2, -3, 5, 1),
+    "legs": lambda n: _legs_dfg(), "wide": lambda n: _wide_dfg(False),
+    "wide_merge": lambda n: _wide_dfg(True),
 }
 
 
@@ -98,6 +108,18 @@ def test_each_reduction_op_folds_like_plain(cuda, op):
         assert torch.equal(kr["s"], pr["s"]), (n_lanes, length)
 
 
+def _legs_dfg():
+    """x > 0 ? x * y : x >> 3, a Branch/Merge with an op on each leg."""
+    b = DFG.build("legs")
+    x, y = b.inp("x"), b.inp("y")
+    c = b.cmp("c", CmpOp.GTZ, x)
+    bx, by = b.branch("bx", x, c), b.branch("by", y, c)
+    t = b.alu("t", AluOp.MUL, bx, by, a_port="t", b_port="t")
+    f = b.alu("f", AluOp.SHR, bx, const_b=3, a_port="f")
+    b.out("out", b.merge("m", t, f))
+    return b.done()
+
+
 def _wide_dfg(merge):
     """64 wire slots, the most the kernels hold: x, y and a chain of ALU
     ops; where ``merge``, ending in a Branch/Merge on x > 0 (tracked
@@ -120,14 +142,7 @@ def _wide_dfg(merge):
 
 
 def test_fabric_stream_kernel_matches_plain(cuda):
-    b = DFG.build("legs")
-    x, y = b.inp("x"), b.inp("y")
-    c = b.cmp("c", CmpOp.GTZ, x)
-    bx, by = b.branch("bx", x, c), b.branch("by", y, c)
-    t = b.alu("t", AluOp.MUL, bx, by, a_port="t", b_port="t")
-    f = b.alu("f", AluOp.SHR, bx, const_b=3, a_port="f")
-    b.out("out", b.merge("m", t, f))
-    graphs = [b.done(), K.relu(), K.fft_butterfly(), K.axpby(3, 5),
+    graphs = [_legs_dfg(), K.relu(), K.fft_butterfly(), K.axpby(3, 5),
               K.vadd(), K.outer_row2(2, -3, 5, 1), _wide_dfg(False),
               _wide_dfg(True)]
     assert [fs.lower(g).n_slots for g in graphs[-2:]] == [fs.MAX_SLOTS] * 2
@@ -197,6 +212,111 @@ def test_cuda_engine_serves_clients_through_the_kernel(cuda):
     assert eng.stats.lane_batches > 0 and eng.stats.lane_batch_failures == 0
 
 
+def _wrap32(x):
+    return ((np.asarray(x, dtype=np.int64) + 2 ** 31) % 2 ** 32
+            - 2 ** 31).astype(np.int32)
+
+
+def test_cuda_engine_one_shot_mix_and_gesummv_match_the_executor(cuda):
+    """The one-shot mix (relu, vadd, fft_butterfly, axpby, scale_add, mac1)
+    at length 4096, 8 requests a class in one flush of
+    ``Engine(backend="cuda")``: every output equal to the executor's, the
+    tally and the configuration cycles equal to ``Engine("sim")``'s on the
+    same stream; then PolyBench gesummv through ``clients``; the lane
+    kernel launched, its plain version never."""
+    from repro_torch.core.executor import execute
+    from repro_torch.engine import ArtifactCache, Engine, clients
+    length = 4096
+    dfgs = {"relu": K.relu(), "vadd": K.vadd(),
+            "fft_butterfly": K.fft_butterfly(), "axpby": K.axpby(3, 5),
+            "scale_add": K.scale_add(4), "mac1": K.mac1(length)}
+    eng, sim = (Engine(backend=b, cache=ArtifactCache(memory_only=True))
+                for b in ("cuda", "sim"))
+    arts = {c: eng.compile(g) for c, g in dfgs.items()}
+    sim_arts = {c: sim.compile(g) for c, g in dfgs.items()}
+    rng = np.random.default_rng(8)
+    reqs = [(c, {k: rng.integers(-2 ** 31, 2 ** 31, length, dtype=np.int64)
+                 .astype(np.int32) for k in g.inputs})
+            for _ in range(8) for c, g in dfgs.items()]
+    launches, plain = fr.launches, fr.plain_calls
+    handles = [(c, ins, eng.submit(arts[c], ins)) for c, ins in reqs]
+    eng.flush()
+    for c, ins in reqs:
+        sim.submit(sim_arts[c], ins)
+    sim.flush()
+    for c, ins, h in handles:
+        got, want = h.result(), execute(dfgs[c], ins)
+        for o in want:
+            np.testing.assert_array_equal(got[o], want[o])
+    assert eng.tally == sim.tally
+    assert (eng.stats.config_cycles_paid, eng.stats.config_cycles_naive) \
+        == (sim.stats.config_cycles_paid, sim.stats.config_cycles_naive)
+    A, B = (rng.integers(-1000, 1000, (250, 250)).astype(np.int32)
+            for _ in range(2))
+    x = rng.integers(-1000, 1000, 250).astype(np.int32)
+    y = np.zeros(250, dtype=np.int32)
+    clients.run_gesummv(eng, 2, 3, A, B, x, y)
+    np.testing.assert_array_equal(y, _wrap32(
+        2 * (A.astype(np.int64) @ x) + 3 * (B.astype(np.int64) @ x)))
+    assert fr.launches > launches and fr.plain_calls == plain
+    assert eng.stats.lane_batch_failures == 0
+
+
+def test_ops_send_numpy_inputs_to_each_kernel_on_the_card(cuda):
+    """``kernels.ops`` with numpy inputs and no device runs on the card:
+    a float32 product on the SGEMM, bfloat16 ones on ``wgmma`` (aligned)
+    and ``wgmma_realign`` (A one element off alignment, and an LM head's
+    N % 8 = 3 with a bfloat16 result), attention, the 3x3 convolution and
+    ``fabric_elementwise`` on their kernels; no plain version; each result
+    within its tolerance of the plain version's (max|C| relative for the
+    products, as at their realistic widths)."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(9)
+    a, b = (rng.standard_normal(s).astype(np.float32)
+            for s in ((200, 136), (136, 264)))
+    q, k, v = (rng.standard_normal((4, 300, 64)).astype(np.float32)
+               for _ in range(3))
+    img, kern = (rng.standard_normal(s).astype(np.float32)
+                 for s in ((300, 517), (3, 3)))
+    xs = rng.integers(-2 ** 31, 2 ** 31, 5000, dtype=np.int64).astype(
+        np.int32)
+    a16, b16 = (torch.from_numpy(t).to(cuda, BF16) for t in (a, b))
+    a_off = _offset(a16, 1)
+    b_head = _normal(rng, (136, 259), cuda, BF16)
+    mods = (sm, fa, sc, fs)
+
+    def counts():
+        return ([sm.sgemm_launches, sm.wgmma_launches,
+                 sm.wgmma_realign_launches, fa.launches, sc.launches,
+                 fs.launches] + [m.plain_calls for m in mods])
+    before = counts()
+    out = {"f32": ops.matmul(a, b), "bf16": ops.matmul(a16, b16),
+           "off": ops.matmul(a_off, b16),
+           "head": ops.matmul(a16, b_head, out_dtype=BF16),
+           "attn": ops.attention(q, k, v, causal=True),
+           "conv": ops.conv2d_3x3(img, kern),
+           "relu": ops.fabric_elementwise(K.relu(), {"x": xs})["out"]}
+    torch.cuda.synchronize()
+    assert [n - m for n, m in zip(counts(), before)] == [1, 1, 2, 1, 1, 1] \
+        + [0] * len(mods)
+    assert all(t.device.type == "cuda" for t in out.values())
+    for key, x, y, rel, rtol in (
+            ("f32", torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda),
+             1e-5, 0.0),
+            ("bf16", a16, b16, 1e-4, 0.0), ("off", a_off, b16, 1e-4, 0.0),
+            ("head", a16, b_head, 1e-4, 2 ** -7)):
+        want = sm.matmul_plain(x, y, out[key].dtype).float()
+        torch.testing.assert_close(out[key].float(), want, rtol=rtol,
+                                   atol=rel * float(want.abs().max()))
+    torch.testing.assert_close(out["attn"], fa.attention_plain(
+        *(torch.from_numpy(t).to(cuda) for t in (q, k, v)), True),
+        atol=3e-5, rtol=3e-5)
+    assert torch.equal(out["conv"], sc.conv_plain(
+        *(torch.from_numpy(t).to(cuda) for t in (img, kern))))
+    assert torch.equal(out["relu"].cpu(), torch.from_numpy(
+        np.maximum(xs, 0)))
+
+
 def test_cuda_serve_soak_matches_the_cpu_run(cuda):
     """A virtual-clock soak of the paper mix on the card: every batch and
     every shot through the lane kernel (no fold, no plain version, no
@@ -243,6 +363,37 @@ def test_cuda_server_serves_exact_results_from_its_worker(cuda):
             for k in want:
                 np.testing.assert_array_equal(out[k], want[k])
     assert not srv._thread.is_alive()
+    assert srv.core.report()["served"] == len(tickets)
+    assert fr.launches > launches and fr.plain_calls == plain
+    assert eng.stats.lane_batch_failures == 0
+
+
+def test_cuda_server_serves_the_model_mix_against_its_oracles(cuda):
+    """``Server`` on the card over the model-layer mix (the SSM classes,
+    which need loop state, left out by name): every answer equal to its
+    class's oracle, the lane kernel launched and its plain version
+    never."""
+    from repro_torch.engine import ArtifactCache, Engine
+    from repro_torch.serve import (ServeConfig, Server, request_inputs,
+                                   serve_classes)
+    from repro_torch.workloads import MODEL_CLASSES
+    length = 512
+    eng = Engine(backend="cuda", cache=ArtifactCache(memory_only=True))
+    skipped = {}
+    classes = serve_classes(eng, length, mix="model", skipped=skipped)
+    assert set(skipped) == {"ssm_scan", "ssm_relax"}
+    rng = np.random.default_rng(12)
+    launches, plain = fr.launches, fr.plain_calls
+    with Server(eng, ServeConfig(max_wait_us=500.0)) as srv:
+        tickets = [(label, srv.submit(art, request_inputs(
+            art, length, rng, label=label)))
+            for _ in range(2) for label, art in sorted(classes.items())]
+        for label, tk in tickets:
+            out = tk.result(timeout=120)
+            for i, want in enumerate(MODEL_CLASSES[label].oracle(
+                    **tk.inputs)):
+                np.testing.assert_array_equal(np.ravel(out[f"out{i}"]),
+                                              np.ravel(want))
     assert srv.core.report()["served"] == len(tickets)
     assert fr.launches > launches and fr.plain_calls == plain
     assert eng.stats.lane_batch_failures == 0
@@ -515,10 +666,19 @@ def _offload_cond(x):
     return torch.cond(x > 0, lambda v: v * 3 - 1, lambda v: v + 7, (x,))
 
 
+def _offload_fft(ar, ai, br, bi):
+    wr, wi = 23170, -23170
+    tr = br * wr - bi * wi
+    ti = br * wi + bi * wr
+    return ar + tr, ai + ti, ar - tr, ai - ti
+
+
 @pytest.mark.parametrize("name,fn,n_in", [
     ("mac1", lambda a, b0: torch.sum(a * b0), 2),
     ("cond", _offload_cond, 1),
     ("big", _offload_big, 2),
+    ("fft", _offload_fft, 4),
+    ("epilogue", lambda d, y: torch.relu(3 * d + 2 * y), 2),
 ])
 def test_offload_cuda_matches_sim_on_the_card(cuda, name, fn, n_in):
     """Traced kernels through ``@offload(backend="cuda")``: values from the
@@ -601,7 +761,7 @@ def test_cuda_fleet_matches_the_cpu_run(cuda):
     assert fleet.results_digest() == cpu_fleet.results_digest()
 
 
-# the LM serving path (chip_smoke.py phase 14): minicpm-2b serves batch 4,
+# the LM serving path: minicpm-2b serves batch 4,
 # so attention runs 4 x 36 = 144 heads at d = 64, one query against the
 # 1..48 cached keys while decoding and sq = sk for a prefill
 @pytest.mark.parametrize("sq,sk", [(1, 1), (1, 17), (1, 49), (1024, 1024)])
@@ -650,7 +810,7 @@ def test_serve_lm_at_full_width_launches_flash_per_layer_and_step(cuda):
     assert bool(torch.isfinite(res["logits"].float()).all())
 
 
-# the MoE layer at granite-moe-3b-a800m's widths (chip_smoke.py phase 15):
+# the MoE layer at granite-moe-3b-a800m's widths:
 # D 1536, F 512, 40 experts top-8, bf16 parameters from seed 0; batch 4 at
 # decode (N = 4, C = 1) and a 128-token prefill (N = 128, C = 32)
 def _granite_moe():
@@ -796,7 +956,141 @@ def test_serve_lm_moe_at_full_width_launches_flash_per_layer_and_step(cuda):
     assert bool(torch.isfinite(res["logits"][:, :cfg.vocab].float()).all())
 
 
-# the SSD layer and the hybrid (chip_smoke.py phase 16): one layer at
+def _capture_routing(params, record):
+    """A forward pre-hook on each layer's MoE module: ``route`` on the
+    layer's input, kept on the host as (layer, probs, gate_idx)."""
+    from repro_torch.models import moe as M
+    for i, block in enumerate(params.layers):
+        def hook(mod, args, i=i):
+            probs, _, idx = M.route(mod, mod.spec, args[0])
+            record.append((i, probs.cpu(), idx.cpu()))
+        block.moe.register_forward_pre_hook(hook)
+
+
+def _first_flips(cpu_rec, card_rec, n_rows, k):
+    """Walk both runs' routing call by call (steps, then layers). A row
+    whose chosen experts (as a set) differ is where the runs part: that
+    row and every later one (the capacity's positions run by token) are
+    compared no more from that step on. Returns each row's first step
+    apart (None where never) and each flip's CPU top-k margin."""
+    apart, margins = [None] * n_rows, []
+    n_layers = 1 + max(rec[0] for rec in cpu_rec)
+    for call, ((_, probs, ci), (_, _, gi)) in enumerate(zip(cpu_rec,
+                                                            card_rec)):
+        step = call // n_layers
+        # a row's routing in this call depends on its own input only, so
+        # every row not yet apart is checked before any is set apart
+        flipped = [b for b in range(n_rows) if apart[b] is None and not
+                   torch.equal(ci[b].sort().values, gi[b].sort().values)]
+        for b in flipped:
+            top = probs[b].sort(descending=True).values
+            margins.append(float(top[k - 1] - top[k]))
+        for r in range(min(flipped, default=n_rows), n_rows):
+            if apart[r] is None:
+                apart[r] = step
+    return apart, margins
+
+
+def test_granite_moe_at_full_width_decodes_like_the_cpu(cuda):
+    """granite-moe-3b-a800m at full width cut to 2 layers, 8 prompt and 4
+    greedy steps at batch 4 on the card and on the CPU from the same
+    parameters (the card fed the CPU's tokens): each row's logits within
+    the LM tolerance up to its first routing flip, and a flip only where
+    the CPU's top-k margin is under 1e-4 (a bf16 rounding apart)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m"), n_layers=2)
+    api = build_model(cfg)
+    cpu_params = api.init_params(torch.Generator().manual_seed(0))
+    prompt = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab, (4, 8)).astype(np.int32))
+    runs, recs, fed = {}, {}, []
+    for label, params in (("cpu", cpu_params),
+                          ("card", copy.deepcopy(cpu_params).to(cuda))):
+        recs[label], steps, logits = [], [], None
+        _capture_routing(params, recs[label])
+        dev = params.embed.device
+        state = T.init_caches(cfg, 4, 12, device=dev)
+        with torch.inference_mode():
+            for t in range(12):
+                if t < 8:
+                    tok = prompt[:, t:t + 1]
+                elif label == "cpu":
+                    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+                    fed.append(tok)
+                else:
+                    tok = fed[t - 8]
+                logits, state = api.decode_step(params, state, tok.to(dev),
+                                                t)
+                steps.append(logits.cpu().float())
+        runs[label] = steps
+    apart, margins = _first_flips(recs["cpu"], recs["card"], 4,
+                                  cfg.moe.top_k)
+    assert all(m < 1e-4 for m in margins), margins
+    compared = 0
+    for t, (g, c) in enumerate(zip(runs["card"], runs["cpu"])):
+        rows = [b for b in range(4) if apart[b] is None or t < apart[b]]
+        compared += len(rows)
+        torch.testing.assert_close(g[rows], c[rows], atol=3e-2, rtol=3e-2)
+    assert compared > 0
+
+
+def test_internvl2_prefill_at_full_width_launches_flash_per_layer(cuda):
+    """internvl2-76b at full width cut to 2 layers (the whole model needs
+    about 141 GB in bf16): ``api.prefill`` of 256 patches and 32 tokens at
+    batch 2, one flash launch a layer at d = 128, no plain call, finite
+    logits and caches over every position."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_arch("internvl2-76b"), n_layers=2)
+    api = build_model(cfg)
+    params = api.init_params(torch.Generator(cuda).manual_seed(0))
+    gen = torch.Generator(cuda).manual_seed(15)
+    patches = torch.randn(2, cfg.n_patches, cfg.d_model, generator=gen,
+                          device=cuda) * 0.02
+    toks = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab, (2, 32)).astype(np.int32)).to(cuda)
+    launches, plain = fa.launches, fa.plain_calls
+    with torch.inference_mode():
+        logits, state = api.prefill(params, {
+            "tokens": toks, "patches": patches.to(cfg.torch_dtype)})
+    torch.cuda.synchronize()
+    assert (fa.launches - launches, fa.plain_calls - plain) == (2, 0)
+    assert tuple(logits.shape) == (2, cfg.vocab_padded)
+    assert bool(torch.isfinite(logits.float()).all())
+    assert state[0].shape[2] == cfg.n_patches + 32
+
+
+def test_llama4_scout_decode_at_full_width_launches_flash_per_step(cuda):
+    """llama4-scout-17b-a16e at full width cut to 2 layers (the whole model
+    needs about 216 GB in bf16), 16 experts with a shared one: 4 greedy
+    decode steps at batch 4, one flash launch a layer and step, no plain
+    call, finite logits and tokens in the vocabulary."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_arch("llama4-scout-17b-a16e"), n_layers=2)
+    api = build_model(cfg)
+    params = api.init_params(torch.Generator(cuda).manual_seed(0))
+    state = T.init_caches(cfg, 4, 4, device=cuda)
+    tok = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab, (4, 1)).astype(np.int32)).to(cuda)
+    launches, plain = fa.launches, fa.plain_calls
+    with torch.inference_mode():
+        for t in range(4):
+            logits, state = api.decode_step(params, state, tok, t)
+            tok = torch.argmax(logits, -1)[:, None]
+            assert 0 <= int(tok.min()) and int(tok.max()) < cfg.vocab
+    assert (fa.launches - launches, fa.plain_calls - plain) == (2 * 4, 0)
+    assert bool(torch.isfinite(logits[:, :cfg.vocab].float()).all())
+
+
+# the SSD layer and the hybrid: one layer at
 # mamba2-1.3b's and zamba2-2.7b's widths, and both models at full width
 # cut to 2 SSD layers and to 6 (one site of zamba2's shared block)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -883,7 +1177,50 @@ def test_serve_lm_ssm_and_hybrid_at_full_width(cuda, arch, n_layers, sites):
     assert bool(torch.isfinite(res["logits"][:, :cfg.vocab].float()).all())
 
 
-# the Whisper encoder-decoder (chip_smoke.py phase 17): whisper-base at
+@pytest.mark.parametrize("arch,n_layers,sites", [("mamba2-1.3b", 2, 0),
+                                                 ("zamba2-2.7b", 6, 1)])
+def test_ssm_and_hybrid_prefill_at_full_width_matches_the_cpu(
+        cuda, arch, n_layers, sites):
+    """``api.prefill`` of 256 tokens at batch 2 (the chunked form) at full
+    width cut in depth, the same weights in float32 and bf16: float32 on
+    the card within the LM tolerance of the CPU; bf16, whose GEMMs round
+    otherwise on the card and the CPU, no farther from the float32 CPU run
+    than twice the CPU's own bf16 run; a flash launch a shared-block site
+    and no plain call on the card."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    api, api32 = build_model(cfg), build_model(cfg32)
+    bf = api.init_params(torch.Generator().manual_seed(0))
+    f32 = copy.deepcopy(bf).float()
+    f32.cfg = cfg32
+    toks = torch.from_numpy(np.random.default_rng(16).integers(
+        0, cfg.vocab, (2, 256)).astype(np.int32))
+    out = {}
+    for key, (a, params) in {
+            ("cpu", "bf16"): (api, bf),
+            ("card", "bf16"): (api, copy.deepcopy(bf).to(cuda)),
+            ("cpu", "f32"): (api32, f32),
+            ("card", "f32"): (api32, copy.deepcopy(f32).to(cuda))}.items():
+        launches, plain = fa.launches, fa.plain_calls
+        with torch.inference_mode():
+            logits, _ = a.prefill(params, {
+                "tokens": toks.to(params.embed.device)})
+        out[key] = logits.cpu().float()[..., :cfg.vocab]
+        if key[0] == "card":
+            assert (fa.launches - launches, fa.plain_calls - plain) == (
+                sites, 0)
+    torch.testing.assert_close(out["card", "f32"], out["cpu", "f32"],
+                               atol=3e-2, rtol=3e-2)
+    dist = {dev: float((out[dev, "bf16"] - out["cpu", "f32"]).abs().max())
+            for dev in ("cpu", "card")}
+    assert dist["card"] <= 2 * dist["cpu"], dist
+
+
+# the Whisper encoder-decoder: whisper-base at
 # batch 4 runs 4 x 8 = 32 heads at d = 64: the encoder non-causal over its
 # 1500 frames (11 query tiles of 128 and one of 92), the decoder's
 # self-attention causal over its cache, and cross-attention non-causal of
@@ -902,6 +1239,34 @@ def test_flash_attention_at_the_whisper_shapes(cuda, sq, sk, causal):
     torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
 
 
+def _whisper_runs(api, params, frames, toks):
+    """Reduced whisper-base on ``params``' device: the encoder's output,
+    the decoder's logits, the loss, ``api.prefill``'s logits over 8 tokens
+    and 12 decode steps, in float32 on the host."""
+    from repro_torch.models import encdec as E
+    cfg, dev = api.cfg, params.embed.device
+    f, t = frames.to(dev, params.embed.dtype), toks.to(dev)
+    with torch.inference_mode():
+        enc = E.encode(params, cfg, f)
+        logits = E.decode(params, cfg, t, enc)[0]
+        loss = api.loss(params, {"tokens": t[:, :8], "targets": t[:, 1:9],
+                                 "frames": f})[0]
+        pre, _ = api.prefill(params, {"tokens": t[:, :8], "frames": f})
+        state = (enc, E.init_caches(cfg, 2, 12, device=dev))
+        steps = [api.decode_step(params, state, t[:, i:i + 1], i)[0]
+                 for i in range(12)]
+    return [x.cpu().float() for x in [enc, logits, loss, pre] + steps]
+
+
+def _whisper_inputs(cfg):
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, cfg.encdec.enc_len, cfg.d_model)).astype(np.float32) * 0.02)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)).astype(
+        np.int32))
+    return frames, toks
+
+
 def test_reduced_whisper_on_the_card_matches_the_cpu(cuda):
     """whisper-base reduced, float32, from the same parameters on the card
     and on the CPU: the encoder and decoder's logits, the loss, prefill
@@ -910,33 +1275,47 @@ def test_reduced_whisper_on_the_card_matches_the_cpu(cuda):
     import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
-    from repro_torch.models import encdec as E
     cfg = dataclasses.replace(get_arch("whisper-base").reduced(),
                               dtype="float32")
     api = build_model(cfg)
     cpu = api.init_params(torch.Generator().manual_seed(0))
-    card = copy.deepcopy(cpu).to(cuda)
-    rng = np.random.default_rng(0)
-    frames = torch.from_numpy(rng.standard_normal(
-        (2, cfg.encdec.enc_len, cfg.d_model)).astype(np.float32) * 0.02)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)).astype(
-        np.int32))
-    out = {}
-    for label, params in (("cpu", cpu), ("card", card)):
-        dev = params.embed.device
-        f, t = frames.to(dev), toks.to(dev)
-        with torch.inference_mode():
-            enc = E.encode(params, cfg, f)
-            logits = E.decode(params, cfg, t, enc)[0]
-            loss = api.loss(params, {"tokens": t[:, :8], "targets": t[:, 1:9],
-                                     "frames": f})[0]
-            pre, _ = api.prefill(params, {"tokens": t[:, :8], "frames": f})
-            state = (enc, E.init_caches(cfg, 2, 12, device=dev))
-            steps = [api.decode_step(params, state, t[:, i:i + 1], i)[0]
-                     for i in range(12)]
-        out[label] = [x.cpu() for x in [enc, logits, loss, pre] + steps]
+    ins = _whisper_inputs(cfg)
+    out = {label: _whisper_runs(api, params, *ins) for label, params in
+           (("cpu", cpu), ("card", copy.deepcopy(cpu).to(cuda)))}
     for got, want in zip(out["card"], out["cpu"]):
         torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+def test_reduced_whisper_in_bf16_on_the_card_stays_near_float32(cuda):
+    """The same reduced weights in bf16 and in float32 (the bf16 upcast):
+    bf16 rounding differs between the card's and the CPU's GEMMs and adds
+    up over layers, so each bf16 run is held to its distance from the
+    float32 CPU run: the card's no more than twice the CPU's own, with the
+    flash kernels launched and no plain call."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    cfg = get_arch("whisper-base").reduced()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    api, api32 = build_model(cfg), build_model(cfg32)
+    bf = api.init_params(torch.Generator().manual_seed(0))
+    f32 = copy.deepcopy(bf).float()
+    f32.cfg = cfg32
+    ins = _whisper_inputs(cfg)
+
+    def runs(a, params):
+        # the vocabulary's columns: the padded ones hold -1e30 in each
+        # dtype, which bf16 rounds otherwise
+        return [x[..., :cfg.vocab] if x.dim() else x
+                for x in _whisper_runs(a, params, *ins)]
+    ref = runs(api32, f32)
+    launches, plain = fa.launches, fa.plain_calls
+    card = runs(api, copy.deepcopy(bf).to(cuda))
+    assert fa.launches > launches and fa.plain_calls == plain
+    dist = {dev: max(float((x - r).abs().max()) for x, r in zip(run, ref))
+            for dev, run in (("cpu", runs(api, bf)), ("card", card))}
+    assert dist["card"] <= 2 * dist["cpu"], dist
 
 
 def test_serve_lm_whisper_at_full_width_launches_flash_582_times(cuda):
@@ -963,7 +1342,39 @@ def test_serve_lm_whisper_at_full_width_launches_flash_582_times(cuda):
     assert bool(torch.isfinite(res["logits"][:, :cfg.vocab].float()).all())
 
 
-# training (chip_smoke.py phase 18): the flash backward kernels against
+@pytest.mark.parametrize("arch,n_layers", [("mamba2-1.3b", 2),
+                                           ("zamba2-2.7b", 6),
+                                           ("whisper-base", None)])
+def test_decode_step_makes_no_host_sync(cuda, arch, n_layers):
+    """A decode step after ``serve_lm.generate`` under
+    ``set_sync_debug_mode("error")`` (any operation that waits for the
+    device raises): the SSD families at full width cut in depth, and
+    whisper-base whole, whose cross-attention recomputes k and v from the
+    encoder's output every step."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+    cfg = get_arch(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    api = build_model(cfg)
+    params = api.init_params(torch.Generator(cuda).manual_seed(0))
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 32)).astype(np.int32)).to(cuda)
+    with torch.inference_mode():
+        res = serve_lm.generate(api, params, prompt, 4)
+        cur = torch.argmax(res["logits"], -1)[:, None]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, _ = api.decode_step(params, res["state"], cur, 32 + 4)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(logits[:, :cfg.vocab].float()).all())
+
+
+# training: the flash backward kernels against
 # the plain backward and autograd of the plain forward, at the reduced
 # models' d = 16 and at every shape training reaches at batch 4 (minicpm-2b,
 # zamba2-2.7b's shared block at d = 80, d = 128, whisper-base's encoder and
@@ -1105,13 +1516,13 @@ def test_flash_bf16_route_at_the_cells_shapes(cuda, h, sq, sk, causal):
 
 
 # a share of output and gradient elements equal to the float32 route's
-# rounded to bfloat16 (repro_torch.bench_flash.route_agreement): the route's
-# three pieces of P and dS reach it (0.9963 at the least on the H100, on O
-# at 4,096 keys), one piece (plain bf16 flash, 0.57-0.60) does not. Two
-# pieces (0.994-0.998) fall within the float32 routes' own spread here
-# (plain float32 PyTorch against the float32 route reads 0.9947-0.9999),
-# so only the CPU emulation (tests/test_torch_flash_bf16_split.py) sees
-# the lo piece.
+# rounded to bfloat16 (repro_torch.bench_kernels.route_agreement): the
+# route's three pieces of P and dS reach it (0.9963 at the least on the
+# H100, on O at 4,096 keys), one piece (plain bf16 flash, 0.57-0.60) does
+# not. Two pieces (0.994-0.998) fall within the float32 routes' own spread
+# here (plain float32 PyTorch against the float32 route reads
+# 0.9947-0.9999), so only the CPU emulation
+# (tests/test_torch_flash_bf16_split.py) sees the lo piece.
 TC_AGREE = 0.99
 
 
@@ -1122,7 +1533,7 @@ def test_flash_bf16_route_agrees_with_the_float32_route(cuda, h, sq, sk, d,
                                                         causal):
     """Bit for bit after rounding, on the same bfloat16 inputs, lse and D:
     the tolerances above hold plain bf16 flash too, this share does not."""
-    from repro_torch.bench_flash import route_agreement
+    from repro_torch.bench_kernels import route_agreement
     rng = np.random.default_rng(h + sq + d)
     q, do = (_normal(rng, (h, sq, d), cuda, torch.bfloat16)
              for _ in range(2))
@@ -1208,13 +1619,10 @@ def test_serving_launches_no_backward_kernel(cuda):
         cfg.n_layers * (8 + 4), 0, 0, 0, 0]
 
 
-@pytest.mark.parametrize("arch", ["minicpm-2b", "whisper-base"])
-def test_train_steps_on_the_card_match_the_cpu(cuda, arch):
-    """Two ``make_step`` steps of the reduced model in float32 from one
-    set of parameters: losses and gnorms within 1e-5 and 1e-4 relative,
-    parameters within 2 x (lr_1 + lr_2) = 3.6e-4 (an entry with a near
-    zero gradient may take Adam's sign-like step the other way), such
-    entries under 0.1% of all."""
+def _train_runs(arch, compress, cuda):
+    """Two ``make_step`` steps of the reduced model in float32 from one set
+    of parameters, with or without gradient compression, on the CPU and
+    on the card: [(losses and gnorms, parameters after)] for each."""
     import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.convert import (lm_params_from_reference,
@@ -1222,6 +1630,7 @@ def test_train_steps_on_the_card_match_the_cpu(cuda, arch):
     from repro_torch.data.pipeline import DataCfg, TokenPipeline
     from repro_torch.launch import train
     from repro_torch.models import build_model
+    from repro_torch.optim import grad_compress
     from repro_torch.optim.adamw import AdamW
     cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
     api = build_model(cfg)
@@ -1232,15 +1641,38 @@ def test_train_steps_on_the_card_match_the_cpu(cuda, arch):
         params = lm_params_from_reference(tree, cfg, dev)
         opt = AdamW(lr=train.schedule("wsd", 3e-4, 2))
         state = opt.init(list(params.parameters()))
-        step = train.make_step(api, opt, False)
+        err = grad_compress.init_error(list(params.parameters())) \
+            if compress else None
+        step = train.make_step(api, opt, compress)
         pipe = TokenPipeline(DataCfg(cfg.vocab, 32, 2, seed=0))
         metrics = []
         for i in range(2):
             batch = train.make_batch(cfg, pipe, i, 2, dev)
-            params, state, _, m = step(params, state, None, batch)
+            params, state, err, m = step(params, state, err, batch)
             metrics.append((float(m["loss"]), float(m["gnorm"])))
         runs.append((np.array(metrics),
                      [p.detach().cpu() for p in params.parameters()]))
+    return runs
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "whisper-base"])
+def test_train_steps_on_the_card_match_the_cpu(cuda, arch):
+    """Two ``make_step`` steps of the reduced model in float32 from one
+    set of parameters: losses and gnorms within 1e-5 and 1e-4 relative,
+    parameters within 2 x (lr_1 + lr_2) = 3.6e-4 (an entry with a near
+    zero gradient may take Adam's sign-like step the other way), such
+    entries under 0.1% of all."""
+    _assert_train_runs_agree(_train_runs(arch, False, cuda))
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "whisper-base"])
+def test_compressed_train_steps_on_the_card_match_the_cpu(cuda, arch):
+    """The same with the trainer's gradient compression and its error
+    feedback, and the same limits."""
+    _assert_train_runs_agree(_train_runs(arch, True, cuda))
+
+
+def _assert_train_runs_agree(runs):
     (mc, pc), (mg, pg) = runs
     np.testing.assert_allclose(mg[:, 0], mc[:, 0], rtol=1e-5)
     np.testing.assert_allclose(mg[:, 1], mc[:, 1], rtol=1e-4)
@@ -1248,6 +1680,47 @@ def test_train_steps_on_the_card_match_the_cpu(cuda, arch):
     assert max(float(d.max()) for d in diffs) <= 3.6e-4
     assert sum(int((d > 1e-6).sum()) for d in diffs) <= \
         1e-3 * sum(d.numel() for d in diffs)
+
+
+def test_train_step_takes_the_bf16_route(cuda):
+    """minicpm-2b's widths in bf16 cut to 2 layers, two
+    ``launch.train.make_step`` steps of 1 x 128 tokens, the cells' own
+    path: each step launches ``flash_kernel_tc`` and one backward call of
+    ``flash_bwd_dkdv_kernel_tc`` and ``flash_bwd_dq_kernel_tc`` a layer,
+    the float32 route's kernels (each counter's launches less its route's)
+    and every plain version never. A model that hands the kernel float32
+    (an upcast in ``models.layers._attend``) fails here."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.kernels import adamw as AK
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamW
+    cfg = dataclasses.replace(get_arch("minicpm-2b"), n_layers=2)
+    assert cfg.dtype == "bfloat16" and cfg.hd in fa.TC_HEAD_DIMS
+    api = build_model(cfg)
+    params = api.init_params(torch.Generator(cuda).manual_seed(0))
+    opt = AdamW(lr=train.schedule("wsd", 3e-4, 2))
+    state = opt.init(list(params.parameters()))
+    step = train.make_step(api, opt, False)
+    pipe = TokenPipeline(DataCfg(cfg.vocab, 128, 1, seed=0))
+
+    def counts():
+        return (fa.tc_launches, fa.bwd_tc_launches, fa.bwd_dkdv_tc_launches,
+                fa.bwd_dq_tc_launches, fa.bwd_preprocess_launches,
+                fa.launches - fa.tc_launches,
+                fa.bwd_dkdv_launches - fa.bwd_dkdv_tc_launches,
+                fa.bwd_dq_launches - fa.bwd_dq_tc_launches,
+                fa.plain_calls, fa.backward_plain_calls, AK.plain_calls)
+    for i in range(2):
+        before = counts()
+        params, state, _, m = step(params, state, None, train.make_batch(
+            cfg, pipe, i, 1, cuda))
+        torch.cuda.synchronize()
+        assert [b - a for a, b in zip(before, counts())] == \
+            [cfg.n_layers] * 5 + [0] * 6
+        assert bool(torch.isfinite(m["loss"]))
 
 
 @pytest.fixture
@@ -1259,19 +1732,33 @@ def nccl_rank(cuda):
         dist.destroy_process_group()
 
 
-def test_sharded_trainer_on_one_nccl_rank_equals_the_unsharded(nccl_rank):
-    """``--model-axis 1``: every parameter a DTensor on a (1, 1) mesh of
-    one NCCL rank, the same losses bit for bit as the trainer with no
-    mesh, the flash kernels launched per layer and step, no plain call."""
+def test_sharded_trainer_on_one_nccl_rank_equals_the_unsharded(nccl_rank,
+                                                               monkeypatch):
+    """``--model-axis 1``: every parameter a DTensor on a (1, 1) ("data",
+    "model") mesh of one NCCL rank, the same losses bit for bit as the
+    trainer with no mesh, the flash kernels launched per layer and step,
+    no plain call."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
     from repro_torch.launch import train
+    from repro_torch.runtime import partition as PT
     args = ["--arch", "minicpm-2b", "--reduced", "--steps", "3", "--batch",
             "4", "--seq", "64", "--log-every", "1", "--device", "cuda"]
     want = train.main(args)
+    placed, place = [], PT.place_model
+    monkeypatch.setattr(PT, "place_model", lambda *a: placed.append(
+        place(*a)) or placed[-1])
     fa.launches = fa.plain_calls = fa.backward_plain_calls = 0
     fa.bwd_preprocess_launches = fa.bwd_dkdv_launches = \
         fa.bwd_dq_launches = 0
     got = train.main(args + ["--model-axis", "1"])
     assert got == want
+    (model,) = placed
+    mesh = next(model.parameters()).device_mesh
+    assert all(isinstance(p, DTensor) for p in model.parameters())
+    assert tuple(mesh.mesh.shape) == (1, 1)
+    assert tuple(mesh.mesh_dim_names) == ("data", "model")
+    assert dist.get_backend() == "nccl"
     assert [fa.launches, fa.bwd_preprocess_launches, fa.bwd_dkdv_launches,
             fa.bwd_dq_launches] == [2 * 3] * 4
     assert (fa.plain_calls, fa.backward_plain_calls) == (0, 0)
@@ -1349,8 +1836,13 @@ def test_dry_run_flops_equal_a_real_step_on_the_card(cuda):
     from repro_torch.optim.adamw import AdamW, cosine_schedule
     from repro_torch.roofline.op_costs import OpCosts
     cfg = get_arch("minicpm-2b").reduced()
+    counts = (fa.launches, fa.bwd_dq_launches, fa.plain_calls,
+              fa.backward_plain_calls)
     fake = dryrun.trace_cell(cfg, ShapeCfg("t", 64, 4, "train"), None,
                              "cuda")["costs"]
+    # the fake step reaches no kernel and no plain version
+    assert (fa.launches, fa.bwd_dq_launches, fa.plain_calls,
+            fa.backward_plain_calls) == counts
     api = build_model(cfg)
     params = api.init_params(torch.Generator(cuda).manual_seed(0))
     opt = AdamW(lr=cosine_schedule(3e-4, 100, 10000))
@@ -1371,3 +1863,33 @@ def test_dry_run_flops_equal_a_real_step_on_the_card(cuda):
             fa.backward_plain_calls) == (before[0] + n, before[1] + n,
                                          before[2], before[3])
     assert bool(torch.isfinite(metrics["loss"]))
+
+
+def test_dry_run_peak_tracks_the_allocator_on_the_card(cuda):
+    """minicpm-2b's widths cut to 2 layers, batch 4 x 512: the dry run's
+    step for real under ``OpCosts``, whose tracker of live storages (the
+    dry run's peak memory) reads within 20% of what the CUDA allocator
+    reports for the same step."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import DataCfg, TokenPipeline
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.roofline.op_costs import OpCosts
+    cfg = dataclasses.replace(get_arch("minicpm-2b"), n_layers=2)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    api = build_model(cfg)
+    params = api.init_params(torch.Generator(cuda).manual_seed(0))
+    opt = AdamW(lr=cosine_schedule(3e-4, 100, 10000))
+    state = opt.init(list(params.parameters()))
+    batch = train.make_batch(cfg, TokenPipeline(DataCfg(cfg.vocab, 512, 4)),
+                             0, 4, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with OpCosts({"params": params, "state": state, "batch": batch}) as real:
+        dryrun.make_train_step(api, opt)(params, state, batch)
+    torch.cuda.synchronize()
+    ratio = real.peak_bytes / (torch.cuda.max_memory_allocated() - before)
+    assert abs(ratio - 1) <= 0.20, ratio

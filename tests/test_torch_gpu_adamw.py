@@ -95,6 +95,52 @@ def test_norm_kernel_is_near_a_float64_sum_and_repeats(cuda):
     assert float(K.global_sq_norm(grads, [False] * len(grads))) == 0.0
 
 
+def _leaves_a_launch():
+    """Leaves one launch of the update and of the norm takes
+    (``csrc/adamw.cu`` ``kAdamLeaves``, ``kNormLeaves``)."""
+    import os
+    import re
+    path = os.path.join(os.path.dirname(K.__file__), os.pardir, "csrc",
+                        "adamw.cu")
+    with open(path) as f:
+        src = f.read()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src)
+                     .group(1)) for name in ("kAdamLeaves", "kNormLeaves"))
+
+
+def test_kernels_take_many_leaves_in_batches_of_a_launch(cuda):
+    """More leaves than a launch of either kernel holds, as a model's
+    (minicpm-2b has 362): the update in ceil(n / kAdamLeaves) launches,
+    bit-equal to the plain loop in every leaf; the norm in
+    ceil(n / kNormLeaves) launches and one that sums the partials, within
+    1e-5 of a float64 sum."""
+    adam_leaves, norm_leaves = _leaves_a_launch()
+    n = 2 * norm_leaves + 3
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    shapes = [(1 + 37 * i % 5000,) for i in range(n)]
+    params = [(torch.randn(s, generator=gen, device=cuda) * 0.02).to(BF16)
+              for s in shapes]
+    grads = [(torch.randn(s, generator=gen, device=cuda) * 1e-3).to(BF16)
+             for s in shapes]
+    mu = [torch.randn(s, generator=gen, device=cuda) * 1e-4 for s in shapes]
+    nu = [torch.rand(s, generator=gen, device=cuda) * 1e-8 for s in shapes]
+    plain = [[t.clone() for t in ts] for ts in (params, mu, nu)]
+    args = (torch.tensor(1e-3, device=cuda), torch.tensor(0.271, device=cuda),
+            torch.tensor(0.1426, device=cuda),
+            torch.tensor(0.5, device=cuda), 0.9, 0.95, 1e-8, 0.1)
+    before = (K.adamw_launches, K.sq_norm_launches)
+    K.update(params, mu, nu, grads, *args)
+    total = K.global_sq_norm(grads)
+    torch.cuda.synchronize()
+    assert (K.adamw_launches - before[0], K.sq_norm_launches - before[1]) \
+        == (-(-n // adam_leaves), -(-n // norm_leaves) + 1)
+    K.update_plain(*plain, grads, *args)
+    for a, b in zip(params + mu + nu, sum(plain, [])):
+        assert torch.equal(a, b)
+    want = sum(float(g.double().pow(2).sum()) for g in grads)
+    assert abs(float(total) - want) <= 1e-5 * want
+
+
 def _update_args(cuda):
     p = [torch.zeros(8, dtype=BF16, device=cuda)]
     return dict(params=p, mu=[torch.zeros(8, device=cuda)],

@@ -76,6 +76,25 @@ def test_source_scan_finds_no_jax_or_reference_import():
     assert not offenders, offenders
 
 
+PORTBENCH = re.compile(r"^\s*(import|from)\s+portbench\b", re.M)
+
+
+def test_the_port_imports_nothing_of_the_benchmark():
+    """The benchmark (``portbench/``) depends on the port, not the
+    reverse: no module under ``src/repro_torch`` imports it."""
+    assert PORTBENCH.search("from portbench.trace import Trace")
+    assert PORTBENCH.search("    import portbench")
+    assert not PORTBENCH.search("import portbench_x")
+    offenders = []
+    for d, _, names in os.walk(PORT):
+        for n in names:
+            if n.endswith(".py"):
+                with open(os.path.join(d, n)) as fh:
+                    offenders += [f"{n}: {m.group(0).strip()}"
+                                  for m in PORTBENCH.finditer(fh.read())]
+    assert not offenders, offenders
+
+
 def test_forbidden_pattern_catches_what_it_should():
     for bad in ("import jax", "import jax.numpy as jnp", "from jax import lax",
                 "from repro.core import dfg", "from repro import obs",
